@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one CUDA card and hold its
+hand-written kernels against their plain PyTorch versions.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper card (the kernels build for sm_90a) and the CUDA
+toolkit's nvcc; imports only torch, numpy and `incubator_mxnet_tpu_torch`.
+Phases, in order; any failure raises and the exit code is non-zero:
+
+1. build: nvcc compiles every kernel source of the port (one process per
+   source, all at once) into build/torch_kernels/;
+2. kernels: each kernel against its plain version on the card, at the
+   shapes the serving path gives it, in float32 (tolerance 2e-5) and
+   bfloat16 (2e-2);
+3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
+   d_ff 2048, vocab 32000, max_len 512, float32, random weights from
+   seed 0) serves the seeded trace through the engine (8 slots, page 16);
+   every request must complete, the paged kernel must run once per layer
+   per decode step, and every request's tokens must equal generate() with
+   use_flash, which runs the flash_decode kernel;
+4. times (CUDA events; warm-up first, median of 25 or more): decode step,
+   prefill, tokens/s over the trace, and each kernel beside its plain
+   version, its memory bound and, for flash_decode, one library call;
+   then a traced window (torch.profiler) over decode steps gives the
+   device's busy share and the kernels that take its time.
+
+The last lines are the card (`nvidia-smi` name and power limit), one JSON
+object describing the kernels, and the status JSON.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from incubator_mxnet_tpu_torch.models import transformer as tfm
+from incubator_mxnet_tpu_torch.ops import _build
+from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
+from incubator_mxnet_tpu_torch.serving import PageAllocator, run_trace
+
+FULL = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
+            max_len=512)
+SLOTS, PAGE = 8, 16
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
+NEAR_TIE = 1e-4
+SOURCE = "incubator_mxnet_tpu_torch/ops/csrc/decode.cu"
+JAX_KERNELS = "incubator_mxnet_tpu/ops/pallas_kernels.py"
+
+
+def card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(label, got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    print(f"  {label}: max_abs_err {err:.3e} (tolerance {tol:g})")
+    if not (ok and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e})")
+    return err
+
+
+# -- phase 2: kernels against their plain versions --------------------------
+
+def paged_case(device, dtype, seed=0):
+    """The serving shape: 8 slots, 8 heads of 64, pages of 16, table 32,
+    pool 257; ragged n_valid including 0, 1, 16, 511 and 512."""
+    S, H, D, W, P = SLOTS, 8, 64, 512 // PAGE, SLOTS * 512 // PAGE + 1
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_valid = torch.tensor([0, 1, 16, 17, 200, 300, 511, 512])
+    alloc = PageAllocator(P, PAGE)
+    table = torch.zeros((S, W), dtype=torch.int32)
+    for s in range(S):
+        pages = alloc.alloc(alloc.pages_needed(int(n_valid[s])))
+        table[s, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    q = torch.randn((S, H, D), generator=g)
+    kp = torch.randn((P, PAGE, H, D), generator=g)
+    vp = torch.randn((P, PAGE, H, D), generator=g)
+    args = (q, kp, vp, table, n_valid.to(torch.int32))
+    return tuple(a.to(device=device, dtype=dtype)
+                 if a.is_floating_point() else a.to(device) for a in args)
+
+
+def recycled_case(device, dtype, seed=1):
+    """Slot 5's pages freed and handed to a new sequence, which writes new
+    K/V into them: the kernel must read the new contents."""
+    q, kp, vp, table, nv = (a.clone() for a in paged_case(device, dtype))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pages = table[5, :-(-300 // PAGE)].tolist()
+    new = list(reversed(pages))  # the same ids, in another order
+    for pg in new:
+        kp[pg] = torch.randn(kp.shape[1:], generator=g).to(kp)
+        vp[pg] = torch.randn(vp.shape[1:], generator=g).to(vp)
+    table[5] = 0
+    table[5, :len(new)] = torch.tensor(new, dtype=torch.int32)
+    nv[5] = len(new) * PAGE - 3
+    return q, kp, vp, table, nv
+
+
+def flash_case(device, dtype, B, T, n_valid, seed=2):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, 8, 64), generator=g)
+    k = torch.randn((B, T, 8, 64), generator=g)
+    v = torch.randn((B, T, 8, 64), generator=g)
+    if not isinstance(n_valid, int):
+        n_valid = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            n_valid)
+
+
+FLASH_CASES = {
+    "B8 T512 scalar n_valid 300": (8, 512, 300),
+    "B8 T512 (B,) n_valid": (8, 512, [1, 2, 127, 128, 129, 300, 511, 512]),
+    "B8 T200 scalar n_valid 137": (8, 200, 137),
+    "B8 T200 (B,) n_valid": (8, 200, [1, 5, 64, 100, 128, 150, 199, 200]),
+    "B1 T512 scalar n_valid 270 (generate)": (1, 512, 270),
+}
+
+
+def kernels_against_plain(device):
+    """Phase 2. Returns {kernel: max abs err in float32}."""
+    errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0}
+    for dtype, tol in TOL.items():
+        name = str(dtype).replace("torch.", "")
+        for label, make in (("ragged", paged_case),
+                            ("recycled pages", recycled_case)):
+            args = make(device, dtype)
+            got = dk.paged_decode_attention(*args)
+            want = dk.paged_decode_attention_ref(*args)
+            err = check(f"paged_decode_attention {name} {label}", got, want,
+                        tol)
+            if got[args[4] == 0].float().abs().max() != 0:
+                raise AssertionError("a dead slot must give zeros")
+            if dtype == torch.float32:
+                errs["paged_decode_attention"] = max(
+                    errs["paged_decode_attention"], err)
+        for label, (B, T, nv) in FLASH_CASES.items():
+            args = flash_case(device, dtype, B, T, nv)
+            err = check(f"flash_decode {name} {label}",
+                        dk.flash_decode(*args), dk.flash_decode_ref(*args),
+                        tol)
+            if dtype == torch.float32:
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+    return errs
+
+
+# -- phase 3: the serving path at full width --------------------------------
+
+def serve(cfg, params, n_requests, device):
+    """Serve the seeded trace; the paged kernel's launches are counted
+    from zero over exactly this run."""
+    dk.paged_decode_attention.launches = 0
+    out = run_trace(params, cfg, n_requests=n_requests, slots=SLOTS,
+                    page_size=PAGE, seed=0, device=device)
+    out["launches"] = dk.paged_decode_attention.launches
+    if out["requests_completed"] != n_requests:
+        raise AssertionError(f"{out['requests_completed']} of {n_requests} "
+                             f"requests completed")
+    for r in out["trace"]:
+        if len(out["results"][r["rid"]].tokens) != r["max_new"]:
+            raise AssertionError(f"request {r['rid']} stopped early")
+    want = out["decode_steps"] * cfg.n_layers
+    if out["launches"] != want:
+        raise AssertionError(f"paged_decode_attention launched "
+                             f"{out['launches']} times, expected {want} "
+                             f"(decode steps x layers)")
+    return out
+
+
+def top2_margin(params, cfg, seq):
+    logits, _ = tfm.apply(params, seq[None], cfg)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def match_generate(cfg, params, served, device):
+    """Every request's tokens against generate(use_flash=True), counting
+    the flash_decode kernel's launches from zero over these calls."""
+    flash_cfg = dataclasses.replace(cfg, use_flash=True)
+    dk.flash_decode.launches = 0
+    expected, ties = 0, 0
+    for r in served["trace"]:
+        got = served["results"][r["rid"]].tokens
+        ref = tfm.generate(params, r["prompt"][None], len(got), flash_cfg,
+                           device=device)[0].tolist()
+        expected += (len(got) - 1) * cfg.n_layers
+        if got == ref:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        seq = torch.as_tensor(np.concatenate([r["prompt"], ref[:i]]),
+                              device=device)
+        margin = top2_margin(params, cfg, seq)
+        if margin >= NEAR_TIE:
+            raise AssertionError(
+                f"request {r['rid']}: token {i} is {got[i]}, generate() "
+                f"gives {ref[i]} (top-2 margin {margin:.3e})")
+        ties += 1
+        print(f"  request {r['rid']}: near tie at token {i} (top-2 margin "
+              f"{margin:.3e} < {NEAR_TIE:g}); rest of it not compared")
+    if dk.flash_decode.launches != expected:
+        raise AssertionError(f"flash_decode launched "
+                             f"{dk.flash_decode.launches} times, expected "
+                             f"{expected}")
+    return dk.flash_decode.launches, ties
+
+
+# -- phase 4: times ----------------------------------------------------------
+
+def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
+    """Median device time of fn() in ms, from CUDA events. Each call
+    starts behind a device-side sleep of `sleep_cycles` clocks, long
+    enough that the host enqueues all of fn's work before the device
+    reaches it, so the events time the device alone; with `flush`, the
+    L2 is cold (a buffer larger than the L2 is zeroed first)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def bound_ms(n_valid, T_cap, H, D, elem, B, extra_bytes=0):
+    """Least time for one call on this card: each live key and value row
+    read once, q read and the output written once (float32), against the
+    memory rate; the 4*D operations per row against the float32 rate.
+    Returns (ms, "bytes" or "operations")."""
+    rows = int(torch.clamp(n_valid.cpu().long(), 0, T_cap).sum())
+    nbytes = rows * H * D * 2 * elem + 2 * B * H * D * 4 + extra_bytes
+    ops = 4 * rows * H * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_rows(errs, launches, flush, device, gpu):
+    """Times of each kernel at the serving path's shapes, float32."""
+    rows = []
+    args = paged_case(device, torch.float32)
+    q, kp, _, table, nv = args
+    S, H, D = q.shape
+    pages_read = int(((nv.long() + PAGE - 1) // PAGE).sum())
+    b_ms, b_by = bound_ms(nv, table.shape[1] * PAGE, H, D, 4, S,
+                          extra_bytes=4 * pages_read + 4 * S)
+    ms = device_ms(lambda: dk.paged_decode_attention(*args), flush=flush)
+    plain = device_ms(lambda: dk.paged_decode_attention_ref(*args),
+                      flush=flush)
+    rows.append({
+        "name": "paged_decode_attention", "route": "cuda", "source": SOURCE,
+        "replaces": f"{JAX_KERNELS}:719", "launches": launches["paged"],
+        "max_abs_err": errs["paged_decode_attention"], "ms": ms,
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    print(f"  paged_decode_attention S{S} H{H} D{D} page {PAGE} n_valid "
+          f"{nv.tolist()}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f}"
+          f" us, bound {b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+
+    generate_shape = "B1 T512 n_valid 270 (generate)"
+    for label, (B, T, n) in ((generate_shape, (1, 512, 270)),
+                             ("B8 T512 (B,) n_valid",
+                              FLASH_CASES["B8 T512 (B,) n_valid"])):
+        fq, fk, fv, fnv = flash_case(device, torch.float32, B, T, n)
+        nv_vec = dk._per_seq_n_valid(fnv, B, device)
+        f_ms, f_by = bound_ms(nv_vec, T, 8, 64, 4, B, extra_bytes=4 * B)
+        ms = device_ms(lambda: dk.flash_decode(fq, fk, fv, fnv), flush=flush)
+        plain = device_ms(lambda: dk.flash_decode_ref(fq, fk, fv, fnv),
+                          flush=flush)
+        # yardstick only: one library call for the same function, on the
+        # transposed cache with a length mask (the port never calls it)
+        mask = (torch.arange(T, device=device)[None]
+                < nv_vec[:, None])[:, None, None, :]
+        lq, lk, lv = fq[:, :, None], fk.transpose(1, 2), fv.transpose(1, 2)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask), flush=flush)
+        print(f"  flash_decode {label}: kernel {ms * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, bound "
+              f"{f_ms * 1e3:.2f} us ({f_by}) [{gpu}]")
+        if label == generate_shape:  # the JSON row: generate()'s shape
+            rows.append({
+                "name": "flash_decode", "route": "cuda", "source": SOURCE,
+                "replaces": f"{JAX_KERNELS}:455",
+                "launches": launches["flash"],
+                "max_abs_err": errs["flash_decode"], "ms": ms,
+                "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
+                "library_ms": lib})
+    return rows
+
+
+def path_times(cfg, params, device, gpu):
+    """Median device time of one full-width decode step (8 live slots at
+    ragged depths) and of one prefill of a 200-token prompt (bucket 256),
+    then a traced window over decode steps."""
+    W = 512 // PAGE
+    paged = tfm.init_paged_kv_cache(cfg, SLOTS * W + 1, PAGE, device=device)
+    positions = torch.tensor([5, 40, 77, 120, 160, 199, 230, 269],
+                             device=device)
+    table = (torch.arange(SLOTS * W, device=device).reshape(SLOTS, W) + 1)
+    tokens = torch.arange(1, SLOTS + 1, device=device)
+    with torch.no_grad():
+        # ~10 ms of sleep covers the host's enqueue of a whole step
+        step_ms = device_ms(lambda: tfm.decode_step_paged(
+            params, paged, tokens, positions, table, cfg)[0].argmax(-1),
+            reps=30, sleep_cycles=20_000_000)
+        prompt = torch.randint(1, cfg.vocab, (1, 256), device=device,
+                               generator=torch.Generator(device=device)
+                               .manual_seed(3))
+        lens = torch.tensor([200], device=device)
+        prefill_ms = device_ms(lambda: tfm.prefill_paged(
+            params, paged, prompt, lens, table[:1], cfg)[1].argmax(-1),
+            reps=25, sleep_cycles=20_000_000)
+        step_host = host_ms(lambda: tfm.decode_step_paged(
+            params, paged, tokens, positions, table, cfg)[0].argmax(-1)
+            .cpu())
+        print(f"  decode step (8 slots, positions {positions.tolist()}): "
+              f"device {step_ms:.3f} ms; with the token read-back, host "
+              f"clock {step_host:.3f} ms [{gpu}]")
+        print(f"  prefill (1 x 256 bucket, 200 tokens): device "
+              f"{prefill_ms:.3f} ms [{gpu}]")
+        busy_share(lambda: tfm.decode_step_paged(
+            params, paged, tokens, positions, table, cfg)[0].argmax(-1)
+            .cpu(), "decode step + token read-back", gpu)
+
+
+def host_ms(fn, reps=30, warmup=3):
+    """Median host-clock time of fn() in ms; fn must end in a sync."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def busy_share(fn, label, gpu, steps=20):
+    """Traced window (torch.profiler) over `steps` calls: the share of
+    wall time with a kernel running, and the kernels taking the most
+    device time. Tracing adds host time, so the busy share is a lower
+    bound for an untraced run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us())
+    if not kernels:
+        print(f"  {label}: the profiler saw no device time; busy share "
+              f"not measured [{gpu}]")
+        return
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {label}, traced over {steps} calls: wall "
+          f"{wall_us / steps / 1e3:.3f} ms per call, device busy "
+          f"{busy / wall_us:.1%} (idle {1 - busy / wall_us:.1%}) [{gpu}]")
+    for name, us in top:
+        print(f"    {us / steps:9.1f} us/call  {us / busy:6.1%}  "
+              f"{name[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = card()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
+
+    print("phase 1: build")
+    t0 = time.perf_counter()
+    for name, rec in _build.build().items():
+        regs = [ln.strip() for ln in rec["output"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  {name}.cu: {rec['seconds']:.1f} s "
+              f"({'cached' if rec['cached'] else 'nvcc'}); ptxas: "
+              f"{len(regs)} lines, first: {regs[:2]}")
+    print(f"  build {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+
+    print("phase 2: kernels against their plain versions")
+    errs = kernels_against_plain(device)
+
+    print("phase 3: serving at full width")
+    cfg = tfm.TransformerConfig(**FULL)
+    params = tfm.init_params(cfg, seed=0, device=device)
+    served = serve(cfg, params, 16, device)
+    print(f"  {served['requests_completed']} requests, "
+          f"{served['generated_tokens']} tokens, {served['engine_steps']} "
+          f"engine steps, {served['decode_steps']} decode steps, "
+          f"paged_decode_attention launches {served['launches']}")
+    flash_launches, ties = match_generate(cfg, params, served, device)
+    print(f"  tokens equal generate(use_flash=True) for every request "
+          f"({ties} near ties); flash_decode launches {flash_launches}")
+
+    print("phase 4: times")
+    print(f"  tokens/s over the trace: {served['tokens_per_sec']:.1f} "
+          f"({served['generated_tokens']} tokens in "
+          f"{served['measured_seconds']:.3f} s, host clock) [{gpu}]")
+    path_times(cfg, params, device, gpu)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    rows = kernel_rows(errs, {"paged": served["launches"],
+                              "flash": flash_launches}, flush, device, gpu)
+    torch.cuda.synchronize()
+
+    print(gpu)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
