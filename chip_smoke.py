@@ -12,18 +12,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    source, all at once) into build/torch_kernels/;
 2. kernels: each kernel against its plain version on the card, at the
    shapes the serving path gives it, in float32 (tolerance 2e-5) and
-   bfloat16 (2e-2);
+   bfloat16 (2e-2); the wide kernel at Q = 5, 32 and 64 rows per slot;
 3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
    d_ff 2048, vocab 32000, max_len 512, float32, random weights from
-   seed 0) serves the seeded trace through the engine (8 slots, page 16);
-   every request must complete, the paged kernel must run once per layer
-   per decode step, and every request's tokens must equal generate() with
-   use_flash, which runs the flash_decode kernel;
+   seed 0) serves the seeded trace through the engine (8 slots, page 16)
+   with the levers off, then once with each lever on (prefix cache over
+   a half-shared 32-token prefix, chunked prefill of 64, n-gram 2
+   speculation with lookahead 4). Every request must complete with its
+   full budget; the paged kernel must run once per layer per decode step
+   and the wide kernel once per layer per wide step; every request's
+   tokens must equal generate() with use_flash, which runs the
+   flash_decode kernel;
 4. times (CUDA events; warm-up first, median of 25 or more): decode step,
-   prefill, tokens/s over the trace, and each kernel beside its plain
-   version, its memory bound and, for flash_decode, one library call;
-   then a traced window (torch.profiler) over decode steps gives the
-   device's busy share and the kernels that take its time.
+   prefill, tokens/s over each trace, and each kernel beside its plain
+   version, its bound and, for flash_decode, one library call; then
+   traced windows (torch.profiler) over decode steps and over each
+   trace give the device's busy share and the kernels that take its
+   time.
 
 The last lines are the card (`nvidia-smi` name and power limit), one JSON
 object describing the kernels, and the status JSON.
@@ -52,6 +57,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 NEAR_TIE = 1e-4
+WIDE_Q = (5, 32, 64)  # speculation (lookahead 4), prefix tail, chunk 64
+LEVER_LEGS = {
+    "prefix": dict(prefix_cache=1, shared_prefix_frac=0.5, prefix_len=32),
+    "chunked": dict(prefill_chunk=64),
+    "spec": dict(spec_ngram=2, spec_lookahead=4),
+}
 SOURCE = "incubator_mxnet_tpu_torch/ops/csrc/decode.cu"
 JAX_KERNELS = "incubator_mxnet_tpu/ops/pallas_kernels.py"
 
@@ -111,6 +122,42 @@ def recycled_case(device, dtype, seed=1):
     return q, kp, vp, table, nv
 
 
+def wide_case(device, dtype, Q, seed=3):
+    """The serving shape with Q rows per slot: 8 slots, 8 heads of 64,
+    pages of 16, table 32, pool 257; ragged n_base, and rows past the
+    table (cap 512) in the last two slots, the last one wholly past."""
+    S, H, D, W, P = SLOTS, 8, 64, 512 // PAGE, SLOTS * 512 // PAGE + 1
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_base = torch.tensor([0, 1, 15, 16, 200, 300, 511 - Q // 2, 512])
+    alloc = PageAllocator(P, PAGE)
+    table = torch.zeros((S, W), dtype=torch.int32)
+    for s in range(S):
+        pages = alloc.alloc(alloc.pages_needed(min(int(n_base[s]) + Q, 512)))
+        table[s, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    q = torch.randn((S, Q, H, D), generator=g)
+    kp = torch.randn((P, PAGE, H, D), generator=g)
+    vp = torch.randn((P, PAGE, H, D), generator=g)
+    args = (q, kp, vp, table, n_base.to(torch.int32))
+    return tuple(a.to(device=device, dtype=dtype)
+                 if a.is_floating_point() else a.to(device) for a in args)
+
+
+def wide_recycled_case(device, dtype, Q, seed=4):
+    """Slot 5's pages handed, in another order, to a new sequence with
+    new K/V and another n_base: the kernel must read the new contents."""
+    q, kp, vp, table, nb = (a.clone() for a in wide_case(device, dtype, Q))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_pages = int((table[5] != 0).sum())
+    new = list(reversed(table[5, :n_pages].tolist()))
+    for pg in new:
+        kp[pg] = torch.randn(kp.shape[1:], generator=g).to(kp)
+        vp[pg] = torch.randn(vp.shape[1:], generator=g).to(vp)
+    table[5] = 0
+    table[5, :len(new)] = torch.tensor(new, dtype=torch.int32)
+    nb[5] = len(new) * PAGE - Q - 3
+    return q, kp, vp, table, nb
+
+
 def flash_case(device, dtype, B, T, n_valid, seed=2):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, 8, 64), generator=g)
@@ -133,7 +180,8 @@ FLASH_CASES = {
 
 def kernels_against_plain(device):
     """Phase 2. Returns {kernel: max abs err in float32}."""
-    errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0}
+    errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0,
+            "paged_decode_attention_wide": 0.0}
     for dtype, tol in TOL.items():
         name = str(dtype).replace("torch.", "")
         for label, make in (("ragged", paged_case),
@@ -155,29 +203,48 @@ def kernels_against_plain(device):
                         tol)
             if dtype == torch.float32:
                 errs["flash_decode"] = max(errs["flash_decode"], err)
+        for Q in WIDE_Q:
+            for label, make in (("ragged, rows past the table", wide_case),
+                                ("recycled pages", wide_recycled_case)):
+                args = make(device, dtype, Q)
+                err = check(f"paged_decode_attention_wide {name} Q {Q} "
+                            f"{label}", dk.paged_decode_attention_wide(*args),
+                            dk.paged_decode_attention_wide_ref(*args), tol)
+                if dtype == torch.float32:
+                    errs["paged_decode_attention_wide"] = max(
+                        errs["paged_decode_attention_wide"], err)
     return errs
 
 
 # -- phase 3: the serving path at full width --------------------------------
 
-def serve(cfg, params, n_requests, device):
-    """Serve the seeded trace; the paged kernel's launches are counted
-    from zero over exactly this run."""
+def serve(cfg, params, n_requests, device, **levers):
+    """Serve the seeded trace with `levers` (none: the levers off); the
+    paged and wide kernels' launches are counted from zero over exactly
+    this run, and each must match the engine's calls of its step."""
     dk.paged_decode_attention.launches = 0
+    dk.paged_decode_attention_wide.launches = 0
     out = run_trace(params, cfg, n_requests=n_requests, slots=SLOTS,
-                    page_size=PAGE, seed=0, device=device)
-    out["launches"] = dk.paged_decode_attention.launches
+                    page_size=PAGE, seed=0, device=device, **levers)
+    out["launches"] = {"paged": dk.paged_decode_attention.launches,
+                       "wide": dk.paged_decode_attention_wide.launches}
     if out["requests_completed"] != n_requests:
         raise AssertionError(f"{out['requests_completed']} of {n_requests} "
                              f"requests completed")
     for r in out["trace"]:
         if len(out["results"][r["rid"]].tokens) != r["max_new"]:
             raise AssertionError(f"request {r['rid']} stopped early")
-    want = out["decode_steps"] * cfg.n_layers
-    if out["launches"] != want:
-        raise AssertionError(f"paged_decode_attention launched "
-                             f"{out['launches']} times, expected {want} "
-                             f"(decode steps x layers)")
+    for kernel, calls, what in (
+            ("paged", out["decode_steps"], "decode steps"),
+            ("wide", out["wide_calls"], "wide steps")):
+        want = calls * cfg.n_layers
+        if out["launches"][kernel] != want:
+            raise AssertionError(f"{kernel} kernel launched "
+                                 f"{out['launches'][kernel]} times, "
+                                 f"expected {want} ({what} x layers)")
+    used = "wide" if levers else "paged"
+    if not out["launches"][used]:
+        raise AssertionError(f"the {used} kernel never ran on this path")
     return out
 
 
@@ -257,6 +324,22 @@ def bound_ms(n_valid, T_cap, H, D, elem, B, extra_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def wide_bound_ms(n_base, Q, cap, H, D, elem, S, extra_bytes=0):
+    """Least time for one wide call: each (slot, head) reads the live K/V
+    rows its deepest row needs once, q is read and the output written once
+    (float32), against the memory rate; 4*D operations per (row, live
+    key) pair against the float32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    nb = n_base.cpu().long().clamp(min=0)
+    keys = int(torch.clamp(nb + Q, max=cap).sum())
+    pairs = int(torch.clamp(nb[:, None] + torch.arange(1, Q + 1)[None],
+                            max=cap).sum())
+    nbytes = keys * H * D * 2 * elem + 2 * S * Q * H * D * 4 + extra_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * pairs * H * D / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_rows(errs, launches, flush, device, gpu):
     """Times of each kernel at the serving path's shapes, float32."""
     rows = []
@@ -307,6 +390,30 @@ def kernel_rows(errs, launches, flush, device, gpu):
                 "max_abs_err": errs["flash_decode"], "ms": ms,
                 "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
                 "library_ms": lib})
+
+    for Q in WIDE_Q:
+        q, kp, _, table, nb = args = wide_case(device, torch.float32, Q)
+        S, _, H, D = q.shape
+        pages_read = int(((torch.clamp(nb.long() + Q, max=512) + PAGE - 1)
+                          // PAGE).sum())
+        w_ms, w_by = wide_bound_ms(nb, Q, table.shape[1] * PAGE, H, D, 4, S,
+                                   extra_bytes=4 * pages_read + 4 * S)
+        ms = device_ms(lambda: dk.paged_decode_attention_wide(*args),
+                       flush=flush)
+        plain = device_ms(lambda: dk.paged_decode_attention_wide_ref(*args),
+                          flush=flush)
+        print(f"  paged_decode_attention_wide S{S} Q{Q} H{H} D{D} page "
+              f"{PAGE} n_base {nb.tolist()}: kernel {ms * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, bound {w_ms * 1e3:.2f} us ({w_by}) "
+              f"[{gpu}]")
+        if Q == WIDE_Q[0]:  # the JSON row: speculative verification
+            rows.append({
+                "name": "paged_decode_attention_wide", "route": "cuda",
+                "source": SOURCE, "replaces": f"{JAX_KERNELS}:808",
+                "launches": launches["wide"],
+                "max_abs_err": errs["paged_decode_attention_wide"],
+                "ms": ms, "plain_ms": plain, "bound_ms": w_ms,
+                "bound_by": w_by, "library_ms": None})
     return rows
 
 
@@ -357,14 +464,15 @@ def host_ms(fn, reps=30, warmup=3):
     return float(np.median(times)) * 1e3
 
 
-def busy_share(fn, label, gpu, steps=20):
+def busy_share(fn, label, gpu, steps=20, warm=True):
     """Traced window (torch.profiler) over `steps` calls: the share of
     wall time with a kernel running, and the kernels taking the most
     device time. Tracing adds host time, so the busy share is a lower
     bound for an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -421,23 +529,51 @@ def main():
     print("phase 3: serving at full width")
     cfg = tfm.TransformerConfig(**FULL)
     params = tfm.init_params(cfg, seed=0, device=device)
-    served = serve(cfg, params, 16, device)
-    print(f"  {served['requests_completed']} requests, "
-          f"{served['generated_tokens']} tokens, {served['engine_steps']} "
-          f"engine steps, {served['decode_steps']} decode steps, "
-          f"paged_decode_attention launches {served['launches']}")
-    flash_launches, ties = match_generate(cfg, params, served, device)
-    print(f"  tokens equal generate(use_flash=True) for every request "
-          f"({ties} near ties); flash_decode launches {flash_launches}")
+    legs = {"off": {}, **LEVER_LEGS}
+    served, flash_launches = {}, {}
+    for leg, levers in legs.items():
+        out = served[leg] = serve(cfg, params, 16, device, **levers)
+        print(f"  levers {leg} {levers}: {out['requests_completed']} "
+              f"requests, {out['generated_tokens']} tokens, "
+              f"{out['engine_steps']} engine steps, {out['decode_steps']} "
+              f"decode steps, {out['wide_calls']} wide steps; launches "
+              f"{out['launches']}; max_step_prefill_tokens "
+              f"{out['max_step_prefill_tokens']}; "
+              + ", ".join(f"{k} {out[k]}" for k in (
+                  "prefill_tokens_saved", "cow_copies", "prefix_hit_rate",
+                  "prefill_chunks", "spec_accepted_tokens",
+                  "spec_proposed_tokens") if k in out))
+        flash_launches[leg], ties = match_generate(cfg, params, out, device)
+        print(f"  tokens equal generate(use_flash=True) for every request "
+              f"({ties} near ties); flash_decode launches "
+              f"{flash_launches[leg]}")
+    if not (served["prefix"]["prefill_tokens_saved"] > 0
+            and served["prefix"]["cow_copies"] >= 1):
+        raise AssertionError("the prefix leg saved no prefill or copied no "
+                             "page")
+    if not (served["chunked"]["max_step_prefill_tokens"]
+            < served["off"]["max_step_prefill_tokens"]):
+        raise AssertionError("chunked prefill did not lower the most "
+                             "prefill tokens of any step")
 
     print("phase 4: times")
-    print(f"  tokens/s over the trace: {served['tokens_per_sec']:.1f} "
-          f"({served['generated_tokens']} tokens in "
-          f"{served['measured_seconds']:.3f} s, host clock) [{gpu}]")
+    for leg, out in served.items():
+        print(f"  tokens/s over the trace, levers {leg}: "
+              f"{out['tokens_per_sec']:.1f} ({out['generated_tokens']} "
+              f"tokens in {out['measured_seconds']:.3f} s, host clock) "
+              f"[{gpu}]")
     path_times(cfg, params, device, gpu)
+    for leg, levers in legs.items():
+        busy_share(lambda: run_trace(params, cfg, n_requests=16,
+                                     slots=SLOTS, page_size=PAGE, seed=0,
+                                     device=device, **levers),
+                   f"whole trace, levers {leg}", gpu, steps=1, warm=False)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
-    rows = kernel_rows(errs, {"paged": served["launches"],
-                              "flash": flash_launches}, flush, device, gpu)
+    rows = kernel_rows(
+        errs, {"paged": served["off"]["launches"]["paged"],
+               "flash": flash_launches["off"],
+               "wide": sum(served[leg]["launches"]["wide"]
+                           for leg in LEVER_LEGS)}, flush, device, gpu)
     torch.cuda.synchronize()
 
     print(gpu)

@@ -1,11 +1,10 @@
 """Runtime knobs read by the PyTorch port, with the JAX package's names,
 defaults and environment semantics.
 
-Only the knobs the ported serving path reads are registered here. The
-lever knobs (`MXTPU_PREFIX_CACHE`, `MXTPU_PREFILL_CHUNK`,
-`MXTPU_SPEC_NGRAM`) are registered so that the engine can refuse them:
-their levers are not ported yet, and an engine that silently served
-without a lever the operator turned on would give a different result.
+Only the knobs the ported serving path reads are registered here,
+including the serving levers' (`MXTPU_PREFIX_CACHE`,
+`MXTPU_PREFILL_CHUNK`, `MXTPU_SPEC_NGRAM`, `MXTPU_SPEC_LOOKAHEAD`); an
+engine's constructor argument wins over its knob.
 """
 from __future__ import annotations
 
@@ -75,11 +74,22 @@ _register("MXTPU_PREFILL_BUCKETS", "", str,
           "Comma-separated prompt-length buckets for serving prefill. Empty "
           "uses powers of two from 16 up to the model's max_len.")
 _register("MXTPU_PREFIX_CACHE", 0, int,
-          "Prefix-cached copy-on-write KV pages. Not ported yet: a nonzero "
-          "value makes the engine raise NotImplementedError.")
+          "Prefix-cached copy-on-write KV pages in the serving engine: "
+          "prompts sharing a page-aligned token prefix map the cached pages "
+          "read-only instead of prefilling them again. 0 (default) "
+          "disables; 1 enables with a cache bounded only by pool pressure; "
+          "N > 1 caps the cache at N pages.")
 _register("MXTPU_PREFILL_CHUNK", 0, int,
-          "Chunked prefill width. Not ported yet: a nonzero value makes the "
-          "engine raise NotImplementedError.")
+          "Chunked prefill: prompts stream through the wide step this many "
+          "tokens per engine step, interleaved with the batched decode. 0 "
+          "(default) prefills each prompt in one bucketed call at "
+          "admission.")
 _register("MXTPU_SPEC_NGRAM", 0, int,
-          "N-gram speculative decoding. Not ported yet: a nonzero value "
-          "makes the engine raise NotImplementedError.")
+          "N-gram length of draft-free prompt-lookup speculation: the "
+          "trailing n-gram of a request's own history proposes the "
+          "continuation of its latest earlier match. 0 (default) "
+          "disables speculation.")
+_register("MXTPU_SPEC_LOOKAHEAD", 4, int,
+          "Tokens proposed per speculative step (the wide verification "
+          "step runs lookahead + 1 query rows per slot). Read only when "
+          "MXTPU_SPEC_NGRAM > 0.")

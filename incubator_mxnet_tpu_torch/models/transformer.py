@@ -12,9 +12,11 @@ layer stack is a Python loop where the JAX code scans.
 - `apply` is the full forward pass; `prefill` / `decode_step` /
   `generate` / `beam_search` decode over a dense KV cache (with
   `cfg.use_flash`, decode attention is the `flash_decode` kernel).
-- `init_paged_kv_cache` / `decode_step_paged` / `prefill_paged` are the
-  paged programs the serving engine drives; decode attention is the
-  `paged_decode_attention` kernel.
+- `init_paged_kv_cache` / `decode_step_paged` / `prefill_paged` /
+  `decode_step_paged_wide` are the paged programs the serving engine
+  drives; decode attention is the `paged_decode_attention` kernel, and
+  the wide step's (Q rows per slot, behind the serving levers) the
+  `paged_decode_attention_wide` kernel.
 
 KV caches are updated in place (`index_copy_` into the page pool, slice
 assignment into the dense cache) where the JAX functions return a new
@@ -24,7 +26,7 @@ float32 one copy of the paged pool is about 100 MB
 
 Not ported yet: the mixture-of-experts FFN (`n_experts > 0`), the
 training-side flash attention behind `apply` with `use_flash`, the fused
-softmax-xent loss, `decode_step_paged_wide` and the train steps.
+softmax-xent loss and the train steps.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 
 from ..config import resolve_device
 from ..ops.kernels.decode import (DECODE_BLOCK, dense_decode_attention,
-                                  flash_decode, paged_decode_attention)
+                                  flash_decode, paged_decode_attention,
+                                  paged_decode_attention_wide)
 
 __all__ = [
     "TransformerConfig",
@@ -52,6 +55,7 @@ __all__ = [
     "init_paged_kv_cache",
     "decode_step_paged",
     "prefill_paged",
+    "decode_step_paged_wide",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -426,7 +430,7 @@ def beam_search(params, prompt, n_steps, cfg: TransformerConfig,
 
 # ---------------------------------------------------------------------------
 # Paged decoding: K/V in a global page pool shared by every decode slot
-# (serving/engine.py drives these three functions)
+# (serving/engine.py drives these four functions)
 # ---------------------------------------------------------------------------
 
 
@@ -525,3 +529,51 @@ def prefill_paged(params, paged, prompts, true_lens, page_table,
     last = (true_lens - 1).clamp(min=0)
     x_last = x[torch.arange(S, device=dev), last]  # (S, d)
     return paged, _logits(params, x_last)
+
+
+def decode_step_paged_wide(params, paged, tokens, start, n_real, page_table,
+                           cfg: TransformerConfig):
+    """Q consecutive tokens per decode slot in one pass: the wide step
+    behind the serving levers (chunked prefill with Q = the chunk, the
+    prefix cache's tail prefill starting at the cached length, and n-gram
+    speculative verification with Q = lookahead + 1).
+
+    tokens: (S, Q) integers, token j of slot s at position start[s] + j;
+    start: (S,) tokens already cached per slot; n_real: (S,) rows whose
+    K/V are written (j < n_real; the rest, chunk padding and dead slots,
+    go to row 0 of the null page); page_table (S, P_max). A position at or
+    past cap = min(P_max * page_size, positional-table rows) is not
+    written either, and its embedding and page lookup use position 0:
+    speculative rows may run past a slot's last owned page, and the
+    caller discards their outputs. Query j attends positions
+    < start + j + 1 through the `paged_decode_attention_wide` kernel.
+    Updates `paged` IN PLACE; returns (logits (S, Q, V), paged). Dense FFN
+    only, as everywhere in the port."""
+    S, Q = tokens.shape
+    page_size = paged["k"].shape[2]
+    dev = tokens.device
+    tokens, start, n_real = tokens.long(), start.long(), n_real.long()
+    page_table = page_table.long()
+    j = torch.arange(Q, device=dev)
+    pos = start[:, None] + j[None]  # (S, Q) global positions
+    cap = min(page_table.shape[1] * page_size, params["pos"].shape[0])
+    writable = (j[None] < n_real[:, None]) & (pos < cap)
+    safe_pos = torch.where(pos < cap, pos, 0)
+    x = params["embed"][tokens] + params["pos"][safe_pos]  # (S, Q, d)
+    page = torch.gather(page_table, 1, safe_pos // page_size)
+    write_idx = torch.where(writable, page * page_size + safe_pos % page_size,
+                            0).reshape(S * Q)
+    table32 = page_table.to(torch.int32)
+    start32 = start.to(torch.int32)
+    for l in range(cfg.n_layers):
+        lp = _layer_params(params, l)
+        h = _ln(x, lp["ln1_g"], lp["ln1_b"])
+        q = _split_heads(h @ lp["wq"], cfg.n_heads)  # (S, Q, H, Dh)
+        k = _split_heads(h @ lp["wk"], cfg.n_heads)
+        v = _split_heads(h @ lp["wv"], cfg.n_heads)
+        k_pool, v_pool = paged["k"][l], paged["v"][l]
+        _write_rows(k_pool, write_idx, k.reshape((S * Q,) + k.shape[2:]))
+        _write_rows(v_pool, write_idx, v.reshape((S * Q,) + v.shape[2:]))
+        a = paged_decode_attention_wide(q, k_pool, v_pool, table32, start32)
+        x = _ffn(x + a.reshape(S, Q, cfg.d_model) @ lp["wo"], lp)
+    return _logits(params, x), paged

@@ -1,12 +1,16 @@
-// Single-query decode attention, hand-written for Hopper (sm_90a).
+// Decode attention, hand-written for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of incubator_mxnet_tpu/ops/pallas_kernels.py:
+// Replaces three TPU kernels of incubator_mxnet_tpu/ops/pallas_kernels.py:
 //   paged_decode_kernel  <- paged_decode_attention / _paged_decode_kernel
 //                           (attention of one query per decode slot over a
 //                           global KV page pool, walking the slot's page
 //                           table);
 //   flash_decode_kernel  <- flash_decode / _decode_kernel (the same over a
-//                           dense (B, T, H, D) cache).
+//                           dense (B, T, H, D) cache);
+//   paged_decode_wide_kernel <- paged_decode_attention_wide /
+//                           _paged_decode_wide_kernel (Q consecutive query
+//                           rows per slot over the page pool, causal inside
+//                           the call; see its own note below).
 //
 // What bounds them on an H100: bytes. A decode query reads each live key
 // and value row once: sum_b n_valid[b] * H * D * 2 * sizeof(elem), plus the
@@ -45,6 +49,8 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
 constexpr int kMaxLanesPerRow = 8;  // head_dim <= 256
+constexpr int kWideUnroll = 8;  // keys per round of a wide-kernel row
+constexpr int kStage = 8;       // K and V loads in flight per thread
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -307,6 +313,230 @@ cudaError_t dispatch_flash(int lanes, const void* q, const void* k,
 #undef MXTPU_FLASH_CASE
 }
 
+// ---------------------------------------------------------------------------
+// Wide paged decode: Q query rows per slot.
+//
+// Row i of slot b sits at position n_base[b] + i and attends keys
+// idx < min(n_base[b] + i + 1, table_width * page_size): the paged prefix
+// written by earlier calls plus causal masking among this call's own rows
+// (their K/V are already in the pool), with the walk clamped to the table
+// so a speculative row past a slot's last owned page reads no table entry
+// outside the row. One kernel serves chunked prefill (Q = chunk), the
+// prefix cache's tail prefill (Q = 32) and speculative verification
+// (Q = lookahead + 1).
+//
+// What bounds it on an H100: bytes for small Q (every live K/V row of the
+// (slot, head) read once, as in the single-query kernel), operations as Q
+// grows: 4 * D float32 operations per (row, live key) pair, so at Q = 64
+// the arithmetic can outweigh the bytes.
+//
+// Design (correctness first). One thread block per (head, slot, row group)
+// of up to kWarps rows; warp w owns row group * kWarps + w and keeps its
+// own online softmax (m, l, o) in registers, lanes splitting D, with a
+// warp-shuffle reduction for each score, kWideUnroll keys per round. All
+// rows of a block read the same keys, so the block stages a tile of
+// tile_keys K and V rows in shared memory (converted to float32) once and
+// every warp reads it there; each thread issues kStage loads of each
+// tensor before its first store, so the staging is not a chain of
+// dependent trips to device memory. The
+// block walks only as far as its deepest row needs; a row stops at its own
+// causal limit. The block's page ids are staged in shared memory first, as
+// in the single-query kernel; an id outside the pool reads the null page 0.
+// Left to later work: tensor cores for the Q x K tile, cp.async/TMA
+// staging, and splitting long walks across blocks.
+// ---------------------------------------------------------------------------
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    paged_decode_wide_kernel(const float* __restrict__ q,
+                             const T* __restrict__ k_pages,
+                             const T* __restrict__ v_pages,
+                             const int32_t* __restrict__ page_table,
+                             const int32_t* __restrict__ n_base,
+                             float* __restrict__ out, int n_q, int heads,
+                             int head_dim, int page_size, int num_pages,
+                             int table_width, int tile_keys, float scale) {
+  extern __shared__ float smem[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.z * kWarps;
+  const int rows_here = min(kWarps, n_q - row0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cap = table_width * page_size;
+  const int nb = max(0, n_base[b]);
+  // the deepest row of the block, row0 + rows_here - 1, attends this many
+  const int n_keys = min(nb + row0 + rows_here, cap);
+  const int n_pages = (n_keys + page_size - 1) / page_size;
+
+  int* pages = reinterpret_cast<int*>(smem);
+  float* ks = smem + table_width;
+  float* vs = ks + tile_keys * head_dim;
+  for (int j = threadIdx.x; j < n_pages; j += blockDim.x) {
+    const int p = page_table[int64_t(b) * table_width + j];
+    pages[j] = (p >= 0 && p < num_pages) ? p : 0;
+  }
+
+  const bool active = warp < rows_here;
+  const int row = row0 + warp;
+  const int limit = active ? min(nb + row + 1, cap) : 0;
+  const int64_t qo = ((int64_t(b) * n_q + row) * heads + h) * head_dim;
+  float qr[R], o[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int d = lane + 32 * r;
+    qr[r] = active && d < head_dim ? q[qo + d] : 0.f;
+    o[r] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;
+  const int64_t stride_row = int64_t(heads) * head_dim;
+  const int64_t head_off = int64_t(h) * head_dim;
+  __syncthreads();  // the page ids are staged
+
+  for (int t0 = 0; t0 < n_keys; t0 += tile_keys) {
+    const int nt = min(tile_keys, n_keys - t0);
+    const int n_el = nt * head_dim;
+    // kStage elements of K and of V in flight per thread: every load of a
+    // batch is issued before the first store
+    for (int i0 = threadIdx.x; i0 < n_el; i0 += kStage * blockDim.x) {
+      float kb[kStage], vb[kStage];
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int i = i0 + j * blockDim.x;
+        kb[j] = vb[j] = 0.f;
+        if (i < n_el) {
+          const int t = i / head_dim;
+          const int key = t0 + t;
+          const int64_t src = (int64_t(pages[key / page_size]) * page_size +
+                               key % page_size) *
+                                  stride_row +
+                              head_off + (i - t * head_dim);
+          kb[j] = to_f32(k_pages[src]);
+          vb[j] = to_f32(v_pages[src]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int i = i0 + j * blockDim.x;
+        if (i < n_el) {
+          ks[i] = kb[j];
+          vs[i] = vb[j];
+        }
+      }
+    }
+    __syncthreads();
+    const int kend = min(nt, limit - t0);  // this row's live keys here
+    for (int base = 0; base < kend; base += kWideUnroll) {
+      float s[kWideUnroll];
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) {
+        const int t = min(base + u, nt - 1);
+        float acc = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int d = lane + 32 * r;
+          if (d < head_dim) acc = fmaf(qr[r], ks[t * head_dim + d], acc);
+        }
+        s[u] = acc;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kWideUnroll; ++u)
+          s[u] += __shfl_xor_sync(kFullMask, s[u], off);
+      }
+      float m_new = m;
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) {
+        s[u] = base + u < kend ? s[u] * scale : kNegInf;
+        m_new = fmaxf(m_new, s[u]);
+      }
+      const float alpha = expf(m - m_new);
+      float p[kWideUnroll], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kWideUnroll; ++u) {
+        p[u] = base + u < kend ? expf(s[u] - m_new) : 0.f;
+        psum += p[u];
+      }
+      l = l * alpha + psum;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int d = lane + 32 * r;
+        float acc = o[r] * alpha;
+        if (d < head_dim) {
+#pragma unroll
+          for (int u = 0; u < kWideUnroll; ++u) {
+            const int t = min(base + u, nt - 1);
+            acc = fmaf(p[u], vs[t * head_dim + d], acc);
+          }
+        }
+        o[r] = acc;
+      }
+      m = m_new;
+    }
+    __syncthreads();  // every warp is done with the tile
+  }
+
+  if (active) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int d = lane + 32 * r;
+      if (d < head_dim) out[qo + d] = o[r] * inv;
+    }
+  }
+}
+
+// Keys staged per tile: 2 * tile_keys * head_dim floats of K and V, 32 KB.
+int wide_tile_keys(int head_dim) {
+  return head_dim >= 4096 ? 1 : 4096 / head_dim;
+}
+
+template <typename T, int R>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* table, const void* nb, void* out,
+                        int slots, int n_q, int heads, int head_dim,
+                        int page_size, int num_pages, int table_width,
+                        float scale, cudaStream_t stream) {
+  const int tile = wide_tile_keys(head_dim);
+  const size_t smem = sizeof(int) * table_width +
+                      sizeof(float) * 2 * size_t(tile) * head_dim;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const dim3 grid(heads, slots, (n_q + kWarps - 1) / kWarps);
+  paged_decode_wide_kernel<T, R><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(nb), static_cast<float*>(out), n_q, heads,
+      head_dim, page_size, num_pages, table_width, tile, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_wide(int lanes, const void* q, const void* k,
+                          const void* v, const void* table, const void* nb,
+                          void* out, int slots, int n_q, int heads,
+                          int head_dim, int page_size, int num_pages,
+                          int table_width, float scale, cudaStream_t s) {
+#define MXTPU_WIDE_CASE(R)                                                   \
+  case R:                                                                    \
+    return launch_wide<T, R>(q, k, v, table, nb, out, slots, n_q, heads,     \
+                             head_dim, page_size, num_pages, table_width,    \
+                             scale, s);
+  switch (lanes) {
+    MXTPU_WIDE_CASE(1)
+    MXTPU_WIDE_CASE(2)
+    MXTPU_WIDE_CASE(3)
+    MXTPU_WIDE_CASE(4)
+    MXTPU_WIDE_CASE(5)
+    MXTPU_WIDE_CASE(6)
+    MXTPU_WIDE_CASE(7)
+    MXTPU_WIDE_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MXTPU_WIDE_CASE
+}
+
 int lanes_for(int head_dim) {
   if (head_dim < 1 || head_dim > 32 * kMaxLanesPerRow) return 0;
   return (head_dim + 31) / 32;
@@ -355,6 +585,30 @@ extern "C" int mxtpu_flash_decode(int dtype, const void* q,
     return dispatch_flash<__nv_bfloat16>(lanes, q, k_cache, v_cache, n_valid,
                                          out, batch, cache_len, heads,
                                          head_dim, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// q and out are (slots, n_q, heads, head_dim) float32; n_base is (slots,)
+// int32; the rest as for mxtpu_paged_decode_attention.
+extern "C" int mxtpu_paged_decode_attention_wide(
+    int dtype, const void* q, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* n_base, void* out, int slots,
+    int n_q, int heads, int head_dim, int page_size, int num_pages,
+    int table_width, float scale, void* stream) {
+  const int lanes = lanes_for(head_dim);
+  if (!lanes || page_size < 1 || table_width < 1 || n_q < 0)
+    return cudaErrorInvalidValue;
+  if (slots == 0 || heads == 0 || n_q == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_wide<float>(lanes, q, k_pages, v_pages, page_table,
+                                n_base, out, slots, n_q, heads, head_dim,
+                                page_size, num_pages, table_width, scale, s);
+  if (dtype == 1)
+    return dispatch_wide<__nv_bfloat16>(lanes, q, k_pages, v_pages,
+                                        page_table, n_base, out, slots, n_q,
+                                        heads, head_dim, page_size, num_pages,
+                                        table_width, scale, s);
   return cudaErrorInvalidValue;
 }
 

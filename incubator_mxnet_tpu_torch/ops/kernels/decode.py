@@ -1,12 +1,16 @@
-"""Decode attention: one query row per sequence against its KV cache.
+"""Decode attention: query rows of each sequence against its KV cache.
 
 The counterpart of the decode half of the JAX package's
-`ops/pallas_kernels.py`. Two kernels, hand-written in CUDA for Hopper
+`ops/pallas_kernels.py`. Three kernels, hand-written in CUDA for Hopper
 (`ops/csrc/decode.cu`), each with a plain PyTorch version beside it:
 
 - `paged_decode_attention` (plain: `paged_decode_attention_ref`) runs in
   every serving decode step, in every layer: each slot's query attends
   its own pages of a global KV page pool;
+- `paged_decode_attention_wide` (plain:
+  `paged_decode_attention_wide_ref`) is the same with Q consecutive query
+  rows per slot, causal among themselves: the serving levers' wide step
+  (chunked prefill, prefix-cache tail prefill, speculative verification);
 - `flash_decode` (plain: `flash_decode_ref`, which is
   `dense_decode_attention`) serves `generate` and `beam_search` with
   `use_flash`: the same over a dense `(B, T, H, D)` cache.
@@ -32,7 +36,8 @@ from .. import _build
 
 __all__ = ["DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",
-           "paged_decode_attention_ref"]
+           "paged_decode_attention_ref", "paged_decode_attention_wide",
+           "paged_decode_attention_wide_ref"]
 
 DECODE_BLOCK = 128
 _NEG_INF = -1e30
@@ -45,6 +50,9 @@ _SIGNATURES = {
                                      _I, _I, _I, ctypes.c_float, _P],
     "mxtpu_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            ctypes.c_float, _P],
+    "mxtpu_paged_decode_attention_wide": [_I, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _I,
+                                          ctypes.c_float, _P],
 }
 
 
@@ -107,6 +115,30 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, n_valid):
     nv = _per_seq_n_valid(n_valid, S, q.device)
     out = dense_decode_attention(q, kc, vc, nv)
     return out.masked_fill((nv == 0)[:, None, None], 0.0)
+
+
+def paged_decode_attention_wide_ref(q, k_pages, v_pages, page_table, n_base):
+    """Plain wide paged attention: gather each slot's pages into a dense
+    cache as `paged_decode_attention_ref` does, then a float32 softmax in
+    which row i of slot s attends keys idx < n_base[s] + i + 1, with the
+    walk clamped to min(ceil((n_base + Q) / page_size), P_max) pages, as
+    the JAX kernel clamps it. Masks with -1e30; the result has q's
+    dtype."""
+    S, Q, H, D = q.shape
+    P_max = page_table.shape[1]
+    ps = k_pages.shape[1]
+    T = P_max * ps
+    idx = page_table.long()
+    kc = k_pages[idx].reshape(S, T, H, D)
+    vc = v_pages[idx].reshape(S, T, H, D)
+    nb = _per_seq_n_valid(n_base, S, q.device)
+    walked = torch.clamp((nb + Q + ps - 1) // ps, max=P_max) * ps  # (S,)
+    rows = torch.arange(Q, device=q.device)
+    limit = torch.minimum(nb[:, None] + rows[None] + 1, walked[:, None])
+    live = torch.arange(T, device=q.device)[None, None] < limit[..., None]
+    s = torch.einsum("sqhd,sthd->shqt", q.float(), kc.float()) / math.sqrt(D)
+    p = torch.softmax(s.masked_fill(~live[:, None], _NEG_INF), dim=-1)
+    return torch.einsum("shqt,sthd->sqhd", p, vc.float()).to(q.dtype)
 
 
 def _check_kv(name, q, caches, shape):
@@ -196,6 +228,56 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, n_valid):
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_wide(q, k_pages, v_pages, page_table, n_base):
+    """Q consecutive query rows per slot over a paged KV cache, in one
+    launch.
+
+    q: (S, Q, H, D), row i of slot s at position n_base[s] + i;
+    k_pages / v_pages: (num_pages, page_size, H, D), the page pool
+    (float32 or bfloat16, contiguous), into which the caller has already
+    written this call's Q rows; page_table: (S, P_max) integer page ids;
+    n_base: (S,) integer tokens cached per slot before row 0, or a scalar.
+    Row i attends keys idx < n_base + i + 1 (the paged prefix plus causal
+    masking among the call's own rows), the walk clamped to the table, so
+    a row past a slot's last owned page reads nothing outside its row.
+    Returns (S, Q, H, D) in q's dtype.
+
+    CUDA tensors run the Hopper kernel of `ops/csrc/decode.cu` (one
+    thread block per (slot, head, group of 8 rows), K/V tiles staged in
+    shared memory once for the group's rows); CPU tensors run
+    `paged_decode_attention_wide_ref`."""
+    name = "paged_decode_attention_wide"
+    if not _route(name, q):
+        return paged_decode_attention_wide_ref(q, k_pages, v_pages,
+                                               page_table, n_base)
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"{name}: q must be (S, Q, H, D) and the pools "
+                         f"(P, page_size, H, D)")
+    S, Q, H, D = q.shape
+    P, ps = k_pages.shape[0], k_pages.shape[1]
+    _check_kv(name, q, (k_pages, v_pages), (P, ps, H, D))
+    if page_table.dim() != 2:
+        raise ValueError(f"{name}: page_table must be (S, P_max)")
+    W = page_table.shape[1]
+    table = _index_vector(name, page_table, (S, W), q.device)
+    nb = _per_seq_n_valid(n_base, S, q.device, torch.int32)
+    qf = q.float().contiguous()
+    out = torch.empty_like(qf)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mxtpu_paged_decode_attention_wide(
+            _KV_DTYPES[k_pages.dtype], qf.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), table.data_ptr(), nb.data_ptr(),
+            out.data_ptr(), S, Q, H, D, ps, P, W, 1.0 / math.sqrt(D), stream)
+    _raise_on(lib, err, name)
+    paged_decode_attention_wide.launches += 1
+    return out.to(q.dtype)
+
+
+paged_decode_attention_wide.launches = 0
 
 
 def flash_decode(q, k_cache, v_cache, n_valid):

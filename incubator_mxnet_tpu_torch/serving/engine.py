@@ -15,13 +15,33 @@ The PyTorch counterpart of the JAX package's base `ServingEngine`
 
 Greedy decoding, token-for-token identical to sequential
 `models.transformer.generate()` per request. The argmax stays on the
-device; the one host sync of a step is reading the new tokens back.
+device; the one host sync of a device call is reading its tokens back.
 
-The JAX engine's three levers (prefix cache, chunked prefill, n-gram
-speculation) are not ported yet: turning one on, by argument or knob,
-raises NotImplementedError rather than serving without it. Spans,
-request tracing, SLOs and the compile registry are not ported yet
-either; `debug_snapshot` has no sections for them.
+Three optional levers stack on this, as in the JAX engine; with all of
+them off the engine runs exactly the base path above. Each lever's query
+rows go through the wide step (`decode_step_paged_wide`, the
+`paged_decode_attention_wide` kernel in every layer), one callable per
+width (`_wide`):
+
+- `prefix_cache` (`MXTPU_PREFIX_CACHE`): prefix-cached copy-on-write
+  pages. Admission maps the longest cached page-aligned prefix of the
+  prompt read-only into the slot's table and prefills only the tail (in
+  chunks of `_SYNC_TAIL_CHUNK`). A cached partial page is copied at
+  admission before the tail writes into it; the slot's own freshly cached
+  partial page is copied before its first decode write.
+- `prefill_chunk` (`MXTPU_PREFILL_CHUNK`): chunked prefill. Prompts
+  stream through the wide step a chunk per engine step, interleaved with
+  the batched decode.
+- `spec_ngram` / `spec_lookahead` (`MXTPU_SPEC_NGRAM`,
+  `MXTPU_SPEC_LOOKAHEAD`): prompt-lookup speculation. The trailing n-gram
+  of each slot's history proposes up to `lookahead` tokens; one wide call
+  verifies every slot's proposal and accepted prefixes advance in bulk.
+  Rejected rows need no rollback: their K/V lies past the slot's
+  position, and the next write overwrites it.
+
+An explicit constructor argument wins over its knob. Not ported yet:
+spans, request tracing, SLOs, `warm()`, the compile registry and the
+page-sanitizer hooks; `debug_snapshot` has no sections for them.
 """
 from __future__ import annotations
 
@@ -37,7 +57,7 @@ import torch
 from .. import config, telemetry
 from ..config import resolve_device
 from ..models import transformer as _tfm
-from .pages import PageAllocator
+from .pages import PageAllocator, PrefixCache
 
 __all__ = ["Request", "RequestResult", "ServingEngine"]
 
@@ -54,6 +74,20 @@ OLDEST_QUEUED = "mxtpu_serving_oldest_queued_seconds"
 ADMISSION_BLOCKED = "mxtpu_serving_admission_blocked_total"
 WASTED_TOKENS = "mxtpu_serving_wasted_tokens_total"
 GOODPUT = "mxtpu_serving_goodput"
+PREFIX_LOOKUPS = "mxtpu_serving_prefix_lookups_total"
+PREFIX_TOKENS_SAVED = "mxtpu_serving_prefix_tokens_saved_total"
+PREFIX_CACHED_PAGES = "mxtpu_serving_prefix_cached_pages"
+COW_COPIES = "mxtpu_serving_cow_copies_total"
+PREFILL_CHUNKS = "mxtpu_serving_prefill_chunks_total"
+SPEC_PROPOSED = "mxtpu_spec_proposed_tokens_total"
+SPEC_ACCEPTED = "mxtpu_spec_accepted_tokens_total"
+
+# tail-prefill chunk width when the prefix cache is on and chunked prefill
+# is off: the tail still goes through the wide step (the bucketed prefill
+# starts only at position 0), in chunks of one fixed width
+_SYNC_TAIL_CHUNK = 32
+
+_EMPTY_PROP = np.zeros((0,), np.int32)
 
 # sub-ms to minutes: decode steps are ms-scale, queued requests can wait
 _LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
@@ -108,26 +142,17 @@ class ServingEngine:
     >>> results = eng.run()          # drain queue + slots
     >>> results[rid].tokens
 
-    `step()` runs ONE scheduler iteration (admissions + one decode
-    step) for callers that interleave serving with other work.
+    `step()` runs ONE scheduler iteration (admissions, prefill chunks and
+    one decode step) for callers that interleave serving with other work.
     `device=None` means CUDA (and raises without it); the params must
-    already lie on the engine's device.
+    already lie on the engine's device. The lever arguments default to
+    their knobs (None); an explicit value, 0 included, wins.
     """
 
     def __init__(self, params, cfg, *, slots=None, page_size=None,
                  num_pages=None, max_len=None, clock=time.monotonic,
                  prefix_cache=None, prefill_chunk=None, spec_ngram=None,
-                 device=None):
-        for arg, value, knob in (
-                ("prefix_cache", prefix_cache, "MXTPU_PREFIX_CACHE"),
-                ("prefill_chunk", prefill_chunk, "MXTPU_PREFILL_CHUNK"),
-                ("spec_ngram", spec_ngram, "MXTPU_SPEC_NGRAM")):
-            # an explicit argument wins over the knob, as in the JAX engine
-            if int(config.get(knob) if value is None else value):
-                raise NotImplementedError(
-                    f"serving lever {arg} ({knob}) is not ported yet: it "
-                    f"comes with the next slice (paged_decode_attention_"
-                    f"wide); leave it 0")
+                 spec_lookahead=None, device=None):
         self.device = resolve_device(device)
         _tfm._check_device(params, self.device)
         self.params = params
@@ -151,6 +176,24 @@ class ServingEngine:
         # submit/cancel may arrive from other threads while step() runs
         self._lock = threading.RLock()
 
+        if prefix_cache is None:
+            prefix_cache = int(config.get("MXTPU_PREFIX_CACHE"))
+        if prefill_chunk is None:
+            prefill_chunk = int(config.get("MXTPU_PREFILL_CHUNK"))
+        if spec_ngram is None:
+            spec_ngram = int(config.get("MXTPU_SPEC_NGRAM"))
+        if spec_lookahead is None:
+            spec_lookahead = int(config.get("MXTPU_SPEC_LOOKAHEAD"))
+        self.prefill_chunk = max(0, min(int(prefill_chunk), self.max_len))
+        self.spec_ngram = max(0, int(spec_ngram))
+        self.spec_lookahead = max(1, int(spec_lookahead))
+        self.prefix_cache = (
+            PrefixCache(self.allocator,
+                        max_pages=prefix_cache if prefix_cache > 1 else 0)
+            if prefix_cache else None)
+        # one wide-step callable per query width, built on first use
+        self._wides: dict = {}
+
         S, W = self.slots, self.table_width
         self._tables = np.zeros((S, W), np.int64)
         self._positions = np.zeros((S,), np.int64)
@@ -158,18 +201,65 @@ class ServingEngine:
         self._slot_req: list[Request | None] = [None] * S
         self._slot_pages: list[list] = [[] for _ in range(S)]
         self._slot_out: list[list] = [[] for _ in range(S)]
+        # lever slot state: the pending prefill descriptor of a slot still
+        # prefilling, and the table index whose page must copy-on-write
+        # before the slot's next decode write (-1 = none)
+        self._slot_prefill: list[dict | None] = [None] * S
+        self._slot_cow_idx = [-1] * S
         self._queue: deque[Request] = deque()
         self._results: dict[int, RequestResult] = {}
         self._ids = itertools.count()
         self.steps = 0
-        # engine steps that ran a decode (steps with no live slot do not)
+        # calls of the single-query decode step (decode_step_paged), and
+        # of the wide step at any width (decode_step_paged_wide)
         self.decode_steps = 0
+        self.wide_calls = 0
 
         # host-side goodput accounting (independent of whether the
         # metrics registry is on): token positions the device processed
         # by kind, plus tokens spent on requests later evicted
-        self._tokens = {"prefill": 0, "decode": 0, "pad": 0}
+        self._tokens = {"prefill": 0, "decode": 0, "pad": 0,
+                        "spec_rejected": 0}
         self._wasted_evicted = 0
+        # lever counters (host source of truth, mirrored to telemetry)
+        self._prefix_lookups = 0
+        self._prefix_hits = 0
+        self._prefix_tokens_saved = 0
+        self._cow_copies = 0
+        self._prefill_chunks = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+
+    # -- device calls ------------------------------------------------------
+
+    def _wide(self, n_q):
+        """The wide step for `n_q` query rows per slot: one callable per
+        width (chunked prefill, prefix tail prefill and speculative
+        verification each use one). It takes host arrays (tokens (S, n_q),
+        start (S,), n_real (S,), tables (S, W)), updates the pool in place
+        and returns each row's greedy token, (S, n_q), on the host."""
+        fn = self._wides.get(n_q)
+        if fn is None:
+            def fn(tokens, start, n_real, tables):
+                if tokens.shape != (self.slots, n_q):
+                    raise ValueError(f"wide step of width {n_q} given "
+                                     f"tokens of shape {tokens.shape}")
+                with torch.no_grad():
+                    logits, _ = _tfm.decode_step_paged_wide(
+                        self.params, self.paged, self._to_device(tokens),
+                        self._to_device(start), self._to_device(n_real),
+                        self._to_device(tables), self.cfg)
+                    tok = torch.argmax(logits, dim=-1).cpu().numpy()
+                self.wide_calls += 1
+                return tok
+            self._wides[n_q] = fn
+        return fn
+
+    def _copy_fn(self, src, dst):
+        """Copy page `src` onto page `dst` in every layer's K and V pool,
+        in place (a copy-on-write's device half)."""
+        for pool in (self.paged["k"], self.paged["v"]):
+            pool[:, dst] = pool[:, src]
 
     # -- public API --------------------------------------------------------
 
@@ -205,12 +295,18 @@ class ServingEngine:
 
     def step(self):
         """One scheduler iteration: admit queued requests into free
-        slots (FIFO, backpressured by page availability), then advance
-        every live slot one token in a single decode step. Returns the
-        number of live slots after the iteration."""
+        slots (FIFO, backpressured by page availability), advance pending
+        chunked prefills one chunk, then advance every decoding slot in a
+        single decode (or speculative) step. Returns the number of live
+        slots after the iteration."""
         with self._lock:
             self._admit()
-            live = self._decode_once()
+            if self.prefill_chunk:
+                self._prefill_chunks_once()
+            if self.spec_ngram:
+                live = self._decode_spec_once()
+            else:
+                live = self._decode_once()
             self.steps += 1
             self._export_gauges()
             return live
@@ -234,7 +330,8 @@ class ServingEngine:
 
     def live_tokens(self):
         """{request_id: continuation tokens streamed so far} for every
-        request holding a slot. Queued requests do not appear."""
+        request holding a slot (mid-prefill slots report []). Queued
+        requests do not appear."""
         with self._lock:
             return {r.request_id: list(self._slot_out[s])
                     for s, r in enumerate(self._slot_req) if r is not None}
@@ -278,12 +375,17 @@ class ServingEngine:
         """FIFO admission: stop at the first request that can't get a
         slot or its pages (head-of-line order keeps scheduling
         deterministic: no small request overtakes a starved big one)."""
+        levered = self.prefix_cache is not None or self.prefill_chunk
         while self._queue:
             slot = self._free_slot()
             if slot is None:
                 telemetry.inc(ADMISSION_BLOCKED, reason="slots")
                 return
             req = self._queue[0]
+            if levered:
+                if not self._admit_levered(slot, req):
+                    return  # backpressure: wait for an eviction
+                continue
             total = req.prompt.size + req.max_new_tokens
             pages = self.allocator.alloc(self.allocator.pages_needed(total),
                                          owner=req.request_id)
@@ -334,9 +436,299 @@ class ServingEngine:
         if self._is_done(req, [first]):
             self._finish(slot)
 
+    # -- lever path: prefix-cached COW pages + chunked prefill -------------
+
+    def _admit_levered(self, slot, req):
+        """Admission with the prefix cache or chunked prefill on: map the
+        longest cached page-aligned prefix read-only into the slot's
+        table (a host write instead of device prefill), allocate fresh
+        pages for the rest, then stream only the uncached tail through
+        the wide step: all of it here, or one chunk per step when chunked
+        prefill is on. Returns False on page backpressure (the request
+        stays queued)."""
+        ps = self.page_size
+        T_p = req.prompt.size
+        w_req = self.allocator.pages_needed(T_p + req.max_new_tokens)
+        used_full, part_page, n_part = [], None, 0
+        if self.prefix_cache is not None:
+            full_pages, partial = self.prefix_cache.lookup(req.prompt)
+            # the last prompt token is always recomputed: its logits are
+            # the first output token, which a table write cannot give
+            limit = T_p - 1
+            n_full = min(len(full_pages), limit // ps)
+            used_full = full_pages[:n_full]
+            if partial is not None and n_full == len(full_pages):
+                page, chunk = partial
+                n_part = max(0, min(int(chunk.size), limit - n_full * ps))
+                part_page = page if n_part else None
+        n_cached = len(used_full) * ps + n_part
+        # references: mapped full pages are shared for the slot's whole
+        # lifetime; the cached partial page is pinned only until its
+        # bytes are copied into a fresh page below
+        protect = used_full + ([part_page] if part_page is not None
+                               else [])
+        self.allocator.share(protect, owner=req.request_id)
+        fresh = self.allocator.alloc(w_req - len(used_full),
+                                     owner=req.request_id)
+        if fresh is None and self.prefix_cache is not None:
+            # pool pressure: LRU-evict cache pages no live request maps
+            deficit = (w_req - len(used_full)) - self.allocator.num_free
+            self.prefix_cache.evict(deficit)
+            fresh = self.allocator.alloc(w_req - len(used_full),
+                                         owner=req.request_id)
+        if fresh is None:
+            self.allocator.free(protect, owner=req.request_id)
+            telemetry.inc(ADMISSION_BLOCKED, reason="pages")
+            return False
+        if self.prefix_cache is not None:
+            self._prefix_lookups += 1
+            hit = n_cached > 0
+            self._prefix_hits += int(hit)
+            self._prefix_tokens_saved += n_cached
+            telemetry.inc(PREFIX_LOOKUPS, outcome="hit" if hit else "miss")
+            if n_cached:
+                telemetry.inc(PREFIX_TOKENS_SAVED, amount=float(n_cached))
+        self._queue.popleft()
+        req.admitted_at = self._clock()
+        telemetry.observe(QUEUE_WAIT_SECONDS,
+                          req.admitted_at - req.submitted_at,
+                          buckets=_LATENCY_BUCKETS)
+        telemetry.set_gauge(QUEUE_DEPTH, len(self._queue))
+        pages = used_full + fresh
+        row = np.asarray(
+            self.allocator.table_row(pages, self.table_width), np.int64)
+        if part_page is not None:
+            # eager copy-on-write: the tail prefill writes into this
+            # page's token range, so the slot gets a private copy of the
+            # cached bytes first
+            self._copy_fn(part_page, fresh[0])
+            self.allocator.free([part_page],  # drop the pin only
+                                owner=req.request_id)
+            self._cow_copies += 1
+            telemetry.inc(COW_COPIES, site="admit")
+        self._slot_req[slot] = req
+        self._slot_pages[slot] = pages
+        self._slot_out[slot] = []
+        self._slot_prefill[slot] = {
+            "prompt": req.prompt, "row": row, "pos": n_cached,
+            "n_cached": n_cached, "chunks": 0}
+        if not self.prefill_chunk:
+            # synchronous tail prefill: every chunk before the next
+            # admission (chunked mode leaves the descriptor for step() to
+            # advance one chunk per iteration)
+            while self._slot_prefill[slot] is not None:
+                self._prefill_chunks_once(only_slot=slot)
+        return True
+
+    def _prefill_chunks_once(self, only_slot=None):
+        """Advance pending prefills one chunk in ONE wide call covering
+        every mid-prefill slot; decoding and idle slots ride along masked
+        out (n_real 0, zero table rows: their writes land in the null
+        page), so the call has one shape."""
+        pend = [s for s in range(self.slots)
+                if self._slot_prefill[s] is not None
+                and (only_slot is None or s == only_slot)]
+        if not pend:
+            return
+        C = self.prefill_chunk or min(_SYNC_TAIL_CHUNK, self.max_len)
+        S, W = self.slots, self.table_width
+        toks = np.zeros((S, C), np.int64)
+        start = np.zeros((S,), np.int64)
+        n_real = np.zeros((S,), np.int64)
+        tables = np.zeros((S, W), np.int64)
+        for s in pend:
+            st = self._slot_prefill[s]
+            pos, prompt = st["pos"], st["prompt"]
+            n = min(C, prompt.size - pos)
+            toks[s, :n] = prompt[pos:pos + n]
+            start[s] = pos
+            n_real[s] = n
+            tables[s] = st["row"]
+        out = self._wide(C)(toks, start, n_real, tables)
+        for s in pend:
+            st = self._slot_prefill[s]
+            n = int(n_real[s])
+            st["pos"] += n
+            st["chunks"] += 1
+            self._prefill_chunks += 1
+            self._tokens["prefill"] += n
+            telemetry.inc(TOKENS_TOTAL, amount=float(n), kind="prefill")
+            telemetry.inc(PREFILL_CHUNKS)
+            pad = C - n
+            if pad:
+                self._tokens["pad"] += pad
+                telemetry.inc(TOKENS_TOTAL, amount=float(pad), kind="pad")
+                telemetry.inc(WASTED_TOKENS, amount=float(pad),
+                              reason="prefill_pad")
+            if st["pos"] >= st["prompt"].size:
+                self._finish_prefill(s, int(out[s, n - 1]))
+
+    def _finish_prefill(self, slot, first):
+        """Last tail chunk done: record the time to first token, install
+        the slot's decode state, register the prompt's pages in the prefix
+        cache, and arm the lazy copy-on-write if the cache now shares the
+        page the first decode token writes into."""
+        st = self._slot_prefill[slot]
+        self._slot_prefill[slot] = None
+        req = self._slot_req[slot]
+        prompt = st["prompt"]
+        T_p = prompt.size
+        req.ttft_s = self._clock() - req.submitted_at
+        telemetry.observe(TTFT_SECONDS, req.ttft_s,
+                          buckets=_LATENCY_BUCKETS)
+        self._slot_out[slot] = [first]
+        self._tables[slot] = st["row"]
+        self._positions[slot] = T_p
+        self._next_tok[slot] = first
+        if self.prefix_cache is not None:
+            n_prompt_pages = self.allocator.pages_needed(T_p)
+            self.prefix_cache.insert(
+                prompt, self._slot_pages[slot][:n_prompt_pages])
+            telemetry.set_gauge(PREFIX_CACHED_PAGES,
+                                self.prefix_cache.cached_pages)
+            # the page the first decode token (position T_p) writes into:
+            # if insert() just shared the slot's own partial tail page, it
+            # must copy-on-write before that write lands
+            wi = T_p // self.page_size
+            if (T_p % self.page_size
+                    and wi < len(self._slot_pages[slot])
+                    and self.allocator.refcount(
+                        self._slot_pages[slot][wi]) > 1):
+                self._slot_cow_idx[slot] = wi
+        if self._is_done(req, [first]):
+            self._finish(slot)
+
+    def _resolve_cow(self, slot):
+        """The slot's next decode write lands in a shared, partly filled
+        page: give it a private page first. When the pool has no page for
+        the copy: steal the cache's own reference back (the writer then
+        holds the only one, and no copy is needed), else LRU-evict one
+        cached page and retry."""
+        idx = self._slot_cow_idx[slot]
+        self._slot_cow_idx[slot] = -1
+        page = self._slot_pages[slot][idx]
+        rid = self._slot_req[slot].request_id
+        new = self.allocator.cow(page, owner=rid)
+        if new is None:
+            if self.prefix_cache.release(page):
+                return  # cache ref dropped; the slot now owns the page
+            if self.prefix_cache.evict(1):
+                new = self.allocator.cow(page, owner=rid)
+        if new is None:
+            raise RuntimeError(
+                f"copy-on-write of page {page} failed: KV pool exhausted "
+                f"and the prefix cache holds no evictable page")
+        if new != page:
+            self._copy_fn(page, new)
+            self._slot_pages[slot][idx] = new
+            self._tables[slot, idx] = new
+            self._cow_copies += 1
+            telemetry.inc(COW_COPIES, site="decode")
+
+    def _decoding_slots(self):
+        """Live slots past their prefill, their pending copy-on-write
+        resolved (the step about to run writes into their pages)."""
+        live = [s for s, r in enumerate(self._slot_req)
+                if r is not None and self._slot_prefill[s] is None]
+        if self.prefix_cache is not None:
+            for s in live:
+                if self._slot_cow_idx[s] >= 0:
+                    self._resolve_cow(s)
+        return live
+
+    # -- lever path: n-gram prompt-lookup speculation ----------------------
+
+    def _propose(self, prompt, out, k):
+        """Prompt-lookup proposal: match the trailing `spec_ngram` tokens
+        of the slot's history (prompt + generated) against earlier
+        history and propose up to `k` continuation tokens of the most
+        recent earlier match."""
+        n = self.spec_ngram
+        hist = np.concatenate([prompt, np.asarray(out, np.int32)])
+        if hist.size < n + 1:
+            return _EMPTY_PROP
+        gram = hist[-n:]
+        for i in range(hist.size - n - 1, -1, -1):
+            if np.array_equal(hist[i:i + n], gram):
+                return hist[i + n:i + n + k].astype(np.int32)
+        return _EMPTY_PROP
+
+    def _decode_spec_once(self):
+        """Speculative decode step: every decoding slot runs
+        `lookahead + 1` query rows in one wide call, its next token plus
+        its proposal. The longest proposal prefix that matches the model's
+        own greedy outputs is accepted in bulk; rejected rows need no
+        rollback (their K/V lies past the slot's advanced position, dead
+        data the next step overwrites)."""
+        live_slots = self._decoding_slots()
+        if not live_slots:
+            return self.slots_in_use
+        S = self.slots
+        Q = self.spec_lookahead + 1
+        toks = np.zeros((S, Q), np.int64)
+        start = np.zeros((S,), np.int64)
+        n_real = np.zeros((S,), np.int64)
+        props = {}
+        for s in live_slots:
+            req = self._slot_req[s]
+            room = req.max_new_tokens - len(self._slot_out[s]) - 1
+            k_s = min(self.spec_lookahead, room)
+            prop = (self._propose(req.prompt, self._slot_out[s], k_s)
+                    if k_s > 0 else _EMPTY_PROP)
+            props[s] = prop
+            toks[s, 0] = self._next_tok[s]
+            toks[s, 1:1 + prop.size] = prop
+            start[s] = self._positions[s]
+            n_real[s] = 1 + prop.size
+        tok = self._wide(Q)(toks, start, n_real, self._tables)
+        for s in live_slots:
+            req = self._slot_req[s]
+            prop = props[s]
+            # row i's argmax is the model's greedy token i + 1; the
+            # proposal is accepted exactly as far as it matches them
+            emitted = [int(tok[s, 0])]
+            for i in range(prop.size):
+                if int(prop[i]) != emitted[i]:
+                    break
+                emitted.append(int(tok[s, i + 1]))
+            accepted = len(emitted) - 1
+            self._spec_proposed += int(prop.size)
+            self._spec_accepted += accepted
+            if prop.size:
+                telemetry.inc(SPEC_PROPOSED, amount=float(prop.size))
+            if accepted:
+                telemetry.inc(SPEC_ACCEPTED, amount=float(accepted))
+            applied = 0
+            for t in emitted:
+                applied += 1
+                self._slot_out[s].append(t)
+                self._positions[s] += 1
+                self._next_tok[s] = t
+                if self._is_done(req, self._slot_out[s]):
+                    self._finish(s)
+                    break
+            # the Q device rows split into delivered tokens, rejected or
+            # unused speculation rows, and padding rows past the proposal
+            rejected = (1 + int(prop.size)) - applied
+            pad = Q - 1 - int(prop.size)
+            self._tokens["decode"] += applied
+            telemetry.inc(TOKENS_TOTAL, amount=float(applied),
+                          kind="decode")
+            if rejected:
+                self._tokens["spec_rejected"] += rejected
+                telemetry.inc(TOKENS_TOTAL, amount=float(rejected),
+                              kind="spec_rejected")
+                telemetry.inc(WASTED_TOKENS, amount=float(rejected),
+                              reason="spec_rejected")
+            if pad:
+                self._tokens["pad"] += pad
+                telemetry.inc(TOKENS_TOTAL, amount=float(pad), kind="pad")
+                telemetry.inc(WASTED_TOKENS, amount=float(pad),
+                              reason="spec_pad")
+        return self.slots_in_use
+
     def _decode_once(self):
-        live_slots = [s for s, r in enumerate(self._slot_req)
-                      if r is not None]
+        live_slots = self._decoding_slots()
         if not live_slots:
             return self.slots_in_use
         with torch.no_grad():
@@ -397,6 +789,8 @@ class ServingEngine:
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
         self._slot_out[slot] = []
+        self._slot_prefill[slot] = None
+        self._slot_cow_idx[slot] = -1
         self._tables[slot] = 0
         self._positions[slot] = 0
         self._next_tok[slot] = 0
@@ -405,8 +799,8 @@ class ServingEngine:
 
     def goodput(self):
         """Token accounting split: device token positions by kind, the
-        wasted share (prefill padding + evicted requests' tokens), and the
-        useful fraction."""
+        wasted share (prefill padding, rejected speculation and evicted
+        requests' tokens), and the useful fraction."""
         processed = sum(self._tokens.values())
         useful = (self._tokens["prefill"] + self._tokens["decode"]
                   - self._wasted_evicted)
@@ -414,15 +808,75 @@ class ServingEngine:
             "prefill": self._tokens["prefill"],
             "decode": self._tokens["decode"],
             "pad": self._tokens["pad"],
+            "spec_rejected": self._tokens["spec_rejected"],
             "wasted_evicted": self._wasted_evicted,
             "processed": processed,
             "useful": useful,
             "fraction": useful / processed if processed else 1.0,
         }
 
+    @property
+    def prefix_hit_rate(self):
+        """Fraction of admissions that mapped at least one cached page
+        (0.0 when the prefix cache is off or nothing was admitted)."""
+        return (self._prefix_hits / self._prefix_lookups
+                if self._prefix_lookups else 0.0)
+
+    @property
+    def prefix_tokens_saved(self):
+        """Prompt tokens never prefilled because their pages came from
+        the prefix cache."""
+        return self._prefix_tokens_saved
+
+    @property
+    def cow_copies(self):
+        """Copy-on-write page copies performed (admission + decode)."""
+        return self._cow_copies
+
+    @property
+    def spec_acceptance(self):
+        """Accepted / proposed draft tokens (0.0 before any proposal)."""
+        return (self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else 0.0)
+
+    def _lever_rows(self):
+        """The prefix-cache, speculation and chunked-prefill sections of
+        `debug_snapshot` (None for a lever that is off)."""
+        cache = self.prefix_cache
+        prefix_rows = spec_rows = chunk_rows = None
+        if cache is not None:
+            prefix_rows = {
+                "cached_pages": cache.cached_pages,
+                "capacity": cache.max_pages,
+                "lookups": self._prefix_lookups,
+                "hits": self._prefix_hits,
+                "hit_rate": self.prefix_hit_rate,
+                "tokens_saved": self._prefix_tokens_saved,
+                "evictions": cache.evictions,
+                "cow_copies": self._cow_copies,
+                "refcount_histogram": {
+                    str(k): v for k, v in sorted(
+                        self.allocator.refcount_histogram().items())},
+            }
+        if self.spec_ngram:
+            spec_rows = {
+                "ngram": self.spec_ngram,
+                "lookahead": self.spec_lookahead,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance": self.spec_acceptance,
+            }
+        if self.prefill_chunk:
+            chunk_rows = {
+                "chunk": self.prefill_chunk,
+                "in_flight": sum(p is not None for p in self._slot_prefill),
+                "chunks_total": self._prefill_chunks,
+            }
+        return prefix_rows, spec_rows, chunk_rows
+
     def debug_snapshot(self):
-        """Live-engine JSON-able snapshot: slots, queue, page pool and
-        goodput."""
+        """Live-engine JSON-able snapshot: slots, queue, page pool, the
+        levers and goodput."""
         with self._lock:
             now = self._clock()
             slot_rows = []
@@ -430,14 +884,16 @@ class ServingEngine:
                 if req is None:
                     slot_rows.append({"slot": s, "state": "idle"})
                     continue
+                pending = self._slot_prefill[s]
                 slot_rows.append({
                     "slot": s,
-                    "state": "decoding",
+                    "state": "prefilling" if pending else "decoding",
                     "request_id": req.request_id,
                     "age_s": now - req.submitted_at,
                     "prompt_len": int(req.prompt.size),
                     "tokens_out": len(self._slot_out[s]),
-                    "position": int(self._positions[s]),
+                    "position": (int(pending["pos"]) if pending
+                                 else int(self._positions[s])),
                     "pages_held": len(self._slot_pages[s]),
                 })
             queued = [{"request_id": r.request_id,
@@ -445,11 +901,13 @@ class ServingEngine:
                        "prompt_len": int(r.prompt.size),
                        "max_new_tokens": r.max_new_tokens}
                       for r in self._queue]
+            prefix_rows, spec_rows, chunk_rows = self._lever_rows()
             return {
-                "schema": "mxtpu-torch-serving-engine-debug-v1",
+                "schema": "mxtpu-torch-serving-engine-debug-v2",
                 "device": str(self.device),
                 "steps": self.steps,
                 "decode_steps": self.decode_steps,
+                "wide_calls": self.wide_calls,
                 "slots": slot_rows,
                 "slots_in_use": self.slots_in_use,
                 "queue": queued,
@@ -462,6 +920,9 @@ class ServingEngine:
                     "occupancy": self.allocator.occupancy(),
                     "fragmentation": self.allocator.fragmentation(),
                 },
+                "prefix_cache": prefix_rows,
+                "speculation": spec_rows,
+                "chunked_prefill": chunk_rows,
                 "tokens": self.goodput(),
                 "requests_finished": len(self._results),
             }
@@ -504,3 +965,6 @@ class ServingEngine:
             self._clock() - self._queue[0].submitted_at
             if self._queue else 0.0)
         telemetry.set_gauge(GOODPUT, self.goodput()["fraction"])
+        if self.prefix_cache is not None:
+            telemetry.set_gauge(PREFIX_CACHED_PAGES,
+                                self.prefix_cache.cached_pages)

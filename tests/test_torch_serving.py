@@ -8,6 +8,7 @@ import numpy as np
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from incubator_mxnet_tpu.models import transformer as jtfm
 from incubator_mxnet_tpu_torch import telemetry
@@ -19,6 +20,17 @@ SMALL = dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
              max_len=64)
 BASELINE = os.path.join(os.path.dirname(__file__), "..", "ci",
                         "perf_baseline.json")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The engine runs many tiny ops: on a loaded machine (the suite's
+    other workers), torch's intra-op thread pool makes them many times
+    slower than one thread does, and takes cores from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -274,19 +286,33 @@ def test_engine_publishes_metrics_when_enabled(model):
                                    "spec_ngram"])
 @pytest.mark.parametrize("via", ["argument", "knob"])
 def test_engine_rejects_unported_levers(model, monkeypatch, lever, via):
+    """Each lever turns on by argument or by knob (the name is kept from
+    when the port refused them), and an explicit 0 argument wins over the
+    knob, as in the JAX engine."""
     knob = {"prefix_cache": "MXTPU_PREFIX_CACHE",
             "prefill_chunk": "MXTPU_PREFILL_CHUNK",
             "spec_ngram": "MXTPU_SPEC_NGRAM"}[lever]
+
+    def lever_on(eng):
+        return {"prefix_cache": eng.prefix_cache is not None,
+                "prefill_chunk": eng.prefill_chunk == 2,
+                "spec_ngram": eng.spec_ngram == 2}[lever]
+
     kw = {}
     if via == "argument":
         kw[lever] = 2
     else:
         monkeypatch.setenv(knob, "2")
-    with pytest.raises(NotImplementedError, match=knob):
-        _engine(model, slots=2, page_size=8, **kw)
-    # an explicit 0 argument wins over the knob, as in the JAX engine
+    eng = _engine(model, slots=2, page_size=8, **kw)
+    assert lever_on(eng)
+    # the lever serves: one request, tokens equal generate()
+    p = np.arange(1, 12, dtype=np.int32)
+    rid = eng.submit(p, 3)
+    assert eng.run()[rid].tokens == _port_generate(model, p, 3).tolist()
+    assert eng.wide_calls > 0
     if via == "knob":
-        assert _engine(model, slots=2, page_size=8, **{lever: 0})
+        assert not lever_on(_engine(model, slots=2, page_size=8,
+                                    **{lever: 0}))
 
 
 def test_trace_reproduces_ci_serving_counters():
