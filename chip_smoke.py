@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and hold its
-hand-written kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving path and its train step on one CUDA
+card and hold its hand-written kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -10,9 +11,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. build: nvcc compiles every kernel source of the port (one process per
    source, all at once) into build/torch_kernels/;
-2. kernels: each kernel against its plain version on the card, at the
-   shapes the serving path gives it, in float32 (tolerance 2e-5) and
-   bfloat16 (2e-2); the wide kernel at Q = 5, 32 and 64 rows per slot;
+2. kernels: each kernel against its plain version on the card, in
+   float32 and bfloat16. The decode kernels at the shapes the serving
+   path gives them (tolerance 2e-5 and 2e-2), the wide kernel at Q = 5,
+   32 and 64 rows per slot; the flash-attention forward, dQ and dK/dV
+   kernels at the training shape (B 8, H 8, T 512, D 64, causal, in the
+   model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
+   T 200, a non-causal ragged T 24 and at D 16 (o and lse 2e-5 and 2e-2;
+   dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2 of the largest
+   reference value);
 3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
    d_ff 2048, vocab 32000, max_len 512, float32, random weights from
    seed 0) serves the seeded trace through the engine (8 slots, page 16)
@@ -23,12 +30,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and the wide kernel once per layer per wide step; every request's
    tokens must equal generate() with use_flash, which runs the
    flash_decode kernel;
-4. times (CUDA events; warm-up first, median of 25 or more): decode step,
-   prefill, tokens/s over each trace, and each kernel beside its plain
-   version, its bound and, for flash_decode, one library call; then
-   traced windows (torch.profiler) over decode steps and over each
-   trace give the device's busy share and the kernels that take its
-   time.
+4. training: the same full-width model with use_flash (batch 8, seq 512,
+   lr 0.1, aux_weight 0.01, tokens and targets from RandomState(0) as
+   tools/bench_transformer.py draws them) takes 10 steps of
+   make_train_step. Every loss must be finite; the forward, dQ and dK/dV
+   kernels must each launch once per layer per step; the first 3 losses
+   must equal a second run through apply with dense attention at rtol
+   1e-5, and one step's gradients must agree with the dense path at rtol
+   2e-4, atol 1e-5;
+5. times (CUDA events; warm-up first, median of 25 or more): decode step,
+   prefill, tokens/s over each trace, the train step and train tokens/s,
+   and each kernel beside its plain version, its bound and, for
+   flash_decode and the flash-attention kernels, one library call; then
+   traced windows (torch.profiler) over decode steps, over each trace and
+   over train steps give the device's busy share and the kernels that
+   take its time.
 
 The last lines are the card (`nvidia-smi` name and power limit), one JSON
 object describing the kernels, and the status JSON.
@@ -48,6 +64,7 @@ import torch.nn.functional as F
 from incubator_mxnet_tpu_torch.models import transformer as tfm
 from incubator_mxnet_tpu_torch.ops import _build
 from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
+from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.serving import PageAllocator, run_trace
 
 FULL = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
@@ -63,7 +80,11 @@ LEVER_LEGS = {
     "chunked": dict(prefill_chunk=64),
     "spec": dict(spec_ngram=2, spec_lookahead=4),
 }
-SOURCE = "incubator_mxnet_tpu_torch/ops/csrc/decode.cu"
+TRAIN = dict(batch=8, seq=512, lr=0.1, aux_weight=0.01, steps=10)
+GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+SOURCES = [f"incubator_mxnet_tpu_torch/ops/csrc/{name}.cu"
+           for name in _build.SOURCES]
+DECODE_SOURCE, FLASH_SOURCE = SOURCES
 JAX_KERNELS = "incubator_mxnet_tpu/ops/pallas_kernels.py"
 
 
@@ -178,10 +199,78 @@ FLASH_CASES = {
 }
 
 
+def check_rel(label, got, want, tol):
+    """max |got - want| within `tol` of the largest |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    print(f"  {label}: max_abs_err {err:.3e} (tolerance {tol:g} x max "
+          f"|reference| {top:.3e})")
+    if not (err <= tol * top and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e})")
+    return err
+
+
+# (B, H, T, D, causal, model layout): the training shape first
+ATTN_CASES = {
+    "B8 H8 T512 D64 causal (training)": (8, 8, 512, 64, True, True),
+    "B8 H8 T512 D64 non-causal": (8, 8, 512, 64, False, True),
+    "B8 H8 T200 D64 causal (ragged)": (8, 8, 200, 64, True, True),
+    "B2 H8 T24 D64 non-causal (ragged)": (2, 8, 24, 64, False, True),
+    "B2 H4 T200 D16 causal, (B, H, T, D) layout": (2, 4, 200, 16, True,
+                                                  False),
+}
+
+
+def attn_case(device, dtype, B, H, T, D, model_layout, seed=5):
+    """q, k, v, dO as the kernels get them: (B, H, T, D) views of the
+    model's (B, T, H, D) tensors, or contiguous (B, H, T, D)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (B, T, H, D) if model_layout else (B, H, T, D)
+    out = [torch.randn(shape, generator=g).to(device, dtype)
+           for _ in range(4)]
+    return [t.transpose(1, 2) if model_layout else t for t in out]
+
+
+def flash_against_plain(device, errs):
+    """The three flash-attention kernels against their plain versions;
+    the backward kernels get the plain forward's o and lse."""
+    for dtype, tol in TOL.items():
+        name = str(dtype).replace("torch.", "")
+        for label, (B, H, T, D, causal, model) in ATTN_CASES.items():
+            q, k, v, do = attn_case(device, dtype, B, H, T, D, model)
+            o, lse = fl.flash_attention_fwd(q, k, v, causal)
+            o_ref, lse_ref = fl.flash_attention_fwd_ref(q, k, v, causal)
+            err = max(check(f"flash_attention_fwd {name} {label} o", o,
+                            o_ref, tol),
+                      check(f"flash_attention_fwd {name} {label} lse", lse,
+                            lse_ref, tol))
+            delta = fl._delta(o_ref, do)
+            args = (q, k, v, do, lse_ref, delta, causal)
+            dq = fl.flash_attention_dq(*args)
+            dk_got, dv_got = fl.flash_attention_dkv(*args)
+            dk_ref, dv_ref = fl.flash_attention_dkv_ref(*args)
+            grad_check = check if dtype == torch.float32 else check_rel
+            gtol = GRAD_TOL[dtype]
+            e_dq = grad_check(f"flash_attention_dq {name} {label}", dq,
+                              fl.flash_attention_dq_ref(*args), gtol)
+            e_dkv = max(grad_check(f"flash_attention_dkv {name} {label} "
+                                   f"dk", dk_got, dk_ref, gtol),
+                        grad_check(f"flash_attention_dkv {name} {label} "
+                                   f"dv", dv_got, dv_ref, gtol))
+            if dtype == torch.float32:
+                for kernel, e in (("flash_attention_fwd", err),
+                                  ("flash_attention_dq", e_dq),
+                                  ("flash_attention_dkv", e_dkv)):
+                    errs[kernel] = max(errs[kernel], e)
+    return errs
+
+
 def kernels_against_plain(device):
     """Phase 2. Returns {kernel: max abs err in float32}."""
     errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0,
-            "paged_decode_attention_wide": 0.0}
+            "paged_decode_attention_wide": 0.0, "flash_attention_fwd": 0.0,
+            "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
     for dtype, tol in TOL.items():
         name = str(dtype).replace("torch.", "")
         for label, make in (("ragged", paged_case),
@@ -213,7 +302,7 @@ def kernels_against_plain(device):
                 if dtype == torch.float32:
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
-    return errs
+    return flash_against_plain(device, errs)
 
 
 # -- phase 3: the serving path at full width --------------------------------
@@ -285,7 +374,84 @@ def match_generate(cfg, params, served, device):
     return dk.flash_decode.launches, ties
 
 
-# -- phase 4: times ----------------------------------------------------------
+# -- phase 4: training at full width ----------------------------------------
+
+FLASH_KERNELS = (fl.flash_attention_fwd, fl.flash_attention_dq,
+                 fl.flash_attention_dkv)
+
+
+def train_batch(cfg, device):
+    """Tokens and targets as tools/bench_transformer.py draws them."""
+    rng = np.random.RandomState(0)
+    shape = (TRAIN["batch"], TRAIN["seq"])
+    tok = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    tgt = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    return torch.from_numpy(tok).to(device), torch.from_numpy(tgt).to(device)
+
+
+def train(cfg, device):
+    """Phase 4: `TRAIN["steps"]` steps of make_train_step with use_flash,
+    the flash kernels' launches counted from zero over exactly those
+    steps; then the dense path (apply resolves attention to
+    `_dense_attention` without use_flash) for the first 3 losses and one
+    step's gradients. Returns (step, params, batch, launches)."""
+    tok, tgt = batch = train_batch(cfg, device)
+    kw = dict(lr=TRAIN["lr"], aux_weight=TRAIN["aux_weight"], device=device)
+    step, params = tfm.make_train_step(cfg, **kw)
+    for kernel in FLASH_KERNELS:
+        kernel.launches = 0
+    losses = []
+    for i in range(TRAIN["steps"]):
+        before = [k.launches for k in FLASH_KERNELS]
+        losses.append(step(params, tok, tgt)[0])
+        for k, b in zip(FLASH_KERNELS, before):
+            if k.launches - b != cfg.n_layers:
+                raise AssertionError(f"{k.__name__} launched "
+                                     f"{k.launches - b} times in step "
+                                     f"{i + 1}, expected {cfg.n_layers} "
+                                     f"(one per layer)")
+    launches = {k.__name__: k.launches for k in FLASH_KERNELS}
+    losses = torch.stack(losses).tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses}")
+    print(f"  loss after step 1: {losses[0]:.6f}; after step "
+          f"{TRAIN['steps']}: {losses[-1]:.6f}; launches {launches}")
+
+    dense_cfg = dataclasses.replace(cfg, use_flash=False)
+    dstep, dparams = tfm.make_train_step(dense_cfg, **kw)
+    dense = torch.stack([dstep(dparams, tok, tgt)[0]
+                         for _ in range(3)]).tolist()
+    del dstep, dparams
+    if not np.allclose(losses[:3], dense, rtol=1e-5, atol=0):
+        raise AssertionError(f"flash losses {losses[:3]} differ from dense "
+                             f"{dense} beyond rtol 1e-5")
+    print(f"  first 3 losses equal the dense path's (rtol 1e-5): flash "
+          f"{losses[:3]}, dense {dense}")
+
+    grads = {}
+    for label, c in (("flash", cfg), ("dense", dense_cfg)):
+        p = tfm.init_params(c, seed=0, device=device)
+        for w in p.values():
+            w.requires_grad_(True)
+        loss = tfm.loss_fn(p, tok, tgt, c, TRAIN["aux_weight"])
+        grads[label] = dict(zip(p, torch.autograd.grad(loss,
+                                                       list(p.values()))))
+    worst = 0.0
+    for name, g in grads["flash"].items():
+        d = grads["dense"][name]
+        err = float((g - d).abs().max())
+        if not torch.allclose(g, d, rtol=2e-4, atol=1e-5):
+            raise AssertionError(f"gradient of {name}: flash and dense "
+                                 f"differ beyond rtol 2e-4, atol 1e-5 (max "
+                                 f"abs diff {err:.3e})")
+        worst = max(worst, err)
+    print(f"  one step's gradients equal the dense path's for all "
+          f"{len(grads['flash'])} parameters (rtol 2e-4, atol 1e-5; max abs "
+          f"diff {worst:.3e})")
+    return step, params, batch, launches
+
+
+# -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
     """Median device time of fn() in ms, from CUDA events. Each call
@@ -353,8 +519,9 @@ def kernel_rows(errs, launches, flush, device, gpu):
     plain = device_ms(lambda: dk.paged_decode_attention_ref(*args),
                       flush=flush)
     rows.append({
-        "name": "paged_decode_attention", "route": "cuda", "source": SOURCE,
-        "replaces": f"{JAX_KERNELS}:719", "launches": launches["paged"],
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:719",
+        "launches": launches["paged"],
         "max_abs_err": errs["paged_decode_attention"], "ms": ms,
         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
@@ -384,8 +551,8 @@ def kernel_rows(errs, launches, flush, device, gpu):
               f"{f_ms * 1e3:.2f} us ({f_by}) [{gpu}]")
         if label == generate_shape:  # the JSON row: generate()'s shape
             rows.append({
-                "name": "flash_decode", "route": "cuda", "source": SOURCE,
-                "replaces": f"{JAX_KERNELS}:455",
+                "name": "flash_decode", "route": "cuda",
+                "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:455",
                 "launches": launches["flash"],
                 "max_abs_err": errs["flash_decode"], "ms": ms,
                 "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
@@ -409,12 +576,106 @@ def kernel_rows(errs, launches, flush, device, gpu):
         if Q == WIDE_Q[0]:  # the JSON row: speculative verification
             rows.append({
                 "name": "paged_decode_attention_wide", "route": "cuda",
-                "source": SOURCE, "replaces": f"{JAX_KERNELS}:808",
+                "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:808",
                 "launches": launches["wide"],
                 "max_abs_err": errs["paged_decode_attention_wide"],
                 "ms": ms, "plain_ms": plain, "bound_ms": w_ms,
                 "bound_by": w_by, "library_ms": None})
     return rows
+
+
+def flash_bound_ms(B, H, T, D, causal, elem, kernel):
+    """Least time for one flash-attention kernel call on this card: each
+    (B, H, T, D) operand read or written once and each (B, H, T) float32
+    statistic (lse; delta) once, against the memory rate; per (query row,
+    live key) pair 4*D operations for the forward, 6*D for dQ and 8*D for
+    dK/dV, against the float32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    per_pair, tensors, stats = {"flash_attention_fwd": (4, 4, 1),
+                                "flash_attention_dq": (6, 5, 2),
+                                "flash_attention_dkv": (8, 6, 2)}[kernel]
+    nbytes = tensors * B * H * T * D * elem + stats * B * H * T * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = per_pair * D * pairs / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+FLASH_LINES = {"flash_attention_fwd": 50, "flash_attention_dq": 86,
+               "flash_attention_dkv": 116}
+
+
+def flash_rows(errs, launches, flush, device, gpu):
+    """Times of the flash-attention kernels at the training shape
+    (float32, the model's layout), each beside its plain version, its
+    bound and the library's fused attention: forward alone for the
+    forward, forward + backward for dQ and dK/dV together."""
+    B, H, T, D, causal, _ = ATTN_CASES["B8 H8 T512 D64 causal (training)"]
+    q, k, v, do = attn_case(device, torch.float32, B, H, T, D, True)
+    o, lse = fl.flash_attention_fwd(q, k, v, causal)
+    args = (q, k, v, do, lse, fl._delta(o, do), causal)
+    calls = {
+        "flash_attention_fwd": (lambda: fl.flash_attention_fwd(q, k, v,
+                                                               causal),
+                                lambda: fl.flash_attention_fwd_ref(
+                                    q, k, v, causal)),
+        "flash_attention_dq": (lambda: fl.flash_attention_dq(*args),
+                               lambda: fl.flash_attention_dq_ref(*args)),
+        "flash_attention_dkv": (lambda: fl.flash_attention_dkv(*args),
+                                lambda: fl.flash_attention_dkv_ref(*args)),
+    }
+    # yardsticks only: the port never calls the library's attention
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), flush=flush)
+    lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal),
+        (lq, lk, lv), do), flush=flush)
+    print(f"  scaled_dot_product_attention B{B} H{H} T{T} D{D} causal: "
+          f"forward {lib_fwd * 1e3:.1f} us, forward + backward "
+          f"{lib_fwd_bwd * 1e3:.1f} us [{gpu}]")
+    rows = []
+    for name, (kernel, plain) in calls.items():
+        ms = device_ms(kernel, flush=flush)
+        plain_ms = device_ms(plain, flush=flush)
+        b_ms, b_by = flash_bound_ms(B, H, T, D, causal, 4, name)
+        lib = lib_fwd if name == "flash_attention_fwd" else lib_fwd_bwd
+        print(f"  {name} B{B} H{H} T{T} D{D} causal: kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": f"{JAX_KERNELS}:{FLASH_LINES[name]}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib})
+    return rows
+
+
+def train_times(step, params, batch, gpu):
+    """Device and host time of one full-width train step, train tokens/s
+    over 20 steps (host clock, one sync at the end), and a traced
+    window."""
+    tok, tgt = batch
+    n_tok = tok.numel()
+    # ~50 ms of sleep covers the host's enqueue of a whole step
+    dev = device_ms(lambda: step(params, tok, tgt), reps=25,
+                    sleep_cycles=100_000_000)
+    host = host_ms(lambda: step(params, tok, tgt)[0].item(), reps=10)
+    n = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss, _ = step(params, tok, tgt)
+    loss.item()
+    seconds = time.perf_counter() - t0
+    print(f"  train step (B{tok.shape[0]} T{tok.shape[1]}): device "
+          f"{dev:.3f} ms; with the loss read-back, host clock {host:.3f} "
+          f"ms; {n * n_tok / seconds:.1f} train tokens/s over {n} steps "
+          f"({seconds:.3f} s, host clock) [{gpu}]")
+    busy_share(lambda: step(params, tok, tgt)[0].item(),
+               "train step + loss read-back", gpu, steps=5)
 
 
 def path_times(cfg, params, device, gpu):
@@ -556,7 +817,11 @@ def main():
         raise AssertionError("chunked prefill did not lower the most "
                              "prefill tokens of any step")
 
-    print("phase 4: times")
+    print("phase 4: training at full width")
+    train_cfg = dataclasses.replace(cfg, use_flash=True)
+    step, train_params, batch, train_launches = train(train_cfg, device)
+
+    print("phase 5: times")
     for leg, out in served.items():
         print(f"  tokens/s over the trace, levers {leg}: "
               f"{out['tokens_per_sec']:.1f} ({out['generated_tokens']} "
@@ -574,6 +839,8 @@ def main():
                "flash": flash_launches["off"],
                "wide": sum(served[leg]["launches"]["wide"]
                            for leg in LEVER_LEGS)}, flush, device, gpu)
+    train_times(step, train_params, batch, gpu)
+    rows += flash_rows(errs, train_launches, flush, device, gpu)
     torch.cuda.synchronize()
 
     print(gpu)

@@ -1,5 +1,5 @@
-"""Transformer LM, serving half: the PyTorch counterpart of the JAX
-package's `models/transformer.py`.
+"""Transformer LM: the PyTorch counterpart of the JAX package's
+`models/transformer.py`, serving and single-device training.
 
 Plain functions over a dict of tensors, with the JAX package's stacked
 layout (every per-layer tensor has a leading `n_layers` axis), so the
@@ -9,9 +9,14 @@ layer stack is a Python loop where the JAX code scans.
 - `init_params` draws the same `np.random.RandomState(seed)` numbers as
   the JAX `init_params` and gives bit-identical values;
   `params_from_numpy` carries the JAX package's parameters across.
-- `apply` is the full forward pass; `prefill` / `decode_step` /
-  `generate` / `beam_search` decode over a dense KV cache (with
-  `cfg.use_flash`, decode attention is the `flash_decode` kernel).
+- `apply` is the full forward pass (with `cfg.use_flash`, attention is
+  the trainable flash-attention kernels, forward and backward);
+  `loss_fn` is its mean cross-entropy plus `aux_weight` times the MoE
+  balance loss, and `make_train_step` the single-device SGD step over
+  it, the counterpart of `make_gspmd_train_step` on a one-device mesh;
+- `prefill` / `decode_step` / `generate` / `beam_search` decode over a
+  dense KV cache (with `cfg.use_flash`, decode attention is the
+  `flash_decode` kernel).
 - `init_paged_kv_cache` / `decode_step_paged` / `prefill_paged` /
   `decode_step_paged_wide` are the paged programs the serving engine
   drives; decode attention is the `paged_decode_attention` kernel, and
@@ -24,9 +29,11 @@ cache: a step never holds two copies of the pool. At full width in
 float32 one copy of the paged pool is about 100 MB
 (2 x 6 layers x 257 pages x 16 rows x 512 x 4 bytes).
 
-Not ported yet: the mixture-of-experts FFN (`n_experts > 0`), the
-training-side flash attention behind `apply` with `use_flash`, the fused
-softmax-xent loss and the train steps.
+The train step updates the parameters in place, where the JAX step
+donates them and returns new ones.
+
+Not ported yet: the mixture-of-experts FFN (`n_experts > 0`), the fused
+softmax-xent loss (`use_fused_xent`) and the multi-device train steps.
 """
 from __future__ import annotations
 
@@ -41,12 +48,15 @@ from ..config import resolve_device
 from ..ops.kernels.decode import (DECODE_BLOCK, dense_decode_attention,
                                   flash_decode, paged_decode_attention,
                                   paged_decode_attention_wide)
+from ..ops.kernels.flash import flash_attention
 
 __all__ = [
     "TransformerConfig",
     "init_params",
     "params_from_numpy",
     "apply",
+    "loss_fn",
+    "make_train_step",
     "init_kv_cache",
     "decode_step",
     "prefill",
@@ -72,7 +82,9 @@ class TransformerConfig:
     max_len: int = 128
     n_experts: int = 0  # 0 = dense FFN
     dtype: str = "float32"
-    use_flash: bool = False  # decode attention through flash_decode
+    # flash-attention kernels in apply (forward and backward) and
+    # flash_decode in decoding
+    use_flash: bool = False
     use_fused_xent: bool = False  # fused softmax-xent loss (not ported)
 
 
@@ -80,7 +92,7 @@ def _check_cfg(cfg):
     if cfg.n_experts:
         raise NotImplementedError(
             "the mixture-of-experts FFN (n_experts > 0) is not ported yet; "
-            "it comes with the training-step slice")
+            "it comes with the fused-xent slice")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype {cfg.dtype!r} is not one of "
                          f"{sorted(_DTYPES)}")
@@ -196,19 +208,31 @@ def _dense_attention(q, k, v, causal=True):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _flash_attention_fn(q, k, v, causal=True):
+    """Adapter onto the flash-attention kernels (`ops/kernels/flash.py`):
+    model layout (B, T, H, Dh) <-> kernel layout (B, H, T, Dh), both as
+    transposed views, since the kernels read and write through strides.
+    Any T runs the kernels, so unlike the JAX adapter there is no padding
+    of causal remainders, no dense fallback for non-causal ones and no
+    fallback counter."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)
+
+
 def _logits(params, x):
     return _ln(x, params["ln_f_g"], params["ln_f_b"]) @ params["embed"].T
 
 
-def apply(params, tokens, cfg: TransformerConfig):
+def apply(params, tokens, cfg: TransformerConfig, attn_fn=None):
     """Forward pass: tokens (B, T) integer -> (logits (B, T, V), aux).
     `aux` is the MoE balance loss of the JAX version, 0 for the dense
-    FFN."""
+    FFN. Attention is `attn_fn(q, k, v)` over (B, T, H, Dh); by default
+    the flash-attention kernels with `cfg.use_flash`, else the dense
+    softmax, as in the JAX `apply`."""
     _check_cfg(cfg)
-    if cfg.use_flash:
-        raise NotImplementedError(
-            "apply() with use_flash needs the training flash-attention "
-            "kernel, which is not ported yet (training-step slice)")
+    if attn_fn is None:
+        attn_fn = _flash_attention_fn if cfg.use_flash else _dense_attention
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     B, T = tokens.shape
     x = params["embed"][tokens] + params["pos"][:T][None]
@@ -218,7 +242,7 @@ def apply(params, tokens, cfg: TransformerConfig):
         q = _split_heads(h @ lp["wq"], cfg.n_heads)
         k = _split_heads(h @ lp["wk"], cfg.n_heads)
         v = _split_heads(h @ lp["wv"], cfg.n_heads)
-        a = _dense_attention(q, k, v, causal=True)
+        a = attn_fn(q, k, v)
         x = _ffn(x + a.reshape(B, T, cfg.d_model) @ lp["wo"], lp)
     aux = torch.zeros((), dtype=x.dtype, device=x.device)
     return _logits(params, x), aux / max(cfg.n_layers, 1)
@@ -228,9 +252,49 @@ def _xent(logits, targets, fused=False):
     if fused:
         raise NotImplementedError(
             "the fused softmax-xent kernel is not ported yet "
-            "(training-step slice)")
+            "(fused-xent slice)")
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig,
+            aux_weight=0.01):
+    """Mean next-token cross-entropy of `apply` plus `aux_weight` times its
+    aux loss: the loss of the JAX `make_gspmd_train_step`. tokens and
+    targets (B, T) integers; returns a 0-d tensor."""
+    logits, aux = apply(params, tokens, cfg)
+    targets = torch.as_tensor(targets, device=logits.device)
+    losses = _xent(logits, targets, fused=cfg.use_fused_xent)
+    return losses.mean() + aux_weight * aux
+
+
+def make_train_step(cfg: TransformerConfig, lr=0.1, aux_weight=0.01,
+                    seed=0, device=None):
+    """Single-device SGD train step, the counterpart of the JAX
+    `make_gspmd_train_step` on a one-device mesh. Returns (step, params),
+    params = `init_params(cfg, seed)` on `device` (None: CUDA).
+
+    step(params, tokens, targets) -> (0-d loss, params): the gradient of
+    `loss_fn` for every parameter, then w <- w - lr * g IN PLACE under
+    `torch.no_grad()` (the JAX step donates its params and returns new
+    ones). Nothing in the step waits for the device; tokens and targets
+    already on the device keep it so (host arrays are copied over, which
+    waits)."""
+    dev = resolve_device(device)
+    params = init_params(cfg, seed, device=dev)
+
+    def step(p, tokens, targets):
+        weights = list(p.values())
+        for w in weights:
+            w.requires_grad_(True)
+        loss = loss_fn(p, tokens, targets, cfg, aux_weight)
+        grads = torch.autograd.grad(loss, weights)
+        with torch.no_grad():
+            for w, g in zip(weights, grads):
+                w.sub_(lr * g)
+        return loss.detach(), p
+
+    return step, params
 
 
 # ---------------------------------------------------------------------------

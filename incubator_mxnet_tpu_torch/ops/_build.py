@@ -22,7 +22,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load"]
 
-SOURCES = ("decode",)
+SOURCES = ("decode", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -90,11 +90,19 @@ def build(names=SOURCES):
     return built
 
 
-def load(name):
-    """The loaded library of `ops/csrc/<name>.cu`, built on first use."""
+def load(name, signatures):
+    """The loaded library of `ops/csrc/<name>.cu`, built on first use, with
+    the argument types of each function in `signatures` ({name: argtypes};
+    each returns a CUDA error code as an int) and of the library's
+    `mxtpu_cuda_error_string` declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]["path"]))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib

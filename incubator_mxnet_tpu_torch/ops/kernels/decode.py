@@ -57,15 +57,7 @@ _SIGNATURES = {
 
 
 def _lib():
-    lib = _build.load("decode")
-    if not getattr(lib, "_mxtpu_typed", False):
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
-        lib._mxtpu_typed = True
-    return lib
+    return _build.load("decode", _SIGNATURES)
 
 
 def _raise_on(lib, err, what):

@@ -73,6 +73,7 @@ def test_default_device_without_cuda_raises():
     params = ttfm.init_params(cfg, device="cpu")
     for call in (lambda: ttfm.generate(params, [[1, 2]], 2, cfg),
                  lambda: ttfm.init_kv_cache(cfg, 1),
-                 lambda: ServingEngine(params, cfg)):
+                 lambda: ServingEngine(params, cfg),
+                 lambda: ttfm.make_train_step(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

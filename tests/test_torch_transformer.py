@@ -175,13 +175,9 @@ def test_sampling_is_reproducible_from_a_generator(model):
     assert torch.equal(draw(11), draw(11))
 
 
-def test_unported_options_raise(model):
-    _, _, _, tp = model
+def test_unported_options_raise():
     _, moe = _cfgs(n_experts=2)
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         ttfm.init_params(moe, device="cpu")
-    _, flash = _cfgs(use_flash=True)
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        ttfm.apply(tp, np.ones((1, 4), np.int32), flash)
     with pytest.raises(NotImplementedError, match="softmax-xent"):
         ttfm._xent(torch.zeros(2, 8), torch.zeros(2), fused=True)
