@@ -19,7 +19,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
    T 200, a non-causal ragged T 24 and at D 16 (o and lse 2e-5 and 2e-2;
    dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2 of the largest
-   reference value);
+   reference value); the softmax-xent forward and backward kernels at the
+   train step's (4096, 32000), at the JAX tests' N 16 / V 50, N 8 / V 33
+   and a batched (2, 5, 17) through the autograd Function, and on strided,
+   unaligned and transposed views, with labels -1 and V in every batch
+   (loss and lse 1e-5; dlogits rtol 1e-4, atol 1e-5 in float32 and 2e-2
+   of the largest reference value in bfloat16);
 3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
    d_ff 2048, vocab 32000, max_len 512, float32, random weights from
    seed 0) serves the seeded trace through the engine (8 slots, page 16)
@@ -37,11 +42,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels must each launch once per layer per step; the first 3 losses
    must equal a second run through apply with dense attention at rtol
    1e-5, and one step's gradients must agree with the dense path at rtol
-   2e-4, atol 1e-5;
+   2e-4, atol 1e-5. The fused leg adds use_fused_xent: 10 steps, the
+   xent kernels once each per step and the flash kernels once per layer,
+   the first 3 losses equal to the flash leg's (dense xent) at rtol 1e-5
+   and one step's gradients at rtol 2e-4, atol 1e-5. The moe leg takes 5
+   steps of the same widths with 4 experts, flash and the fused xent:
+   finite losses, a positive balance loss, and layer 0's moe_ffn on the
+   card at its full-width input (4096 tokens, capacity 2048) equal to the
+   CPU's at 1e-4, routing identical but for counted near ties (top-2
+   probability gap below 1e-5);
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
-   prefill, tokens/s over each trace, the train step and train tokens/s,
-   and each kernel beside its plain version, its bound and, for
-   flash_decode and the flash-attention kernels, one library call; then
+   prefill, tokens/s over each trace, the train step and train tokens/s of
+   each training leg, and each kernel beside its plain version, its bound
+   and, for flash_decode, the flash-attention and the softmax-xent
+   kernels, one library call; then
    traced windows (torch.profiler) over decode steps, over each trace and
    over train steps give the device's busy share and the kernels that
    take its time.
@@ -65,6 +79,8 @@ from incubator_mxnet_tpu_torch.models import transformer as tfm
 from incubator_mxnet_tpu_torch.ops import _build
 from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
 from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
+from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
+from incubator_mxnet_tpu_torch.parallel import moe
 from incubator_mxnet_tpu_torch.serving import PageAllocator, run_trace
 
 FULL = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
@@ -82,9 +98,10 @@ LEVER_LEGS = {
 }
 TRAIN = dict(batch=8, seq=512, lr=0.1, aux_weight=0.01, steps=10)
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-SOURCES = [f"incubator_mxnet_tpu_torch/ops/csrc/{name}.cu"
-           for name in _build.SOURCES]
-DECODE_SOURCE, FLASH_SOURCE = SOURCES
+SOURCES = {name: f"incubator_mxnet_tpu_torch/ops/csrc/{name}.cu"
+           for name in _build.SOURCES}
+DECODE_SOURCE, FLASH_SOURCE, XENT_SOURCE = (
+    SOURCES[name] for name in ("decode", "flash_attention", "xent"))
 JAX_KERNELS = "incubator_mxnet_tpu/ops/pallas_kernels.py"
 
 
@@ -96,10 +113,13 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def check(label, got, want, tol):
+def check(label, got, want, tol, atol=None):
+    """got within rtol `tol` and atol `atol` (default: `tol`) of want."""
+    atol = tol if atol is None else atol
     err = float((got.float() - want.float()).abs().max())
-    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-    print(f"  {label}: max_abs_err {err:.3e} (tolerance {tol:g})")
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=atol)
+    print(f"  {label}: max_abs_err {err:.3e} (tolerance {tol:g}"
+          + ("" if atol == tol else f", atol {atol:g}") + ")")
     if not (ok and torch.isfinite(got.float()).all()):
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version (max abs err {err:.3e})")
@@ -266,11 +286,92 @@ def flash_against_plain(device, errs):
     return errs
 
 
+# (logits shape, view): the train step's (B·T, V) first, then the JAX
+# tests' shapes; "strided" reads rows 32004 elements apart in place,
+# "offset" starts each row one element in (so unaligned: the scalar
+# path), "transposed" is copied by the wrapper
+XENT_CASES = {
+    "N4096 V32000 (training)": ((4096, 32000), None),
+    "N16 V50": ((16, 50), None),
+    "N8 V33": ((8, 33), None),
+    "(2, 5, 17) batched, through softmax_xent": ((2, 5, 17), None),
+    "N64 V32000 strided rows": ((64, 32000), "strided"),
+    "N64 V32000 offset rows": ((64, 32000), "offset"),
+    "N64 V4000 transposed": ((64, 4000), "transposed"),
+}
+XENT_TOL = 1e-5  # loss and lse (tests/test_pallas.py)
+XENT_GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: 2e-2}
+
+
+def xent_case(device, dtype, shape, view, seed=6):
+    """Logits (scale 3), labels with -1 and V among them, and a dloss of
+    the row shape (a weighted loss, as a mean's gradient is uniform)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    V = shape[-1]
+    if view == "transposed":
+        logits = torch.randn(shape[::-1], generator=g).to(device, dtype).T
+    elif view is None:
+        logits = (torch.randn(shape, generator=g) * 3).to(device, dtype)
+    else:
+        wide = (torch.randn((shape[0], V + 4), generator=g) * 3).to(device,
+                                                                    dtype)
+        logits = wide[:, :V] if view == "strided" else wide[:, 1:V + 1]
+    labels = torch.randint(0, V, shape[:-1], generator=g).reshape(-1)
+    labels[0], labels[1] = -1, V  # outside the vocabulary: no column
+    dloss = torch.rand(shape[:-1], generator=g)
+    return (logits, labels.reshape(shape[:-1]).to(device, torch.int32),
+            dloss.to(device))
+
+
+def xent_against_plain(device, errs):
+    """The softmax-xent forward and backward kernels against their plain
+    versions; the backward gets the plain forward's lse. The batched case
+    runs the autograd Function (kernels) against the plain versions on
+    the flattened rows."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for label, (shape, view) in XENT_CASES.items():
+            logits, labels, dloss = xent_case(device, dtype, shape, view)
+            flat = logits.reshape(-1, shape[-1])
+            lab, dl = labels.reshape(-1), dloss.reshape(-1)
+            loss_ref, lse_ref = xt.softmax_xent_fwd_ref(flat, lab)
+            g_ref = xt.softmax_xent_bwd_ref(flat, lab, lse_ref, dl)
+            if view is None and len(shape) > 2:
+                leaf = logits.detach().clone().requires_grad_(True)
+                loss = xt.softmax_xent(leaf, labels)
+                g = torch.autograd.grad(loss, leaf, dloss)[0]
+                loss, g = loss.detach().reshape(-1), g.reshape(flat.shape)
+                lse = lse_ref
+            else:
+                loss, lse = xt.softmax_xent_fwd(flat, lab)
+                g = xt.softmax_xent_bwd(flat, lab, lse_ref, dl)
+            e_fwd = max(check(f"softmax_xent_fwd {name} {label} loss", loss,
+                              loss_ref, XENT_TOL),
+                        check(f"softmax_xent_fwd {name} {label} lse", lse,
+                              lse_ref, XENT_TOL))
+            if g.dtype != dtype or loss.dtype != torch.float32:
+                raise AssertionError(f"softmax_xent {name} {label}: loss "
+                                     f"{loss.dtype}, dlogits {g.dtype}")
+            if dtype == torch.float32:
+                rtol, atol = XENT_GRAD_TOL[dtype]
+                e_bwd = check(f"softmax_xent_bwd {name} {label} dlogits", g,
+                              g_ref, rtol, atol)
+                errs["softmax_xent_fwd"] = max(errs["softmax_xent_fwd"],
+                                               e_fwd)
+                errs["softmax_xent_bwd"] = max(errs["softmax_xent_bwd"],
+                                               e_bwd)
+            else:
+                check_rel(f"softmax_xent_bwd {name} {label} dlogits", g,
+                          g_ref, XENT_GRAD_TOL[dtype])
+    return errs
+
+
 def kernels_against_plain(device):
     """Phase 2. Returns {kernel: max abs err in float32}."""
     errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0,
             "paged_decode_attention_wide": 0.0, "flash_attention_fwd": 0.0,
-            "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+            "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0,
+            "softmax_xent_fwd": 0.0, "softmax_xent_bwd": 0.0}
     for dtype, tol in TOL.items():
         name = str(dtype).replace("torch.", "")
         for label, make in (("ragged", paged_case),
@@ -302,7 +403,7 @@ def kernels_against_plain(device):
                 if dtype == torch.float32:
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
-    return flash_against_plain(device, errs)
+    return xent_against_plain(device, flash_against_plain(device, errs))
 
 
 # -- phase 3: the serving path at full width --------------------------------
@@ -389,36 +490,73 @@ def train_batch(cfg, device):
     return torch.from_numpy(tok).to(device), torch.from_numpy(tgt).to(device)
 
 
-def train(cfg, device):
-    """Phase 4: `TRAIN["steps"]` steps of make_train_step with use_flash,
-    the flash kernels' launches counted from zero over exactly those
-    steps; then the dense path (apply resolves attention to
-    `_dense_attention` without use_flash) for the first 3 losses and one
-    step's gradients. Returns (step, params, batch, launches)."""
+def run_steps(cfg, device, steps, per_step):
+    """`steps` steps of make_train_step on the seeded batch, the launches
+    of each kernel in `per_step` ({wrapper: launches per step}) counted
+    from zero over exactly those steps; any other count in any step fails.
+    Returns (step, params, batch, losses, launches)."""
     tok, tgt = batch = train_batch(cfg, device)
-    kw = dict(lr=TRAIN["lr"], aux_weight=TRAIN["aux_weight"], device=device)
-    step, params = tfm.make_train_step(cfg, **kw)
-    for kernel in FLASH_KERNELS:
+    step, params = tfm.make_train_step(cfg, lr=TRAIN["lr"],
+                                       aux_weight=TRAIN["aux_weight"],
+                                       device=device)
+    for kernel in per_step:
         kernel.launches = 0
     losses = []
-    for i in range(TRAIN["steps"]):
-        before = [k.launches for k in FLASH_KERNELS]
+    for i in range(steps):
+        before = {k: k.launches for k in per_step}
         losses.append(step(params, tok, tgt)[0])
-        for k, b in zip(FLASH_KERNELS, before):
-            if k.launches - b != cfg.n_layers:
+        for k, want in per_step.items():
+            if k.launches - before[k] != want:
                 raise AssertionError(f"{k.__name__} launched "
-                                     f"{k.launches - b} times in step "
-                                     f"{i + 1}, expected {cfg.n_layers} "
-                                     f"(one per layer)")
-    launches = {k.__name__: k.launches for k in FLASH_KERNELS}
+                                     f"{k.launches - before[k]} times in step "
+                                     f"{i + 1}, expected {want}")
+    launches = {k.__name__: k.launches for k in per_step}
     losses = torch.stack(losses).tolist()
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss: {losses}")
-    print(f"  loss after step 1: {losses[0]:.6f}; after step "
-          f"{TRAIN['steps']}: {losses[-1]:.6f}; launches {launches}")
+    print(f"  loss after step 1: {losses[0]:.6f}; after step {steps}: "
+          f"{losses[-1]:.6f}; launches {launches}")
+    return step, params, batch, losses, launches
 
+
+def grads_match(cfg, other, batch, device, what):
+    """One step's gradients of loss_fn (init_params seed 0) under `cfg`
+    against `other` for every parameter, at rtol 2e-4, atol 1e-5."""
+    tok, tgt = batch
+    grads = []
+    for c in (cfg, other):
+        p = tfm.init_params(c, seed=0, device=device)
+        for w in p.values():
+            w.requires_grad_(True)
+        loss = tfm.loss_fn(p, tok, tgt, c, TRAIN["aux_weight"])
+        grads.append(dict(zip(p, torch.autograd.grad(loss,
+                                                     list(p.values())))))
+    worst = 0.0
+    for name, g in grads[0].items():
+        d = grads[1][name]
+        err = float((g - d).abs().max())
+        if not torch.allclose(g, d, rtol=2e-4, atol=1e-5):
+            raise AssertionError(f"gradient of {name}: {what} differ beyond "
+                                 f"rtol 2e-4, atol 1e-5 (max abs diff "
+                                 f"{err:.3e})")
+        worst = max(worst, err)
+    print(f"  one step's gradients agree ({what}) for all {len(grads[0])} "
+          f"parameters (rtol 2e-4, atol 1e-5; max abs diff {worst:.3e})")
+
+
+def train(cfg, device):
+    """Phase 4, the flash leg: `TRAIN["steps"]` steps of make_train_step
+    with use_flash, each flash kernel once per layer per step; then the
+    dense path (apply resolves attention to `_dense_attention` without
+    use_flash) for the first 3 losses and one step's gradients. Returns
+    (step, params, batch, losses, launches)."""
+    step, params, batch, losses, launches = run_steps(
+        cfg, device, TRAIN["steps"], {k: cfg.n_layers for k in FLASH_KERNELS})
+    tok, tgt = batch
     dense_cfg = dataclasses.replace(cfg, use_flash=False)
-    dstep, dparams = tfm.make_train_step(dense_cfg, **kw)
+    dstep, dparams = tfm.make_train_step(dense_cfg, lr=TRAIN["lr"],
+                                         aux_weight=TRAIN["aux_weight"],
+                                         device=device)
     dense = torch.stack([dstep(dparams, tok, tgt)[0]
                          for _ in range(3)]).tolist()
     del dstep, dparams
@@ -427,27 +565,105 @@ def train(cfg, device):
                              f"{dense} beyond rtol 1e-5")
     print(f"  first 3 losses equal the dense path's (rtol 1e-5): flash "
           f"{losses[:3]}, dense {dense}")
+    grads_match(cfg, dense_cfg, batch, device, "flash and dense")
+    return step, params, batch, losses, launches
 
-    grads = {}
-    for label, c in (("flash", cfg), ("dense", dense_cfg)):
-        p = tfm.init_params(c, seed=0, device=device)
-        for w in p.values():
-            w.requires_grad_(True)
-        loss = tfm.loss_fn(p, tok, tgt, c, TRAIN["aux_weight"])
-        grads[label] = dict(zip(p, torch.autograd.grad(loss,
-                                                       list(p.values()))))
-    worst = 0.0
-    for name, g in grads["flash"].items():
-        d = grads["dense"][name]
-        err = float((g - d).abs().max())
-        if not torch.allclose(g, d, rtol=2e-4, atol=1e-5):
-            raise AssertionError(f"gradient of {name}: flash and dense "
-                                 f"differ beyond rtol 2e-4, atol 1e-5 (max "
-                                 f"abs diff {err:.3e})")
-        worst = max(worst, err)
-    print(f"  one step's gradients equal the dense path's for all "
-          f"{len(grads['flash'])} parameters (rtol 2e-4, atol 1e-5; max abs "
-          f"diff {worst:.3e})")
+
+XENT_KERNELS = (xt.softmax_xent_fwd, xt.softmax_xent_bwd)
+MOE = dict(n_experts=4, steps=5)  # examples/multi_axis_parallel.py's 4
+NEAR_TIE_PROB = 1e-5  # top-2 router probability gap of a routing near tie
+
+
+def path_kernels(cfg):
+    """{wrapper: launches per train step} of a use_flash, use_fused_xent
+    step: each flash kernel once per layer, each xent kernel once."""
+    return {**{k: cfg.n_layers for k in FLASH_KERNELS},
+            **{k: 1 for k in XENT_KERNELS}}
+
+
+def train_fused(cfg, flash_losses, device):
+    """Phase 4, the fused leg: the flash leg's model with use_fused_xent;
+    its first 3 losses must equal the flash leg's (dense xent) at rtol
+    1e-5, one step's gradients that leg's at rtol 2e-4, atol 1e-5.
+    Returns (step, params, batch, launches)."""
+    step, params, batch, losses, launches = run_steps(
+        cfg, device, TRAIN["steps"], path_kernels(cfg))
+    if not np.allclose(losses[:3], flash_losses[:3], rtol=1e-5, atol=0):
+        raise AssertionError(f"fused-xent losses {losses[:3]} differ from "
+                             f"the dense-xent leg's {flash_losses[:3]} beyond "
+                             f"rtol 1e-5")
+    print(f"  first 3 losses equal the dense-xent leg's (rtol 1e-5): fused "
+          f"{losses[:3]}, dense xent {flash_losses[:3]}")
+    grads_match(cfg, dataclasses.replace(cfg, use_fused_xent=False), batch,
+                device, "fused and dense xent")
+    return step, params, batch, launches
+
+
+def moe_layer_input(params, cfg, tok):
+    """Layer 0's FFN input, ln2(x) flattened to (B·T, d), as the train
+    step computes it (flash attention)."""
+    B, T = tok.shape
+    x = params["embed"][tok.long()] + params["pos"][:T][None]
+    lp = tfm._layer_params(params, 0)
+    h = tfm._ln(x, lp["ln1_g"], lp["ln1_b"])
+    q, k, v = (tfm._split_heads(h @ lp[w], cfg.n_heads)
+               for w in ("wq", "wk", "wv"))
+    a = tfm._flash_attention_fn(q, k, v)
+    x = x + a.reshape(B, T, cfg.d_model) @ lp["wo"]
+    return tfm._ln(x, lp["ln2_g"], lp["ln2_b"]).reshape(B * T, -1), lp
+
+
+def moe_card_against_cpu(params, cfg, tok):
+    """One layer's moe_ffn on the card at its full-width input against the
+    same call on the CPU: routing (expert and keep) identical but for
+    near ties (top-2 probability gap < NEAR_TIE_PROB, counted), every
+    other token's output and the balance loss at 1e-4."""
+    with torch.no_grad():
+        h, lp = moe_layer_input(params, cfg, tok)
+        args = (h, lp["router"], lp["w1"], lp["w2"])
+        out, aux = moe.moe_ffn(*args)
+        out_c, aux_c = moe.moe_ffn(*(a.cpu() for a in args))
+        N, E = h.shape[0], cfg.n_experts
+        C = max(1, int(2.0 * N / E))
+        routes = []
+        for a in (args, [a.cpu() for a in args]):
+            probs = torch.softmax(a[0] @ a[1], dim=-1)
+            disp = moe.moe_dispatch(a[0], a[1], E, C)[0]
+            routes.append((probs.argmax(-1).cpu(),
+                           (disp.sum((1, 2)) > 0).cpu(), probs.cpu()))
+    (ex, keep, _), (ex_c, keep_c, probs_c) = routes
+    top2 = torch.topk(probs_c, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    differ = (ex != ex_c) | (keep != keep_c)
+    if (gap[differ] >= NEAR_TIE_PROB).any():
+        bad = torch.nonzero(differ & (gap >= NEAR_TIE_PROB))[:, 0]
+        raise AssertionError(f"tokens {bad.tolist()[:10]} route differently "
+                             f"on the card and the CPU with top-2 gaps "
+                             f"{gap[bad].tolist()[:10]}")
+    ties = int((gap < NEAR_TIE_PROB).sum())
+    print(f"  moe_ffn layer 0, {N} tokens, E {E}, C {C}: {int(keep.sum())} "
+          f"kept on the card, {int(keep_c.sum())} on the CPU; "
+          f"{int(differ.sum())} tokens route differently, {ties} near ties "
+          f"(top-2 gap < {NEAR_TIE_PROB:g})")
+    same = ~differ
+    check(f"moe_ffn card against CPU, {int(same.sum())} tokens routed alike",
+          out.cpu()[same], out_c[same], 1e-4)
+    check("moe_ffn balance loss, card against CPU", aux.cpu(), aux_c, 1e-4)
+
+
+def train_moe(cfg, device):
+    """Phase 4, the moe leg: the same widths with experts, flash and the
+    fused xent, `MOE["steps"]` steps; finite losses, a positive balance
+    loss, and one layer's moe_ffn on the card against the CPU. Returns
+    (step, params, batch, launches)."""
+    step, params, batch, losses, launches = run_steps(
+        cfg, device, MOE["steps"], path_kernels(cfg))
+    with torch.no_grad():
+        aux = float(tfm.apply(params, batch[0], cfg)[1])
+    if not aux > 0:
+        raise AssertionError(f"balance loss {aux} is not positive")
+    print(f"  balance loss after {MOE['steps']} steps: {aux:.6f}")
+    moe_card_against_cpu(params, cfg, batch[0])
     return step, params, batch, launches
 
 
@@ -653,9 +869,80 @@ def flash_rows(errs, launches, flush, device, gpu):
     return rows
 
 
-def train_times(step, params, batch, gpu):
-    """Device and host time of one full-width train step, train tokens/s
-    over 20 steps (host clock, one sync at the end), and a traced
+XENT_LINES = {"softmax_xent_fwd": 291, "softmax_xent_bwd": 306}
+
+
+def xent_bound_ms(N, V, elem, kernel):
+    """Least time for one softmax-xent kernel call on this card: the
+    forward reads the (N, V) logits and the labels once and writes loss
+    and lse; the backward reads the logits, labels, lse and dloss once and
+    writes dlogits; against the memory rate. Operations per logit, about 4
+    forward (max, subtract, exponential, add) and 3 backward (subtract,
+    exponential, multiply), against the float32 rate. Returns (ms,
+    "bytes" or "operations")."""
+    if kernel == "softmax_xent_fwd":
+        nbytes, ops = N * V * elem + N * 4 + 2 * N * 4, 4 * N * V
+    else:
+        nbytes, ops = 2 * N * V * elem + 3 * N * 4, 3 * N * V
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def xent_rows(errs, launches, flush, device, gpu):
+    """Times of the softmax-xent kernels at the train step's shape (N
+    4096, V 32000), each beside its plain version, its bound and the
+    library's cross_entropy: forward alone for the forward, forward +
+    backward for the backward; float32 (the JSON rows), then bfloat16."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        (N, V), _ = XENT_CASES["N4096 V32000 (training)"]
+        logits, labels, dloss = xent_case(device, dtype, (N, V), None)
+        loss, lse = xt.softmax_xent_fwd(logits, labels)
+        calls = {
+            "softmax_xent_fwd": (lambda: xt.softmax_xent_fwd(logits, labels),
+                                 lambda: xt.softmax_xent_fwd_ref(logits,
+                                                                 labels)),
+            "softmax_xent_bwd": (lambda: xt.softmax_xent_bwd(
+                logits, labels, lse, dloss), lambda: xt.softmax_xent_bwd_ref(
+                    logits, labels, lse, dloss)),
+        }
+        # yardsticks only: the port never calls the library's loss
+        lab = labels.long().clamp(0, V - 1)
+        leaf = logits.detach().clone().requires_grad_()
+        lib_fwd = device_ms(lambda: F.cross_entropy(
+            logits, lab, reduction="none"), flush=flush)
+        lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
+            F.cross_entropy(leaf, lab, reduction="none"), leaf, dloss),
+            flush=flush)
+        print(f"  cross_entropy N{N} V{V} {name}: forward "
+              f"{lib_fwd * 1e3:.1f} us, forward + backward "
+              f"{lib_fwd_bwd * 1e3:.1f} us [{gpu}]")
+        for kernel_name, (kernel, plain) in calls.items():
+            ms = device_ms(kernel, flush=flush)
+            plain_ms = device_ms(plain, flush=flush)
+            b_ms, b_by = xent_bound_ms(N, V, logits.element_size(),
+                                       kernel_name)
+            lib = lib_fwd if kernel_name == "softmax_xent_fwd" else lib_fwd_bwd
+            print(f"  {kernel_name} N{N} V{V} {name}: kernel {ms * 1e3:.1f} "
+                  f"us, plain {plain_ms * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+            if dtype == torch.float32:
+                rows.append({
+                    "name": kernel_name, "route": "cuda",
+                    "source": XENT_SOURCE,
+                    "replaces": f"{JAX_KERNELS}:{XENT_LINES[kernel_name]}",
+                    "launches": launches[kernel_name],
+                    "max_abs_err": errs[kernel_name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib})
+    return rows
+
+
+def train_times(step, params, batch, gpu, leg="flash"):
+    """Device and host time of one full-width train step of `leg`, train
+    tokens/s over 20 steps (host clock, one sync at the end), and a traced
     window."""
     tok, tgt = batch
     n_tok = tok.numel()
@@ -670,12 +957,12 @@ def train_times(step, params, batch, gpu):
         loss, _ = step(params, tok, tgt)
     loss.item()
     seconds = time.perf_counter() - t0
-    print(f"  train step (B{tok.shape[0]} T{tok.shape[1]}): device "
+    print(f"  train step, {leg} leg (B{tok.shape[0]} T{tok.shape[1]}): device "
           f"{dev:.3f} ms; with the loss read-back, host clock {host:.3f} "
           f"ms; {n * n_tok / seconds:.1f} train tokens/s over {n} steps "
           f"({seconds:.3f} s, host clock) [{gpu}]")
     busy_share(lambda: step(params, tok, tgt)[0].item(),
-               "train step + loss read-back", gpu, steps=5)
+               f"train step ({leg} leg) + loss read-back", gpu, steps=5)
 
 
 def path_times(cfg, params, device, gpu):
@@ -818,8 +1105,16 @@ def main():
                              "prefill tokens of any step")
 
     print("phase 4: training at full width")
+    print(" leg flash (dense xent)")
     train_cfg = dataclasses.replace(cfg, use_flash=True)
-    step, train_params, batch, train_launches = train(train_cfg, device)
+    step, train_params, batch, flash_losses, train_launches = train(
+        train_cfg, device)
+    print(" leg fused (use_fused_xent)")
+    fused_cfg = dataclasses.replace(train_cfg, use_fused_xent=True)
+    legs4 = {"fused": train_fused(fused_cfg, flash_losses, device)}
+    print(f" leg moe (n_experts {MOE['n_experts']}, use_fused_xent)")
+    legs4["moe"] = train_moe(dataclasses.replace(
+        fused_cfg, n_experts=MOE["n_experts"]), device)
 
     print("phase 5: times")
     for leg, out in served.items():
@@ -840,7 +1135,10 @@ def main():
                "wide": sum(served[leg]["launches"]["wide"]
                            for leg in LEVER_LEGS)}, flush, device, gpu)
     train_times(step, train_params, batch, gpu)
+    for leg, (leg_step, leg_params, leg_batch, _) in legs4.items():
+        train_times(leg_step, leg_params, leg_batch, gpu, leg=leg)
     rows += flash_rows(errs, train_launches, flush, device, gpu)
+    rows += xent_rows(errs, legs4["fused"][3], flush, device, gpu)
     torch.cuda.synchronize()
 
     print(gpu)

@@ -7,14 +7,17 @@ continuous-batching transformer server (`models.transformer`,
 `serving`), with the `paged_decode_attention`, `paged_decode_attention_wide`
 and `flash_decode` kernels, and the transformer's single-device train step
 (`make_train_step`, `loss_fn`), whose attention with `use_flash` runs the
-FlashAttention-2 forward, dQ and dK/dV kernels.
+FlashAttention-2 forward, dQ and dK/dV kernels and whose loss with
+`use_fused_xent` runs the fused softmax cross-entropy kernels, for every
+`TransformerConfig` (with `n_experts`, the mixture-of-experts FFN of
+`parallel`).
 
 Entry points take `device=None`, meaning CUDA; without CUDA they raise
 unless the caller passes `device="cpu"`, which runs each kernel's plain
 PyTorch version instead.
 """
-from . import config, models, ops, serving, telemetry  # noqa: F401
+from . import config, models, ops, parallel, serving, telemetry  # noqa: F401
 from .models import loss_fn, make_train_step  # noqa: F401
 
-__all__ = ["config", "models", "ops", "serving", "telemetry", "loss_fn",
-           "make_train_step"]
+__all__ = ["config", "models", "ops", "parallel", "serving", "telemetry",
+           "loss_fn", "make_train_step"]

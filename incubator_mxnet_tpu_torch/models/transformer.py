@@ -11,9 +11,11 @@ layer stack is a Python loop where the JAX code scans.
   `params_from_numpy` carries the JAX package's parameters across.
 - `apply` is the full forward pass (with `cfg.use_flash`, attention is
   the trainable flash-attention kernels, forward and backward);
-  `loss_fn` is its mean cross-entropy plus `aux_weight` times the MoE
-  balance loss, and `make_train_step` the single-device SGD step over
-  it, the counterpart of `make_gspmd_train_step` on a one-device mesh;
+  `loss_fn` is its mean cross-entropy (with `cfg.use_fused_xent`, the
+  fused softmax-xent kernels, forward and backward) plus `aux_weight`
+  times the MoE balance loss, and `make_train_step` the single-device SGD
+  step over it, the counterpart of `make_gspmd_train_step` on a
+  one-device mesh;
 - `prefill` / `decode_step` / `generate` / `beam_search` decode over a
   dense KV cache (with `cfg.use_flash`, decode attention is the
   `flash_decode` kernel).
@@ -29,11 +31,16 @@ cache: a step never holds two copies of the pool. At full width in
 float32 one copy of the paged pool is about 100 MB
 (2 x 6 layers x 257 pages x 16 rows x 512 x 4 bytes).
 
+With `cfg.n_experts`, every path's FFN is the single-device
+mixture-of-experts FFN (`parallel/moe.py`) over all of the call's tokens
+flattened to (N, d), as each JAX call site does: capacity depends on N,
+so padded rows take part in routing as they do in JAX. `apply` returns
+the mean of the layers' balance losses; the decoding paths drop them.
+
 The train step updates the parameters in place, where the JAX step
 donates them and returns new ones.
 
-Not ported yet: the mixture-of-experts FFN (`n_experts > 0`), the fused
-softmax-xent loss (`use_fused_xent`) and the multi-device train steps.
+Not ported yet: the multi-device train steps.
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ from ..ops.kernels.decode import (DECODE_BLOCK, dense_decode_attention,
                                   flash_decode, paged_decode_attention,
                                   paged_decode_attention_wide)
 from ..ops.kernels.flash import flash_attention
+from ..ops.kernels.xent import softmax_xent
+from ..parallel.moe import moe_ffn
 
 __all__ = [
     "TransformerConfig",
@@ -85,14 +94,10 @@ class TransformerConfig:
     # flash-attention kernels in apply (forward and backward) and
     # flash_decode in decoding
     use_flash: bool = False
-    use_fused_xent: bool = False  # fused softmax-xent loss (not ported)
+    use_fused_xent: bool = False  # fused softmax-xent kernels in the loss
 
 
 def _check_cfg(cfg):
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "the mixture-of-experts FFN (n_experts > 0) is not ported yet; "
-            "it comes with the fused-xent slice")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype {cfg.dtype!r} is not one of "
                          f"{sorted(_DTYPES)}")
@@ -154,8 +159,13 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
         "ln2_g": const(1.0, L, d),
         "ln2_b": const(0.0, L, d),
     }
-    p["w1"] = W(L, d, f)
-    p["w2"] = W(L, f, d, scale=1.0 / np.sqrt(f))
+    if cfg.n_experts:
+        p["router"] = W(L, d, cfg.n_experts, scale=0.02)
+        p["w1"] = W(L, cfg.n_experts, d, f)
+        p["w2"] = W(L, cfg.n_experts, f, d, scale=1.0 / np.sqrt(f))
+    else:
+        p["w1"] = W(L, d, f)
+        p["w2"] = W(L, f, d, scale=1.0 / np.sqrt(f))
     return p
 
 
@@ -186,14 +196,24 @@ def _split_heads(x, n_heads):
     return x.reshape(B, T, n_heads, d // n_heads)
 
 
+_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1_g", "ln1_b",
+               "ln2_g", "ln2_b", "router")
+
+
 def _layer_params(params, l):
-    return {k: params[k][l] for k in ("wq", "wk", "wv", "wo", "w1", "w2",
-                                      "ln1_g", "ln1_b", "ln2_g", "ln2_b")}
+    return {k: params[k][l] for k in _LAYER_KEYS if k in params}
 
 
 def _ffn(x, lp):
+    """The FFN half of a layer: (x + FFN(ln2(x)), aux). With a router in
+    `lp`, the MoE FFN over all of x's rows flattened to (N, d), and its
+    balance loss; else the dense FFN and aux None."""
     h = _ln(x, lp["ln2_g"], lp["ln2_b"])
-    return x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+    if "router" in lp:
+        out, aux = moe_ffn(h.reshape(-1, h.shape[-1]), lp["router"],
+                           lp["w1"], lp["w2"])
+        return x + out.reshape(x.shape), aux
+    return x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"], None
 
 
 def _dense_attention(q, k, v, causal=True):
@@ -226,8 +246,8 @@ def _logits(params, x):
 
 def apply(params, tokens, cfg: TransformerConfig, attn_fn=None):
     """Forward pass: tokens (B, T) integer -> (logits (B, T, V), aux).
-    `aux` is the MoE balance loss of the JAX version, 0 for the dense
-    FFN. Attention is `attn_fn(q, k, v)` over (B, T, H, Dh); by default
+    `aux` is the layers' mean MoE balance loss, as in the JAX version (0
+    for the dense FFN). Attention is `attn_fn(q, k, v)` over (B, T, H, Dh); by default
     the flash-attention kernels with `cfg.use_flash`, else the dense
     softmax, as in the JAX `apply`."""
     _check_cfg(cfg)
@@ -236,6 +256,7 @@ def apply(params, tokens, cfg: TransformerConfig, attn_fn=None):
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     B, T = tokens.shape
     x = params["embed"][tokens] + params["pos"][:T][None]
+    aux = torch.zeros((), dtype=x.dtype, device=x.device)
     for l in range(cfg.n_layers):
         lp = _layer_params(params, l)
         h = _ln(x, lp["ln1_g"], lp["ln1_b"])
@@ -243,16 +264,18 @@ def apply(params, tokens, cfg: TransformerConfig, attn_fn=None):
         k = _split_heads(h @ lp["wk"], cfg.n_heads)
         v = _split_heads(h @ lp["wv"], cfg.n_heads)
         a = attn_fn(q, k, v)
-        x = _ffn(x + a.reshape(B, T, cfg.d_model) @ lp["wo"], lp)
-    aux = torch.zeros((), dtype=x.dtype, device=x.device)
+        x, layer_aux = _ffn(x + a.reshape(B, T, cfg.d_model) @ lp["wo"], lp)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return _logits(params, x), aux / max(cfg.n_layers, 1)
 
 
 def _xent(logits, targets, fused=False):
+    """Per-position cross-entropy. fused: the softmax-xent kernels, whose
+    loss is float32; else the dense log-softmax, in the logits' dtype (as
+    in JAX)."""
     if fused:
-        raise NotImplementedError(
-            "the fused softmax-xent kernel is not ported yet "
-            "(fused-xent slice)")
+        return softmax_xent(logits, targets)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
@@ -345,7 +368,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig):
         k_cache[:, pos] = k.to(k_cache.dtype)
         v_cache[:, pos] = v.to(v_cache.dtype)
         a = attend(q, k_cache, v_cache, pos + 1)
-        x = _ffn(x + a.reshape(B, cfg.d_model) @ lp["wo"], lp)
+        x, _ = _ffn(x + a.reshape(B, cfg.d_model) @ lp["wo"], lp)
     return _logits(params, x), {"k": cache["k"], "v": cache["v"],
                                 "pos": pos + 1}
 
@@ -365,7 +388,7 @@ def prefill(params, cache, prompt, cfg: TransformerConfig):
         cache["k"][l, :, :T_p] = k.to(cache["k"].dtype)
         cache["v"][l, :, :T_p] = v.to(cache["v"].dtype)
         a = _dense_attention(q, k, v, causal=True)
-        x = _ffn(x + a.reshape(B, T_p, cfg.d_model) @ lp["wo"], lp)
+        x, _ = _ffn(x + a.reshape(B, T_p, cfg.d_model) @ lp["wo"], lp)
     logits = _logits(params, x[:, -1])
     return {"k": cache["k"], "v": cache["v"], "pos": T_p}, logits
 
@@ -554,7 +577,7 @@ def decode_step_paged(params, paged, tokens, positions, page_table,
         _write_rows(k_pool, write_idx, k)
         _write_rows(v_pool, write_idx, v)
         a = paged_decode_attention(q, k_pool, v_pool, table32, n_valid)
-        x = _ffn(x + a.reshape(S, cfg.d_model) @ lp["wo"], lp)
+        x, _ = _ffn(x + a.reshape(S, cfg.d_model) @ lp["wo"], lp)
     return _logits(params, x), paged
 
 
@@ -589,7 +612,7 @@ def prefill_paged(params, paged, prompts, true_lens, page_table,
         _write_rows(paged["v"][l], write_idx, v.reshape((S * T_b,)
                                                         + v.shape[2:]))
         a = _dense_attention(q, k, v, causal=True)
-        x = _ffn(x + a.reshape(S, T_b, cfg.d_model) @ lp["wo"], lp)
+        x, _ = _ffn(x + a.reshape(S, T_b, cfg.d_model) @ lp["wo"], lp)
     last = (true_lens - 1).clamp(min=0)
     x_last = x[torch.arange(S, device=dev), last]  # (S, d)
     return paged, _logits(params, x_last)
@@ -611,8 +634,7 @@ def decode_step_paged_wide(params, paged, tokens, start, n_real, page_table,
     speculative rows may run past a slot's last owned page, and the
     caller discards their outputs. Query j attends positions
     < start + j + 1 through the `paged_decode_attention_wide` kernel.
-    Updates `paged` IN PLACE; returns (logits (S, Q, V), paged). Dense FFN
-    only, as everywhere in the port."""
+    Updates `paged` IN PLACE; returns (logits (S, Q, V), paged)."""
     S, Q = tokens.shape
     page_size = paged["k"].shape[2]
     dev = tokens.device
@@ -639,5 +661,5 @@ def decode_step_paged_wide(params, paged, tokens, start, n_real, page_table,
         _write_rows(k_pool, write_idx, k.reshape((S * Q,) + k.shape[2:]))
         _write_rows(v_pool, write_idx, v.reshape((S * Q,) + v.shape[2:]))
         a = paged_decode_attention_wide(q, k_pool, v_pool, table32, start32)
-        x = _ffn(x + a.reshape(S, Q, cfg.d_model) @ lp["wo"], lp)
+        x, _ = _ffn(x + a.reshape(S, Q, cfg.d_model) @ lp["wo"], lp)
     return _logits(params, x), paged

@@ -1,6 +1,7 @@
 """Kernel wrappers, each beside its plain PyTorch version: the decode
-attention kernels of the serving path (`decode`) and the trainable flash
-attention of the train step (`flash`)."""
+attention kernels of the serving path (`decode`), and the trainable flash
+attention (`flash`) and fused softmax cross-entropy (`xent`) of the train
+step."""
 from .decode import (  # noqa: F401
     DECODE_BLOCK, dense_decode_attention, flash_decode, flash_decode_ref,
     paged_decode_attention, paged_decode_attention_ref,
@@ -10,6 +11,9 @@ from .flash import (  # noqa: F401
     flash_attention_bwd_ref, flash_attention_dkv, flash_attention_dkv_ref,
     flash_attention_dq, flash_attention_dq_ref, flash_attention_fwd,
     flash_attention_fwd_ref)
+from .xent import (  # noqa: F401
+    softmax_xent, softmax_xent_bwd, softmax_xent_bwd_ref, softmax_xent_fwd,
+    softmax_xent_fwd_ref)
 
 __all__ = ["DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",
@@ -19,4 +23,5 @@ __all__ = ["DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_attention_bwd_ref", "flash_attention_dkv",
            "flash_attention_dkv_ref", "flash_attention_dq",
            "flash_attention_dq_ref", "flash_attention_fwd",
-           "flash_attention_fwd_ref"]
+           "flash_attention_fwd_ref", "softmax_xent", "softmax_xent_bwd",
+           "softmax_xent_bwd_ref", "softmax_xent_fwd", "softmax_xent_fwd_ref"]

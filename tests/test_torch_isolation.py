@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, calls no library attention or compiler in place of its kernels,
-and never falls back to the CPU on its own."""
+package, calls no library attention, loss or compiler in place of its
+kernels, and never falls back to the CPU on its own."""
 import ast
 import os
 import subprocess
@@ -41,11 +41,13 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_port_calls_no_library_attention_or_compiler():
+    """Nor the library's loss (`cross_entropy`, `nll_loss`) where the
+    softmax-xent kernels belong."""
     for path in _sources(include_smoke=False):
         with open(path) as f:
             text = f.read()
         for word in ("scaled_dot_product_attention", "torch.compile",
-                     "triton"):
+                     "triton", "cross_entropy", "nll_loss"):
             assert word not in text, (os.path.relpath(path, ROOT), word)
 
 

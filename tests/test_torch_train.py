@@ -7,6 +7,13 @@ Pallas flash kernels in interpret mode) at 1e-4, and the port's
 parameter at rtol 2e-4, atol 1e-5, the tolerances of
 `tests/test_pallas.py`'s train-step tests. The JAX step donates its
 params, so each step is given the params the one before returned.
+
+The same three steps run with `use_fused_xent` and with four experts.
+There the JAX step computes its fused loss inside `jax.shard_map`, where
+interpret-mode `softmax_xent` takes its dense log-softmax form: the
+oracle of the port's fused kernels (plain versions here) is JAX's dense
+loss. The kernels themselves are held to the JAX Pallas kernels in
+`tests/test_torch_xent.py`.
 """
 import numpy as np
 
@@ -43,29 +50,57 @@ def test_apply_with_flash_matches_jax():
     assert float(aux) == 0.0
 
 
-def test_train_step_matches_jax_for_three_steps():
-    jcfg = jtfm.TransformerConfig(**SMALL)
-    tcfg = ttfm.TransformerConfig(**SMALL)
+def _three_steps_match_jax(**kw):
+    """Returns the port's three losses after holding them, and the
+    parameters after them, to the JAX step's."""
+    jcfg = jtfm.TransformerConfig(**SMALL, **kw)
+    tcfg = ttfm.TransformerConfig(**SMALL, **kw)
     mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1, 1),
                 axis_names=("dp", "ep", "tp"))
     jstep, jp = jtfm.make_gspmd_train_step(mesh, jcfg)
     tstep, tp = ttfm.make_train_step(tcfg, device="cpu")
+    losses = []
     for i in range(3):
         tok, tgt = _batch(i)
         jloss, jp = jstep(jp, tok, tgt)  # donates the jp it was given
         tloss, tp = tstep(tp, torch.from_numpy(tok), torch.from_numpy(tgt))
         assert tloss.dim() == 0 and not tloss.requires_grad
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        losses.append(float(tloss))
     want_params = {k: np.asarray(v) for k, v in jp.items()}
     assert sorted(tp) == sorted(want_params)
     for k, want in want_params.items():
         np.testing.assert_allclose(tp[k].detach().numpy(), want, rtol=2e-4,
                                    atol=1e-5, err_msg=k)
+    return losses
+
+
+def test_train_step_matches_jax_for_three_steps():
+    _three_steps_match_jax()
+
+
+@pytest.mark.parametrize("kw", [dict(use_fused_xent=True),
+                                dict(n_experts=4, use_fused_xent=True),
+                                dict(n_experts=4)],
+                         ids=["fused_xent", "moe_fused_xent", "moe"])
+def test_train_step_variants_match_jax_for_three_steps(kw):
+    _three_steps_match_jax(**kw)
 
 
 def test_fused_xent_still_raises():
-    cfg = ttfm.TransformerConfig(**dict(SMALL, use_fused_xent=True))
-    step, params = ttfm.make_train_step(cfg, device="cpu")
-    tok, tgt = _batch(0)
-    with pytest.raises(NotImplementedError, match="softmax-xent"):
-        step(params, torch.from_numpy(tok), torch.from_numpy(tgt))
+    """Named when the fused loss was not ported and raised; it now holds
+    the fused step's first loss and updated parameters to the dense-loss
+    step's (rtol 1e-5; rtol 2e-4, atol 1e-5) and its loss to float32."""
+    tok, tgt = (torch.from_numpy(a) for a in _batch(0))
+    out = {}
+    for fused in (False, True):
+        cfg = ttfm.TransformerConfig(**dict(SMALL, use_fused_xent=fused))
+        step, params = ttfm.make_train_step(cfg, device="cpu")
+        out[fused] = step(params, tok, tgt)
+    assert out[True][0].dtype == torch.float32
+    np.testing.assert_allclose(float(out[True][0]), float(out[False][0]),
+                               rtol=1e-5)
+    for k, w in out[False][1].items():
+        np.testing.assert_allclose(out[True][1][k].detach().numpy(),
+                                   w.detach().numpy(), rtol=2e-4, atol=1e-5,
+                                   err_msg=k)

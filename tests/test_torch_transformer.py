@@ -176,8 +176,24 @@ def test_sampling_is_reproducible_from_a_generator(model):
 
 
 def test_unported_options_raise():
-    _, moe = _cfgs(n_experts=2)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        ttfm.init_params(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="softmax-xent"):
-        ttfm._xent(torch.zeros(2, 8), torch.zeros(2), fused=True)
+    """Named when the MoE FFN and the fused loss were not ported and
+    raised; it now holds both surfaces to JAX: `init_params` with
+    experts bit-identical, and `_xent(fused=True)` (float32 loss) at
+    1e-5 of the JAX dense `_xent`, labels -1 and V included."""
+    jmoe, tmoe = _cfgs(n_experts=2)
+    _assert_same_params(jtfm.init_params(jmoe, seed=2),
+                        ttfm.init_params(tmoe, seed=2, device="cpu"))
+    rng = np.random.RandomState(8)
+    logits = (rng.randn(2, 3, 8) * 2).astype(np.float32)
+    targets = np.array([[0, 7, 3], [5, 1, 2]], np.int32)
+    want = np.asarray(jtfm._xent(jnp.asarray(logits), jnp.asarray(targets)))
+    got = ttfm._xent(torch.from_numpy(logits), torch.from_numpy(targets),
+                     fused=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-5, atol=1e-5)
+    # a label outside [0, V) matches no column: the loss is logsumexp
+    odd = np.array([[-1, 8, 3], [5, 1, 2]], np.int32)
+    got = ttfm._xent(torch.from_numpy(logits), torch.from_numpy(odd),
+                     fused=True)
+    lse = np.log(np.exp(logits).sum(-1))
+    np.testing.assert_allclose(_np(got)[0, :2], lse[0, :2], rtol=1e-5)
