@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and its train step on one CUDA
-card and hold its hand-written kernels against their plain PyTorch
-versions.
+"""Drive the PyTorch port's serving path, its transformer train step and
+its ResNet-50 train step on one CUDA card and hold its hand-written
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and a batched (2, 5, 17) through the autograd Function, and on strided,
    unaligned and transposed views, with labels -1 and V in every batch
    (loss and lse 1e-5; dlogits rtol 1e-4, atol 1e-5 in float32 and 2e-2
-   of the largest reference value in bfloat16);
+   of the largest reference value in bfloat16); the BN -> ReLU (-> add)
+   epilogue forward and backward kernels at a ragged R 1001 with C 64 and
+   2048, at C 67 (one-element loads), on unaligned views and at ResNet-50's
+   stem, stage-1 and stage-4 shapes, with and without the residual, in
+   float32 and bfloat16 (forward 1e-6 and 2e-2; dx, dres 1e-4 and 2e-2;
+   the channel sums rtol 1e-4, atol 1e-4 * sqrt(R / 75)), the backward
+   bit-equal across two runs, and the autograd Function's four gradients;
 3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
    d_ff 2048, vocab 32000, max_len 512, float32, random weights from
    seed 0) serves the seeded trace through the engine (8 slots, page 16)
@@ -50,14 +56,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    finite losses, a positive balance loss, and layer 0's moe_ffn on the
    card at its full-width input (4096 tokens, capacity 2048) equal to the
    CPU's at 1e-4, routing identical but for counted near ties (top-2
-   probability gap below 1e-5);
+   probability gap below 1e-5). Two ResNet-50 v1 legs follow bench.py
+   (NHWC, float32, batch 128 at 224 x 224, Xavier from a seeded
+   generator, SGD lr 0.05, momentum 0.9, wd 1e-4, rescale_grad 1/128,
+   images and labels from RandomState(0)): 10 steps of GluonTrainStep with
+   MXTPU_FUSED_EPILOGUE off, then on from the same weights. The fused leg
+   must launch each epilogue kernel 49 times per step (the unfused leg
+   none), its step-1 loss must equal the unfused leg's at rtol 1e-5, atol
+   1e-6 and its gradients at rtol 2e-4, atol 1e-5; every loss finite, the
+   largest relative loss gap printed;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, tokens/s over each trace, the train step and train tokens/s of
    each training leg, and each kernel beside its plain version, its bound
    and, for flash_decode, the flash-attention and the softmax-xent
-   kernels, one library call; then
+   kernels, one library call (none computes the epilogue kernels, which
+   are timed beside the BN -> ReLU (-> add) chain they replace); each
+   ResNet-50 leg's step, host time and images/s; then
    traced windows (torch.profiler) over decode steps, over each trace and
-   over train steps give the device's busy share and the kernels that
+   over train steps (both models) give the device's busy share and the kernels that
    take its time.
 
 The last lines are the card (`nvidia-smi` name and power limit), one JSON
@@ -67,6 +83,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -75,9 +93,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu_torch.fused import GluonTrainStep
+from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.models import transformer as tfm
 from incubator_mxnet_tpu_torch.ops import _build
+from incubator_mxnet_tpu_torch.ops import epilogue as rewrite
 from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
+from incubator_mxnet_tpu_torch.ops.kernels import epilogue as ep
 from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
 from incubator_mxnet_tpu_torch.parallel import moe
@@ -100,8 +123,9 @@ TRAIN = dict(batch=8, seq=512, lr=0.1, aux_weight=0.01, steps=10)
 GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 SOURCES = {name: f"incubator_mxnet_tpu_torch/ops/csrc/{name}.cu"
            for name in _build.SOURCES}
-DECODE_SOURCE, FLASH_SOURCE, XENT_SOURCE = (
-    SOURCES[name] for name in ("decode", "flash_attention", "xent"))
+DECODE_SOURCE, FLASH_SOURCE, XENT_SOURCE, EPILOGUE_SOURCE = (
+    SOURCES[name] for name in ("decode", "flash_attention", "xent",
+                               "epilogue"))
 JAX_KERNELS = "incubator_mxnet_tpu/ops/pallas_kernels.py"
 
 
@@ -366,12 +390,109 @@ def xent_against_plain(device, errs):
     return errs
 
 
+# (R, C, residual) per case: ragged R at C 64 and 2048 (both variants),
+# C 67 for the one-element path, then the ResNet-50 shapes at batch 128:
+# the stem (plain), the stage-1 join and the stage-4 join (residual)
+EPI_CASES = {
+    "ragged R1001 C64": (1001, 64), "ragged R1001 C2048": (1001, 2048),
+    "R999 C67 (scalar loads)": (999, 67),
+    "stem R1605632 C64": (128 * 112 * 112, 64),
+    "stage-1 join R401408 C256": (128 * 56 * 56, 256),
+    "stage-4 join R6272 C2048": (128 * 7 * 7, 2048),
+}
+EPI_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # forward
+EPI_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # dx, dres
+EPI_SUM_ROWS = 75  # rows of tests/test_memory_traffic.py's gradient check
+
+
+def epi_case(device, dtype, R, C, residual, seed=7, offset=0):
+    """x, scale (0.5-1.5), shift, residual and dy, drawn on the device;
+    with `offset` the activations are views one element into their
+    buffers (no 16-byte alignment)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def act():
+        flat = torch.randn(R * C + offset, generator=g, device=device)
+        return flat.to(dtype)[offset:].view(R, C)
+
+    x = act()
+    scale = torch.rand(C, generator=g, device=device) + 0.5
+    shift = torch.randn(C, generator=g, device=device)
+    res = act() if residual else None
+    return x, scale, shift, res, act()
+
+
+def epi_grad_tol(out, dtype, R):
+    """(rtol, atol) of one backward output: dx and dres at the JAX
+    tolerance; the channel sums at rtol 1e-4 and atol 1e-4 * sqrt(R / 75)
+    (see epilogue_against_plain)."""
+    if out in ("dscale", "dshift"):
+        return 1e-4, 1e-4 * math.sqrt(max(R / EPI_SUM_ROWS, 1.0))
+    return EPI_GRAD_TOL[dtype], EPI_GRAD_TOL[dtype]
+
+
+def epilogue_against_plain(device, errs):
+    """Kernels 6 and 7 against their plain versions, float32 and bfloat16,
+    with and without the residual, and the backward run twice for bit
+    equality (its channel sums take a fixed order). Forward 1e-6 (2e-2
+    bfloat16), dx and dres 1e-4 (2e-2): tests/test_memory_traffic.py's.
+    The channel sums differ from the plain version's only in the order of
+    float32 additions, whose error grows as the square root of the rows
+    summed: they are held to 1e-4 scaled by sqrt(R / 75), 1e-4 at the
+    75 rows where that test sets it."""
+    cases = [(label, R, C, res, 0) for label, (R, C) in EPI_CASES.items()
+             for res in (False, True)]
+    cases.append(("unaligned R1001 C64", 1001, 64, True, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for label, R, C, residual, offset in cases:
+            x, scale, shift, res, dy = epi_case(device, dtype, R, C,
+                                                residual, offset=offset)
+            tag = f"{name} {label}{' residual' if residual else ''}"
+            y = ep.bn_act_epilogue_fwd(x, scale, shift, res)
+            y_ref = ep.bn_act_epilogue_fwd_ref(x, scale, shift, res)
+            e_fwd = check(f"bn_act_epilogue_fwd {tag}", y, y_ref,
+                          EPI_TOL[dtype])
+            got = ep.bn_act_epilogue_bwd(x, scale, y_ref, dy, residual)
+            want = ep.bn_act_epilogue_bwd_ref(x, scale, y_ref, dy, residual)
+            again = ep.bn_act_epilogue_bwd(x, scale, y_ref, dy, residual)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"bn_act_epilogue_bwd {tag}: two runs "
+                                     f"differ")
+            e_bwd = 0.0
+            for out, a, b in zip(("dx", "dscale", "dshift", "dres"), got,
+                                 want):
+                if a.dtype != b.dtype:
+                    raise AssertionError(f"bn_act_epilogue_bwd {tag} {out}: "
+                                         f"{a.dtype}, expected {b.dtype}")
+                e_bwd = max(e_bwd, check(f"bn_act_epilogue_bwd {tag} {out}",
+                                         a, b, *epi_grad_tol(out, dtype, R)))
+            if dtype == torch.float32:
+                errs["bn_act_epilogue_fwd"] = max(
+                    errs["bn_act_epilogue_fwd"], e_fwd)
+                errs["bn_act_epilogue_bwd"] = max(
+                    errs["bn_act_epilogue_bwd"], e_bwd)
+    # the autograd Function: gradients of x, scale, shift and the residual
+    x, scale, shift, res, dy = epi_case(device, torch.float32, 1001, 64,
+                                        True)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, shift, res)]
+    y = ep.bn_act_epilogue(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    y_ref = ep.bn_act_epilogue_fwd_ref(x, scale, shift, res)
+    want = ep.bn_act_epilogue_bwd_ref(x, scale, y_ref, dy, True)
+    for out, a, b in zip(("dx", "dscale", "dshift", "dres"), grads, want):
+        check(f"bn_act_epilogue autograd {out}", a, b,
+              *epi_grad_tol(out, torch.float32, 1001))
+    return errs
+
+
 def kernels_against_plain(device):
     """Phase 2. Returns {kernel: max abs err in float32}."""
     errs = {"paged_decode_attention": 0.0, "flash_decode": 0.0,
             "paged_decode_attention_wide": 0.0, "flash_attention_fwd": 0.0,
             "flash_attention_dq": 0.0, "flash_attention_dkv": 0.0,
-            "softmax_xent_fwd": 0.0, "softmax_xent_bwd": 0.0}
+            "softmax_xent_fwd": 0.0, "softmax_xent_bwd": 0.0,
+            "bn_act_epilogue_fwd": 0.0, "bn_act_epilogue_bwd": 0.0}
     for dtype, tol in TOL.items():
         name = str(dtype).replace("torch.", "")
         for label, make in (("ragged", paged_case),
@@ -403,7 +524,8 @@ def kernels_against_plain(device):
                 if dtype == torch.float32:
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
-    return xent_against_plain(device, flash_against_plain(device, errs))
+    errs = xent_against_plain(device, flash_against_plain(device, errs))
+    return epilogue_against_plain(device, errs)
 
 
 # -- phase 3: the serving path at full width --------------------------------
@@ -665,6 +787,254 @@ def train_moe(cfg, device):
     print(f"  balance loss after {MOE['steps']} steps: {aux:.6f}")
     moe_card_against_cpu(params, cfg, batch[0])
     return step, params, batch, launches
+
+
+# bench.py's headline setup: ResNet-50 v1, NHWC, float32, batch 128 at
+# 224 x 224, 1000 classes, Xavier, SGD(lr 0.05, momentum 0.9, wd 1e-4,
+# rescale_grad 1/128)
+RESNET = dict(batch=128, image=224, classes=1000, steps=10, seed=0)
+RESNET_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+                  rescale_grad=1.0 / 128)
+EPI_KERNELS = (ep.bn_act_epilogue_fwd, ep.bn_act_epilogue_bwd)
+EPI_PER_STEP = 49  # the stem + 3 per bottleneck unit x 16 units
+
+
+def resnet_batch(device):
+    """Images and labels as bench.py draws them on the host: rand NCHW
+    transposed to NHWC, integer labels as float32, from RandomState(0)."""
+    B, S = RESNET["batch"], RESNET["image"]
+    rng = np.random.RandomState(0)
+    x = np.ascontiguousarray(rng.rand(B, 3, S, S).astype(np.float32)
+                             .transpose(0, 2, 3, 1))
+    y = rng.randint(0, RESNET["classes"], size=B).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+RESNET_LOSS = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def resnet_loss(net, x, y):
+    return RESNET_LOSS(net(x), y)
+
+
+def resnet50(x, device):
+    """ResNet-50 v1 drawn from the seeded generator, its shapes resolved by
+    a predict-mode forward of two images."""
+    net = vision.resnet50_v1(classes=RESNET["classes"], layout="NHWC")
+    net.initialize(tmx.init.Xavier(generator=torch.Generator()
+                                   .manual_seed(RESNET["seed"])),
+                   device=device)
+    with torch.no_grad():
+        net(x[:2])
+    return net
+
+
+def exact_grads(batch, device):
+    """The float64 gradient of the unfused path at the legs' first weights
+    and batch: the yardstick of both float32 legs' gradients."""
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "0"
+    x, y = batch
+    net = resnet50(x, device)
+    net.cast("float64")
+    grads = resnet_grads(net, x.double(), y)
+    del net
+    torch.cuda.empty_cache()
+    return grads
+
+
+def resnet_grads(net, x, y):
+    """{name without the net's prefix: gradient} of mean(loss) in training
+    mode at the net's current weights; the running stats this forward
+    moves are put back."""
+    params = net.collect_params()
+    stats = {n: p.data().clone() for n, p in params.items()
+             if p.grad_req == "null"}
+    net.train()
+    loss = resnet_loss(net, x, y)
+    loss = loss.to(torch.promote_types(loss.dtype, torch.float32)).mean()
+    net.train(False)
+    names = [n for n, p in params.items() if p.grad_req != "null"]
+    grads = torch.autograd.grad(loss, [params[n].data() for n in names])
+    with torch.no_grad():
+        for n, v in stats.items():
+            params[n].data().copy_(v)
+    return {n[len(net.prefix):]: g for n, g in zip(names, grads)}
+
+
+def train_resnet(fused, batch, device):
+    """Phase 4, a ResNet-50 leg with MXTPU_FUSED_EPILOGUE on (`fused`) or
+    off: the net drawn from a seeded generator, its shapes resolved by one
+    predict-mode forward, one step's gradients taken, then
+    `RESNET["steps"]` steps of GluonTrainStep; the fused leg must launch
+    each epilogue kernel EPI_PER_STEP times per step, the unfused leg
+    neither. Returns a dict of the leg's net, step, losses, gradients,
+    launches and rewrites per step."""
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if fused else "0"
+    x, y = batch
+    net = resnet50(x, device)
+    grads = resnet_grads(net, x, y)
+    step = GluonTrainStep(net, resnet_loss, tmx.optimizer.SGD(**RESNET_SGD),
+                          device=device)
+    want = EPI_PER_STEP if fused else 0
+    for k in EPI_KERNELS:
+        k.launches = 0
+    rewrite.rewrites_applied = 0
+    losses = []
+    for i in range(RESNET["steps"]):
+        before = [k.launches for k in EPI_KERNELS]
+        losses.append(step(x, y))
+        for k, b in zip(EPI_KERNELS, before):
+            if k.launches - b != want:
+                raise AssertionError(f"{k.__name__} launched "
+                                     f"{k.launches - b} times in step "
+                                     f"{i + 1}, expected {want}")
+    launches = {k.__name__: k.launches for k in EPI_KERNELS}
+    rewrites = rewrite.rewrites_applied / RESNET["steps"]
+    losses = torch.stack(losses).tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses}")
+    print(f"  loss after step 1: {losses[0]:.6f}; after step "
+          f"{RESNET['steps']}: {losses[-1]:.6f}; launches {launches}; "
+          f"rewrites per step {rewrites:g}")
+    return dict(net=net, step=step, losses=losses, grads=grads,
+                launches=launches, rewrites=rewrites)
+
+
+def grad_distance(grads, exact):
+    """The float64 2-norm of grads - exact over every trained parameter."""
+    return math.sqrt(sum(float(((grads[n].double() - g) ** 2).sum())
+                         for n, g in exact.items()))
+
+
+def resnet_legs(device):
+    """Phase 4's ResNet-50 legs, unfused then fused on the same weights and
+    batch. Step 1's loss must agree at rtol 1e-5, atol 1e-6
+    (tests/test_memory_traffic.py); every loss must be finite, and the
+    largest relative loss gap over the steps is printed, not bounded
+    (later steps follow two float32 trajectories).
+
+    Step 1's gradients are held to the float64 gradient of the unfused
+    path at the same weights: the fused leg's distance to it (2-norm over
+    all trained parameters) must be at most twice the unfused leg's. At
+    this initialization float32 itself puts the early layers' gradients
+    a few per cent off the float64 values, in the JAX package as in the
+    port, so two float32 orderings cannot agree at rtol 2e-4; how many
+    parameters do is printed. That tolerance holds one full-width BN ->
+    ReLU (-> add) layer instead (`bn_layer_check`)."""
+    batch = resnet_batch(device)
+    legs = {}
+    try:
+        exact = exact_grads(batch, device)
+        for leg, fused in (("unfused", False), ("fused", True)):
+            print(f" leg resnet50_v1 {leg} (MXTPU_FUSED_EPILOGUE="
+                  f"{int(fused)})")
+            legs[leg] = train_resnet(fused, batch, device)
+    finally:
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    base, fused = legs["unfused"], legs["fused"]
+    if not np.allclose(fused["losses"][0], base["losses"][0], rtol=1e-5,
+                       atol=1e-6):
+        raise AssertionError(f"step 1 loss: fused {fused['losses'][0]}, "
+                             f"unfused {base['losses'][0]}")
+    norm = math.sqrt(sum(float((g ** 2).sum()) for g in exact.values()))
+    d_base, d_fused = (grad_distance(leg["grads"], exact)
+                       for leg in (base, fused))
+    if not d_fused <= 2 * d_base:
+        raise AssertionError(f"step 1 gradients: the fused leg is "
+                             f"{d_fused:.3e} from the float64 gradient, "
+                             f"over twice the unfused leg's {d_base:.3e}")
+    close = sum(torch.allclose(fused["grads"][n], base["grads"][n],
+                               rtol=2e-4, atol=1e-5) for n in exact)
+    worst = max(float((fused["grads"][n] - base["grads"][n]).abs().max())
+                for n in exact)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fused["losses"],
+                                                base["losses"])]
+    print(f"  step 1 loss equal (rtol 1e-5): fused {fused['losses'][0]:.7f},"
+          f" unfused {base['losses'][0]:.7f}")
+    print(f"  step 1 gradients against float64 (2-norm over "
+          f"{len(exact)} trained parameters, relative to the gradient's "
+          f"{norm:.4e}): unfused {d_base / norm:.3e}, fused "
+          f"{d_fused / norm:.3e}; fused against unfused: {close} of "
+          f"{len(exact)} parameters within rtol 2e-4, atol 1e-5, max abs "
+          f"diff {worst:.3e}")
+    print(f"  largest relative loss gap over {len(gaps)} steps "
+          f"{max(gaps):.3e} (step {int(np.argmax(gaps)) + 1}); losses "
+          f"unfused {[round(v, 6) for v in base['losses']]}, fused "
+          f"{[round(v, 6) for v in fused['losses']]}")
+    legs["batch"] = batch
+    return legs
+
+
+def bn_layer_check(device):
+    """One training-mode BatchNorm -> ReLU (-> add) layer of the ResNet-50
+    step at full width, `ops.epilogue.bn_act` with the knob on against
+    off on the same seeded inputs (gamma and beta drawn too). y at rtol
+    1e-5, atol 1e-5 (the folded affine rounds differently). The two y
+    differ by ulps, so an element whose pre-activation lies that close to
+    0 may be live in one path and dead in the other: such elements must
+    have y below 1e-5 in both and are counted; dx and dres are held at
+    rtol 2e-4, atol 1e-5 on every other element, and dgamma and dbeta
+    (sums over R rows) at rtol 2e-4 and the channel-sum atol of phase 2
+    once the flipped elements' own terms (dy * xhat, dy) are taken out.
+    The running stats at 1e-6."""
+    for label, (B, H, W, C, residual) in EPI_TIMED.items():
+        R = B * H * W
+        x, _, _, res, dy = epi_case(device, torch.float32, R, C, residual,
+                                    seed=11)
+        g = torch.Generator(device=device).manual_seed(12)
+        gamma = torch.rand(C, generator=g, device=device) + 0.5
+        beta = torch.randn(C, generator=g, device=device)
+        out = {}
+        try:
+            for knob in ("0", "1"):
+                os.environ["MXTPU_FUSED_EPILOGUE"] = knob
+                norm = tmx.gluon.nn.BatchNorm(axis=-1, in_channels=C)
+                norm.initialize(device=device)
+                norm.gamma.set_data(gamma)
+                norm.beta.set_data(beta)
+                norm.train()
+                leaves = [x.view(B, H, W, C).detach().requires_grad_(),
+                          norm.gamma.data(), norm.beta.data()]
+                r = None
+                if residual:
+                    r = res.view(B, H, W, C).detach().requires_grad_()
+                    leaves.append(r)
+                y = rewrite.bn_act(norm, leaves[0], r)
+                grads = torch.autograd.grad(y, leaves, dy.view(B, H, W, C))
+                out[knob] = (y.detach().view(R, C),
+                             [t.reshape(-1, C) if t.dim() > 1 else t
+                              for t in grads],
+                             norm.running_mean.data(),
+                             norm.running_var.data())
+        finally:
+            os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+        (y0, g0, m0, v0), (y1, g1, m1, v1) = out["0"], out["1"]
+        tag = f"BN layer {label} R{R} C{C}"
+        check(f"{tag} y fused vs unfused", y1, y0, 1e-5)
+        live0, live1 = y0 > 0, y1 > 0
+        flips = live0 != live1
+        kink = float(torch.maximum(y0, y1)[flips].max()) if flips.any() \
+            else 0.0
+        print(f"  {tag}: {int(flips.sum())} of {R * C} elements live in one "
+              f"path only, y at most {kink:.3e} there")
+        if kink > 1e-5:
+            raise AssertionError(f"{tag}: an element {kink:.3e} above 0 is "
+                                 f"live in one path only")
+        keep = ~flips
+        flip = live1.float() - live0.float()
+        mean, var = x.mean(0), x.var(0, unbiased=False)
+        xhat = (x - mean) * torch.rsqrt(var + 1e-5)
+        terms = {"dgamma": (dy * xhat * flip).sum(0),
+                 "dbeta": (dy * flip).sum(0)}
+        for name, a, b in zip(("dx", "dgamma", "dbeta", "dres"), g1, g0):
+            if name in terms:
+                check(f"{tag} {name} (flipped terms out)", a - terms[name],
+                      b, 2e-4, epi_grad_tol("dscale", torch.float32, R)[1])
+            else:
+                check(f"{tag} {name} (elsewhere)", a[keep], b[keep], 2e-4,
+                      1e-5)
+        check(f"{tag} running mean", m1, m0, 1e-6)
+        check(f"{tag} running var", v1, v0, 1e-6)
 
 
 # -- phase 5: times ----------------------------------------------------------
@@ -940,6 +1310,136 @@ def xent_rows(errs, launches, flush, device, gpu):
     return rows
 
 
+EPI_LINES = {"bn_act_epilogue_fwd": "550", "bn_act_epilogue_bwd": "591"}
+# the largest single calls of the ResNet-50 step at batch 128
+EPI_TIMED = {"stem": (128, 112, 112, 64, False),
+             "stage-1 join": (128, 56, 56, 256, True)}
+
+
+def epilogue_bound_ms(R, C, elem, kernel, residual):
+    """Least time for one epilogue call on this card: the forward reads x
+    (and the residual) once and writes y, about 3 (4) float operations an
+    element; the backward reads x, y and dy and writes dx (and dres) once,
+    and the (C,) channel sums, about 7 operations an element (the mask,
+    two selects, the dx product, a product and two sums). Returns (ms,
+    "bytes" or "operations")."""
+    n = R * C
+    if kernel == "bn_act_epilogue_fwd":
+        nbytes = n * elem * (3 if residual else 2) + 2 * C * 4
+        ops = n * (4 if residual else 3)
+    else:
+        nbytes = n * elem * (5 if residual else 4) + 3 * C * 4
+        ops = n * 7
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def epilogue_rows(errs, launches, flush, device, gpu):
+    """Times of kernels 6 and 7 at the stem and stage-1 join shapes,
+    float32, each beside its plain version and its bound (no single
+    library call computes either function), then the chain each replaces
+    in the knob-off leg: `ops.epilogue.bn_act` with the knob off (the
+    training-mode BatchNorm, the add and the ReLU) and with it on (the
+    batch moments, the folded scale and shift and the kernel), forward
+    and forward + backward. The JSON rows are the stage-1 join's."""
+    rows = []
+    for label, (B, H, W, C, residual) in EPI_TIMED.items():
+        R = B * H * W
+        x, scale, shift, res, dy = epi_case(device, torch.float32, R, C,
+                                            residual)
+        y = ep.bn_act_epilogue_fwd(x, scale, shift, res)
+        calls = {
+            "bn_act_epilogue_fwd": (
+                lambda: ep.bn_act_epilogue_fwd(x, scale, shift, res),
+                lambda: ep.bn_act_epilogue_fwd_ref(x, scale, shift, res)),
+            "bn_act_epilogue_bwd": (
+                lambda: ep.bn_act_epilogue_bwd(x, scale, y, dy, residual),
+                lambda: ep.bn_act_epilogue_bwd_ref(x, scale, y, dy,
+                                                   residual)),
+        }
+        for kernel_name, (kernel, plain) in calls.items():
+            ms = device_ms(kernel, flush=flush)
+            plain_ms = device_ms(plain, flush=flush)
+            b_ms, b_by = epilogue_bound_ms(R, C, 4, kernel_name, residual)
+            print(f"  {kernel_name} {label} R{R} C{C}"
+                  f"{' residual' if residual else ''}: kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+            if label == "stage-1 join":
+                rows.append({
+                    "name": kernel_name, "route": "cuda",
+                    "source": EPILOGUE_SOURCE,
+                    "replaces": f"{JAX_KERNELS}:{EPI_LINES[kernel_name]}",
+                    "launches": launches[kernel_name],
+                    "max_abs_err": errs[kernel_name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+        chain_times(label, (B, H, W, C), x, res, dy, flush, device, gpu)
+    return rows
+
+
+def chain_times(label, shape, x, res, dy, flush, device, gpu):
+    """Device time of `ops.epilogue.bn_act` on one training-mode
+    BatchNorm at `shape`, knob off and on, forward and forward +
+    backward."""
+    norm = tmx.gluon.nn.BatchNorm(axis=-1)
+    norm.initialize(device=device)
+    norm.train()
+    xs = x.view(shape).detach().requires_grad_()
+    rs = None if res is None else res.view(shape)
+    gs = dy.view(shape)
+    out = []
+    try:
+        for knob in ("0", "1"):
+            os.environ["MXTPU_FUSED_EPILOGUE"] = knob
+            norm(xs[:1].detach())  # resolves the BN's shapes
+            leaves = [xs, norm.gamma.data(), norm.beta.data()]
+            fwd = device_ms(lambda: rewrite.bn_act(norm, xs, rs),
+                            flush=flush)
+            both = device_ms(lambda: torch.autograd.grad(
+                rewrite.bn_act(norm, xs, rs), leaves, gs), flush=flush)
+            out.append((fwd, both))
+    finally:
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    (off_f, off_b), (on_f, on_b) = out
+    print(f"  BN -> ReLU{' (-> add)' if res is not None else ''} chain, "
+          f"{label}, training mode: unfused (knob off) forward "
+          f"{off_f * 1e3:.1f} us, forward + backward {off_b * 1e3:.1f} us; "
+          f"fused (knob on) {on_f * 1e3:.1f} us, {on_b * 1e3:.1f} us "
+          f"[{gpu}]")
+
+
+def resnet_times(leg, out, batch, gpu):
+    """Device and host time of one ResNet-50 step of `leg`, images/s over
+    10 steps (host clock, one sync at the end), and a traced window; the
+    knob is set as the leg trains (each forward reads it)."""
+    step = out["step"]
+    x, y = batch
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if leg == "fused" else "0"
+    try:
+        # ~100 ms of sleep covers the host's enqueue ahead of a whole step
+        dev = device_ms(lambda: step(x, y), reps=10, warmup=2,
+                        sleep_cycles=200_000_000)
+        host = host_ms(lambda: step(x, y).item(), reps=5, warmup=1)
+        n = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = step(x, y)
+        loss.item()
+        seconds = time.perf_counter() - t0
+        print(f"  ResNet-50 step, {leg} leg (batch {x.shape[0]}, "
+              f"{x.shape[1]}x{x.shape[2]}, NHWC float32): device {dev:.3f} "
+              f"ms; with the loss read-back, host clock {host:.3f} ms; "
+              f"{n * x.shape[0] / seconds:.1f} images/s over {n} steps "
+              f"({seconds:.3f} s, host clock) [{gpu}]")
+        busy_share(lambda: step(x, y).item(), f"ResNet-50 step ({leg} leg) "
+                   f"+ loss read-back", gpu, steps=5, top_n=12, kinds=True)
+    finally:
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+
+
 def train_times(step, params, batch, gpu, leg="flash"):
     """Device and host time of one full-width train step of `leg`, train
     tokens/s over 20 steps (host clock, one sync at the end), and a traced
@@ -1012,11 +1512,19 @@ def host_ms(fn, reps=30, warmup=3):
     return float(np.median(times)) * 1e3
 
 
-def busy_share(fn, label, gpu, steps=20, warm=True):
+# kernel-name fragments -> kind, for the ResNet step's breakdown
+KINDS = (("epilogue_", "epilogue kernels"),
+         *((frag, "convolution/GEMM") for frag in (
+             "cudnn", "xmma", "conv", "gemm", "wgrad", "dgrad", "fprop")),
+         ("reduce_kernel", "reductions"), ("elementwise", "elementwise"))
+
+
+def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False):
     """Traced window (torch.profiler) over `steps` calls: the share of
-    wall time with a kernel running, and the kernels taking the most
-    device time. Tracing adds host time, so the busy share is a lower
-    bound for an untraced run."""
+    wall time with a kernel running, and the `top_n` kernels taking the
+    most device time (with `kinds`, the device time by kind of kernel
+    too). Tracing adds host time, so the busy share is a lower bound for
+    an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -1039,13 +1547,21 @@ def busy_share(fn, label, gpu, steps=20, warm=True):
               f"not measured [{gpu}]")
         return
     busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"  {label}, traced over {steps} calls: wall "
           f"{wall_us / steps / 1e3:.3f} ms per call, device busy "
           f"{busy / wall_us:.1%} (idle {1 - busy / wall_us:.1%}) [{gpu}]")
     for name, us in top:
         print(f"    {us / steps:9.1f} us/call  {us / busy:6.1%}  "
               f"{name[:90]}")
+    if kinds:
+        by_kind = {}
+        for name, us in kernels.items():
+            kind = next((k for frag, k in KINDS if frag in name), "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+        print("    by kind: " + "; ".join(
+            f"{k} {us / steps / 1e3:.3f} ms ({us / busy:.1%})"
+            for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
 def main():
@@ -1115,6 +1631,8 @@ def main():
     print(f" leg moe (n_experts {MOE['n_experts']}, use_fused_xent)")
     legs4["moe"] = train_moe(dataclasses.replace(
         fused_cfg, n_experts=MOE["n_experts"]), device)
+    resnet = resnet_legs(device)
+    bn_layer_check(device)
 
     print("phase 5: times")
     for leg, out in served.items():
@@ -1139,6 +1657,10 @@ def main():
         train_times(leg_step, leg_params, leg_batch, gpu, leg=leg)
     rows += flash_rows(errs, train_launches, flush, device, gpu)
     rows += xent_rows(errs, legs4["fused"][3], flush, device, gpu)
+    for leg in ("unfused", "fused"):
+        resnet_times(leg, resnet[leg], resnet["batch"], gpu)
+    rows += epilogue_rows(errs, resnet["fused"]["launches"], flush, device,
+                          gpu)
     torch.cuda.synchronize()
 
     print(gpu)

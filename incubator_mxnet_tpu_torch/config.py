@@ -1,10 +1,11 @@
 """Runtime knobs read by the PyTorch port, with the JAX package's names,
 defaults and environment semantics.
 
-Only the knobs the ported serving path reads are registered here,
-including the serving levers' (`MXTPU_PREFIX_CACHE`,
-`MXTPU_PREFILL_CHUNK`, `MXTPU_SPEC_NGRAM`, `MXTPU_SPEC_LOOKAHEAD`); an
-engine's constructor argument wins over its knob.
+Only the knobs the ported paths read are registered here: the serving
+path's, including the serving levers' (`MXTPU_PREFIX_CACHE`,
+`MXTPU_PREFILL_CHUNK`, `MXTPU_SPEC_NGRAM`, `MXTPU_SPEC_LOOKAHEAD`; an
+engine's constructor argument wins over its knob), and the ResNet train
+step's `MXTPU_FUSED_EPILOGUE`.
 """
 from __future__ import annotations
 
@@ -93,3 +94,9 @@ _register("MXTPU_SPEC_LOOKAHEAD", 4, int,
           "Tokens proposed per speculative step (the wide verification "
           "step runs lookahead + 1 query rows per slot). Read only when "
           "MXTPU_SPEC_NGRAM > 0.")
+_register("MXTPU_FUSED_EPILOGUE", False, bool,
+          "Route BatchNorm -> ReLU (-> residual add) chains of channels-last "
+          "nets through the fused epilogue kernels "
+          "(ops/kernels/epilogue.py:bn_act_epilogue): one pass applies the "
+          "BN affine folded to per-channel scale/shift, the residual add "
+          "and the activation. Off (default) runs every op unfused.")

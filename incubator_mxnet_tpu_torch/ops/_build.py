@@ -22,7 +22,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load"]
 
-SOURCES = ("decode", "flash_attention", "xent")
+SOURCES = ("decode", "flash_attention", "xent", "epilogue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SRC_DIR = Path(__file__).resolve().parent / "csrc"

@@ -1,11 +1,15 @@
 """Kernel wrappers, each beside its plain PyTorch version: the decode
-attention kernels of the serving path (`decode`), and the trainable flash
-attention (`flash`) and fused softmax cross-entropy (`xent`) of the train
-step."""
+attention kernels of the serving path (`decode`), the trainable flash
+attention (`flash`) and fused softmax cross-entropy (`xent`) of the
+transformer train step, and the fused BN -> ReLU (-> add) epilogue
+(`epilogue`) of the ResNet train step."""
 from .decode import (  # noqa: F401
     DECODE_BLOCK, dense_decode_attention, flash_decode, flash_decode_ref,
     paged_decode_attention, paged_decode_attention_ref,
     paged_decode_attention_wide, paged_decode_attention_wide_ref)
+from .epilogue import (  # noqa: F401
+    bn_act_epilogue, bn_act_epilogue_bwd, bn_act_epilogue_bwd_ref,
+    bn_act_epilogue_fwd, bn_act_epilogue_fwd_ref)
 from .flash import (  # noqa: F401
     FLASH_HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_ref, flash_attention_dkv, flash_attention_dkv_ref,
@@ -15,7 +19,9 @@ from .xent import (  # noqa: F401
     softmax_xent, softmax_xent_bwd, softmax_xent_bwd_ref, softmax_xent_fwd,
     softmax_xent_fwd_ref)
 
-__all__ = ["DECODE_BLOCK", "dense_decode_attention", "flash_decode",
+__all__ = ["bn_act_epilogue", "bn_act_epilogue_bwd",
+           "bn_act_epilogue_bwd_ref", "bn_act_epilogue_fwd",
+           "bn_act_epilogue_fwd_ref", "DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_decode_attention_wide",
            "paged_decode_attention_wide_ref", "FLASH_HEAD_DIMS",

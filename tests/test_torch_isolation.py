@@ -54,6 +54,11 @@ def test_port_calls_no_library_attention_or_compiler():
 def test_importing_the_port_and_chip_smoke_loads_no_jax():
     code = ("import sys; import incubator_mxnet_tpu_torch, chip_smoke; "
             "from incubator_mxnet_tpu_torch.serving import trace; "
+            "from incubator_mxnet_tpu_torch import fused, gluon, ndarray, "
+            "initializer, optimizer; "
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision; "
+            "from incubator_mxnet_tpu_torch.ops import epilogue, nn; "
+            "from incubator_mxnet_tpu_torch.ops.kernels import epilogue; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -79,3 +84,24 @@ def test_default_device_without_cuda_raises():
                  lambda: ttfm.make_train_step(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_gluon_entry_points_default_to_cuda():
+    """`net.initialize()` and `GluonTrainStep(...)` with device=None mean
+    CUDA and raise without it; device="cpu" runs the plain path."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    import incubator_mxnet_tpu_torch as tmx
+    from incubator_mxnet_tpu_torch.fused import GluonTrainStep
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet18_v1(classes=4, layout="NHWC")
+    loss = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for call in (lambda: net.initialize(tmx.init.Xavier()),
+                 lambda: GluonTrainStep(net, lambda n, x, y: loss(n(x), y),
+                                        tmx.optimizer.SGD())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    net.initialize(tmx.init.Xavier(), device="cpu")
+    GluonTrainStep(net, lambda n, x, y: loss(n(x), y), tmx.optimizer.SGD(),
+                   device="cpu")
