@@ -17,12 +17,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    32 and 64 rows per slot; the flash-attention forward, dQ and dK/dV
    kernels at the training shape (B 8, H 8, T 512, D 64, causal, in the
    model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
-   T 200, a non-causal ragged T 24 and at D 16 (o and lse 2e-5 and 2e-2;
-   dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2 of the largest
-   reference value); the softmax-xent forward and backward kernels at the
-   train step's (4096, 32000), at the JAX tests' N 16 / V 50, N 8 / V 33
-   and a batched (2, 5, 17) through the autograd Function, and on strided,
-   unaligned and transposed views, with labels -1 and V in every batch
+   T 200, a non-causal ragged T 24, at D 16, at the padded head dims 4,
+   6, 8, 12 and 128 (B 2, H 4, T 200, causal) and D 128 at T 512 (o and
+   lse 2e-5 and 2e-2; dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2
+   of the largest reference value), dQ and dK/dV bit-equal across two
+   launches, and 2 train steps with use_flash at head dims 12 and 128
+   (losses finite, step 1 equal to dense at rtol 1e-5); the softmax-xent
+   forward and backward kernels at the train step's (4096, 32000), at the
+   JAX tests' N 16 / V 50, N 8 / V 33 and a batched (2, 5, 17) through
+   the autograd Function, and on strided, unaligned and transposed views,
+   with labels -1 and V in every batch
    (loss and lse 1e-5; dlogits rtol 1e-4, atol 1e-5 in float32 and 2e-2
    of the largest reference value in bfloat16); the BN -> ReLU (-> add)
    epilogue forward and backward kernels at a ragged R 1001 with C 64 and
@@ -69,7 +73,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    prefill, tokens/s over each trace, the train step and train tokens/s of
    each training leg, and each kernel beside its plain version, its bound
    and, for flash_decode, the flash-attention and the softmax-xent
-   kernels, one library call (none computes the epilogue kernels, which
+   kernels, one library call (the flash backward's: the library's
+   backward alone, its kernels named from a profiler window, beside the
+   tensor-core bound and the HMMA / HGMMA count of the kernels' SASS;
+   none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
    ResNet-50 leg's step, host time and images/s; then
    traced windows (torch.profiler) over decode steps, over each trace and
@@ -85,6 +92,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +120,8 @@ SLOTS, PAGE = 8, 16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # tensor cores, dense (float32 as 3 x TF32)
+BF16_OPS_PER_S = 989e12    # tensor cores, dense
 NEAR_TIE = 1e-4
 WIDE_Q = (5, 32, 64)  # speculation (lookahead 4), prefix tail, chunk 64
 LEVER_LEGS = {
@@ -255,7 +265,10 @@ def check_rel(label, got, want, tol):
     return err
 
 
-# (B, H, T, D, causal, model layout): the training shape first
+# (B, H, T, D, causal, model layout): the training shape first; then the
+# padded head dims of the repo's configurations (D 4, 8, 12, and 6, whose
+# rows in the model layout allow 4-byte copies in float32 and only
+# one-element ones in bfloat16) and D 128
 ATTN_CASES = {
     "B8 H8 T512 D64 causal (training)": (8, 8, 512, 64, True, True),
     "B8 H8 T512 D64 non-causal": (8, 8, 512, 64, False, True),
@@ -263,7 +276,14 @@ ATTN_CASES = {
     "B2 H8 T24 D64 non-causal (ragged)": (2, 8, 24, 64, False, True),
     "B2 H4 T200 D16 causal, (B, H, T, D) layout": (2, 4, 200, 16, True,
                                                   False),
+    **{f"B2 H4 T200 D{D} causal": (2, 4, 200, D, True, True)
+       for D in (4, 6, 8, 12, 128)},
+    "B2 H4 T512 D128 causal": (2, 4, 512, 128, True, True),
 }
+# head dims of a few train steps with use_flash: d_model 48 over 4 heads
+# (D 12, examples/transformer_generate.py's) and 512 over 4 (D 128)
+HEAD_DIM_STEPS = {12: dict(d_model=48, n_heads=4),
+                  128: dict(d_model=512, n_heads=4)}
 
 
 def attn_case(device, dtype, B, H, T, D, model_layout, seed=5):
@@ -307,7 +327,56 @@ def flash_against_plain(device, errs):
                                   ("flash_attention_dq", e_dq),
                                   ("flash_attention_dkv", e_dkv)):
                     errs[kernel] = max(errs[kernel], e)
+        flash_deterministic(device, dtype)
     return errs
+
+
+def flash_deterministic(device, dtype):
+    """Two launches of the dQ and of the dK/dV kernel on the training
+    shape give bit-equal gradients (no atomics, fixed summation order)."""
+    B, H, T, D, causal, _ = ATTN_CASES["B8 H8 T512 D64 causal (training)"]
+    q, k, v, do = attn_case(device, dtype, B, H, T, D, True)
+    o, lse = fl.flash_attention_fwd_ref(q, k, v, causal)
+    args = (q, k, v, do, lse, fl._delta(o, do), causal)
+    first = (fl.flash_attention_dq(*args), *fl.flash_attention_dkv(*args))
+    again = (fl.flash_attention_dq(*args), *fl.flash_attention_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash {name} differs between two launches "
+                                 f"({dtype})")
+    print(f"  flash_attention_dq / _dkv {str(dtype)[6:]} training shape: "
+          f"dq, dk, dv bit-equal across two launches")
+
+
+def flash_head_dim_steps(device):
+    """make_train_step with use_flash at the head dims of HEAD_DIM_STEPS
+    (2 layers, vocab 512, batch 2 x 128, 2 steps): finite losses, each
+    flash kernel once per layer per step, step 1's loss equal to the dense
+    path's at rtol 1e-5."""
+    tok, tgt = (torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 512, (2, 128)).astype(np.int32)).to(device) for seed in (0, 1))
+    for D, widths in HEAD_DIM_STEPS.items():
+        cfg = tfm.TransformerConfig(vocab=512, n_layers=2,
+                                    d_ff=4 * widths["d_model"], max_len=128,
+                                    use_flash=True, **widths)
+        losses = {}
+        for flash in (True, False):
+            step, params = tfm.make_train_step(
+                dataclasses.replace(cfg, use_flash=flash), device=device)
+            before = [k.launches for k in FLASH_KERNELS]
+            losses[flash] = [float(step(params, tok, tgt)[0])
+                             for _ in range(2)]
+            counts = [k.launches - b for k, b in zip(FLASH_KERNELS, before)]
+            if counts != [2 * cfg.n_layers * flash] * 3:
+                raise AssertionError(f"head dim {D}: flash kernels launched "
+                                     f"{counts} times in 2 steps")
+        if not (np.isfinite(losses[True]).all() and np.allclose(
+                losses[True][0], losses[False][0], rtol=1e-5, atol=0)):
+            raise AssertionError(f"head dim {D}: flash losses "
+                                 f"{losses[True]}, dense {losses[False]}")
+        print(f"  make_train_step use_flash, head dim {D} (d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads): losses {losses[True]}, "
+              f"step 1 equal to dense {losses[False][0]:.6f} (rtol 1e-5)")
 
 
 # (logits shape, view): the train step's (B·T, V) first, then the JAX
@@ -525,6 +594,7 @@ def kernels_against_plain(device):
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
     errs = xent_against_plain(device, flash_against_plain(device, errs))
+    flash_head_dim_steps(device)
     return epilogue_against_plain(device, errs)
 
 
@@ -1170,22 +1240,71 @@ def kernel_rows(errs, launches, flush, device, gpu):
     return rows
 
 
-def flash_bound_ms(B, H, T, D, causal, elem, kernel):
+def flash_bound_ms(B, H, T, D, causal, elem, kernel, ops_per_s=None):
     """Least time for one flash-attention kernel call on this card: each
     (B, H, T, D) operand read or written once and each (B, H, T) float32
     statistic (lse; delta) once, against the memory rate; per (query row,
     live key) pair 4*D operations for the forward, 6*D for dQ and 8*D for
-    dK/dV, against the float32 rate. Returns (ms, "bytes" or
-    "operations")."""
+    dK/dV, against `ops_per_s` (default: the float32 SIMT rate). Returns
+    (ms, "bytes" or "operations")."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     per_pair, tensors, stats = {"flash_attention_fwd": (4, 4, 1),
                                 "flash_attention_dq": (6, 5, 2),
                                 "flash_attention_dkv": (8, 6, 2)}[kernel]
     nbytes = tensors * B * H * T * D * elem + stats * B * H * T * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = per_pair * D * pairs / F32_OPS_PER_S
+    t_ops = per_pair * D * pairs / (ops_per_s or F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_bound(B, H, T, D, causal, elem, kernel):
+    """flash_bound_ms at the tensor cores' rate: float32 as three TF32
+    products at 495 TFLOP/s, bfloat16 at 989."""
+    if elem == 4:
+        return flash_bound_ms(B, H, T, D, causal, 4, kernel,
+                              TF32_OPS_PER_S / 3)
+    return flash_bound_ms(B, H, T, D, causal, elem, kernel, BF16_OPS_PER_S)
+
+
+def mma_counts(kernels=("flash_dq_kernel", "flash_dkv_kernel")):
+    """{kernel fragment: (HMMA, HGMMA) instructions in its SASS, summed
+    over its variants} from `cuobjdump -sass` of the built flash library,
+    or None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    path = _build.build(["flash_attention"])["flash_attention"]["path"]
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = {k: [0, 0] for k in kernels}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in kernels if k in line), None)
+        elif current:
+            counts[current][0] += " HMMA." in line
+            counts[current][1] += " HGMMA." in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def library_kernels(fn, top_n=6):
+    """Names and device time of the kernels one call of fn launches, from
+    one torch.profiler window (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us())
+    return sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
 
 
 FLASH_LINES = {"flash_attention_fwd": 50, "flash_attention_dq": 86,
@@ -1195,8 +1314,12 @@ FLASH_LINES = {"flash_attention_fwd": 50, "flash_attention_dq": 86,
 def flash_rows(errs, launches, flush, device, gpu):
     """Times of the flash-attention kernels at the training shape
     (float32, the model's layout), each beside its plain version, its
-    bound and the library's fused attention: forward alone for the
-    forward, forward + backward for dQ and dK/dV together."""
+    bound (float32 SIMT, the kernels line's; and at the tensor cores'
+    rate) and the library's fused attention: forward alone for the
+    forward, backward alone for dQ and dK/dV together (forward +
+    backward printed too). Then dQ and dK/dV in bfloat16, the library's
+    backward kernels by name, and the tensor-core instructions of the
+    backward kernels' SASS."""
     B, H, T, D, causal, _ = ATTN_CASES["B8 H8 T512 D64 causal (training)"]
     q, k, v, do = attn_case(device, torch.float32, B, H, T, D, True)
     o, lse = fl.flash_attention_fwd(q, k, v, causal)
@@ -1218,24 +1341,51 @@ def flash_rows(errs, launches, flush, device, gpu):
     lib_fwd_bwd = device_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal),
         (lq, lk, lv), do), flush=flush)
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    def lib_backward():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                   retain_graph=True)
+
+    lib_bwd = device_ms(lib_backward, flush=flush)
     print(f"  scaled_dot_product_attention B{B} H{H} T{T} D{D} causal: "
           f"forward {lib_fwd * 1e3:.1f} us, forward + backward "
-          f"{lib_fwd_bwd * 1e3:.1f} us [{gpu}]")
+          f"{lib_fwd_bwd * 1e3:.1f} us, backward alone {lib_bwd * 1e3:.1f} "
+          f"us [{gpu}]")
+    print("  its backward's kernels (one profiler window): " + "; ".join(
+        f"{us:.1f} us {name[:100]}"
+        for name, us in library_kernels(lib_backward)))
+    counts = mma_counts()
+    print("  tensor-core instructions in the SASS (HMMA, HGMMA): "
+          + ("cuobjdump not found" if counts is None else "; ".join(
+              f"{k} {v[0]}, {v[1]}" for k, v in counts.items())))
     rows = []
     for name, (kernel, plain) in calls.items():
         ms = device_ms(kernel, flush=flush)
         plain_ms = device_ms(plain, flush=flush)
         b_ms, b_by = flash_bound_ms(B, H, T, D, causal, 4, name)
-        lib = lib_fwd if name == "flash_attention_fwd" else lib_fwd_bwd
+        tc_ms, tc_by = tensor_core_bound(B, H, T, D, causal, 4, name)
+        lib = lib_fwd if name == "flash_attention_fwd" else lib_bwd
         print(f"  {name} B{B} H{H} T{T} D{D} causal: kernel "
               f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+              f"{b_ms * 1e3:.2f} us ({b_by}, float32 SIMT); tensor-core "
+              f"bound {tc_ms * 1e3:.2f} us ({tc_by}, 3 x TF32) [{gpu}]")
         rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": f"{JAX_KERNELS}:{FLASH_LINES[name]}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib})
+    q, k, v, do = attn_case(device, torch.bfloat16, B, H, T, D, True)
+    o, lse = fl.flash_attention_fwd(q, k, v, causal)
+    bf_args = (q, k, v, do, lse, fl._delta(o, do), causal)
+    for name, kernel in (("flash_attention_dq", fl.flash_attention_dq),
+                         ("flash_attention_dkv", fl.flash_attention_dkv)):
+        ms = device_ms(lambda: kernel(*bf_args), flush=flush)
+        tc_ms, tc_by = tensor_core_bound(B, H, T, D, causal, 2, name)
+        print(f"  {name} bfloat16 B{B} H{H} T{T} D{D} causal: kernel "
+              f"{ms * 1e3:.1f} us, tensor-core bound {tc_ms * 1e3:.2f} us "
+              f"({tc_by}, bfloat16) [{gpu}]")
     return rows
 
 
@@ -1500,6 +1650,26 @@ def path_times(cfg, params, device, gpu):
             .cpu(), "decode step + token read-back", gpu)
 
 
+def flash_ptxas(output):
+    """One line per flash-attention kernel variant from ptxas -v's report:
+    registers, and spill stores / loads in bytes."""
+    lines, name = [], None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_(?:fwd|dq|dkv)"
+                      r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+        if m:
+            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
+                    f", {m.group(3)}>")
+        elif name and "spill stores" in line:
+            spill = re.findall(r"(\d+) bytes spill", line)
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers, spill stores / loads "
+                         f"{' / '.join(spill)} bytes")
+            name = None
+    return lines
+
+
 def host_ms(fn, reps=30, warmup=3):
     """Median host-clock time of fn() in ms; fn must end in a sync."""
     for _ in range(warmup):
@@ -1578,13 +1748,16 @@ def main():
 
     print("phase 1: build")
     t0 = time.perf_counter()
-    for name, rec in _build.build().items():
+    built = _build.build()
+    for name, rec in built.items():
         regs = [ln.strip() for ln in rec["output"].splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}.cu: {rec['seconds']:.1f} s "
               f"({'cached' if rec['cached'] else 'nvcc'}); ptxas: "
               f"{len(regs)} lines, first: {regs[:2]}")
     print(f"  build {time.perf_counter() - t0:.1f} s")
+    for line in flash_ptxas(built["flash_attention"]["output"]):
+        print(f"  {line}")
     print(gpu)
 
     print("phase 2: kernels against their plain versions")

@@ -11,10 +11,10 @@ from .epilogue import (  # noqa: F401
     bn_act_epilogue, bn_act_epilogue_bwd, bn_act_epilogue_bwd_ref,
     bn_act_epilogue_fwd, bn_act_epilogue_fwd_ref)
 from .flash import (  # noqa: F401
-    FLASH_HEAD_DIMS, flash_attention, flash_attention_bwd,
+    FLASH_MAX_HEAD_DIM, flash_attention, flash_attention_bwd,
     flash_attention_bwd_ref, flash_attention_dkv, flash_attention_dkv_ref,
     flash_attention_dq, flash_attention_dq_ref, flash_attention_fwd,
-    flash_attention_fwd_ref)
+    flash_attention_fwd_ref, padded_head_dim)
 from .xent import (  # noqa: F401
     softmax_xent, softmax_xent_bwd, softmax_xent_bwd_ref, softmax_xent_fwd,
     softmax_xent_fwd_ref)
@@ -24,10 +24,11 @@ __all__ = ["bn_act_epilogue", "bn_act_epilogue_bwd",
            "bn_act_epilogue_fwd_ref", "DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_decode_attention_wide",
-           "paged_decode_attention_wide_ref", "FLASH_HEAD_DIMS",
+           "paged_decode_attention_wide_ref", "FLASH_MAX_HEAD_DIM",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_dkv",
            "flash_attention_dkv_ref", "flash_attention_dq",
            "flash_attention_dq_ref", "flash_attention_fwd",
-           "flash_attention_fwd_ref", "softmax_xent", "softmax_xent_bwd",
+           "flash_attention_fwd_ref", "padded_head_dim", "softmax_xent",
+           "softmax_xent_bwd",
            "softmax_xent_bwd_ref", "softmax_xent_fwd", "softmax_xent_fwd_ref"]

@@ -29,6 +29,12 @@ runs them, so the port has no padding, no dense fallback and no fallback
 counter. lse is a plain (B, H, T) float32 tensor, without the TPU
 kernel's lane replication. `block_q` / `block_k` are TPU parameters and
 are not carried over: the kernels choose their own tiles.
+
+Head dims: the JAX kernels take any D; the CUDA kernels take any D up to
+`FLASH_MAX_HEAD_DIM` (128), each built for the padded D of
+`padded_head_dim(D)` (16, 32, 64 or 128) with the extra columns staged as
+zeros. The backward kernels run on the tensor cores, float32 as
+error-compensated TF32 (three TF32 products per float32 product).
 """
 from __future__ import annotations
 
@@ -40,13 +46,15 @@ import torch
 from .. import _build
 from .decode import _raise_on, _route
 
-__all__ = ["FLASH_HEAD_DIMS", "flash_attention", "flash_attention_fwd",
+__all__ = ["FLASH_MAX_HEAD_DIM", "padded_head_dim", "flash_attention",
+           "flash_attention_fwd",
            "flash_attention_fwd_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_dq",
            "flash_attention_dq_ref", "flash_attention_dkv",
            "flash_attention_dkv_ref"]
 
-FLASH_HEAD_DIMS = (16, 32, 64)  # the head dims the kernels are built for
+FLASH_MAX_HEAD_DIM = 128  # the largest head dim the kernels take
+_PADDED_HEAD_DIMS = (16, 32, 64, 128)  # the head dims they are built for
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,9 +140,19 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False):
 
 # -- kernel wrappers ---------------------------------------------------------
 
+def padded_head_dim(d):
+    """The head dim the kernels run a head dim `d` at: the smallest of 16,
+    32, 64 and 128 at or above it (the same rule as `padded_dim` in
+    `flash_attention.cu`). Raises for d outside 1 ... 128."""
+    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside the kernels' range 1 ... "
+                         f"{FLASH_MAX_HEAD_DIM}")
+    return next(p for p in _PADDED_HEAD_DIMS if p >= d)
+
+
 def _check(name, q, operands):
     """(B, H, T, D) of q, after checking that every operand has its shape,
-    device and dtype and that the kernels were built for D."""
+    device and dtype and that D is one the kernels take (1 ... 128)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: operands must be (B, H, T, D), got "
                          f"{tuple(q.shape)}")
@@ -148,19 +166,20 @@ def _check(name, q, operands):
         if x.shape != q.shape:
             raise ValueError(f"{name}: operand shape {tuple(x.shape)}, q "
                              f"{tuple(q.shape)}")
-    if q.shape[-1] not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} is not one the "
-                         f"kernels are built for {FLASH_HEAD_DIMS}")
+    if not 1 <= q.shape[-1] <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} is outside the "
+                         f"kernels' range 1 ... {FLASH_MAX_HEAD_DIM}")
     return q.shape
 
 
 def _operand(x):
-    """x as the kernels read it: D stride 1, batch/head/row strides that
-    are multiples of 4, 16-byte aligned rows (8 for bfloat16); a copy only
-    where x is not so already (e.g. an expanded gradient)."""
-    aligned = (x.stride(-1) == 1 and all(s % 4 == 0 for s in x.stride()[:3])
-               and x.data_ptr() % (4 * x.element_size()) == 0)
-    return x if aligned else x.clone(memory_format=torch.contiguous_format)
+    """x as the kernels read it: D stride 1, any batch/head/row strides
+    (the kernels stage with the widest copy every operand's address and
+    strides allow); a copy only where the D stride is not 1 (e.g. an
+    expanded gradient)."""
+    if x.stride(-1) == 1 or x.shape[-1] == 1:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _stat(name, t, shape, device):
@@ -184,7 +203,7 @@ def _stream(device):
 
 def flash_attention_fwd(q, k, v, causal=False):
     """FlashAttention-2 forward: q, k, v (B, H, T, D), all float32 or all
-    bfloat16, any T; D one of `FLASH_HEAD_DIMS`. Returns (o (B, H, T, D)
+    bfloat16, any T, any D up to 128. Returns (o (B, H, T, D)
     in q's dtype and layout, lse (B, H, T) float32).
 
     CUDA tensors run the Hopper kernel of `ops/csrc/flash_attention.cu`
@@ -217,8 +236,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False):
     and delta (B, H, T) float32. Returns dq in q's dtype and layout.
 
     CUDA tensors run the Hopper kernel (one block per (b·h, 64 query
-    rows), walking key tiles up to the diagonal when causal); CPU tensors
-    run `flash_attention_dq_ref`."""
+    rows), walking key tiles up to the diagonal when causal, its products
+    on the tensor cores); CPU tensors run `flash_attention_dq_ref`."""
     name = "flash_attention_dq"
     if not _route(name, q):
         return flash_attention_dq_ref(q, k, v, do, lse, delta, causal)
@@ -248,8 +267,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False):
     layout.
 
     CUDA tensors run the Hopper kernel (one block per (b·h, 64 key rows),
-    walking query tiles from the diagonal on when causal); CPU tensors run
-    `flash_attention_dkv_ref`."""
+    walking query tiles from the diagonal on when causal, its products on
+    the tensor cores); CPU tensors run `flash_attention_dkv_ref`."""
     name = "flash_attention_dkv"
     if not _route(name, q):
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, causal)

@@ -4,9 +4,11 @@ The port's `flash_attention` (a `torch.autograd.Function` whose forward
 and backward wrappers run their plain versions on CPU tensors) against the
 JAX Pallas FlashAttention-2 kernels in interpret mode, as the JAX
 package's own tests run them on the CPU. Outputs and gradients agree at
-2e-4, the gradient tolerance of `tests/test_pallas.py`. The CUDA kernels
-themselves run only on the card: `chip_smoke.py` holds them against the
-plain versions there.
+2e-4, the gradient tolerance of `tests/test_pallas.py`, at every head dim
+of the repo's configurations and at 128. The CUDA kernels themselves run
+only on the card: `chip_smoke.py` holds them against the plain versions
+there; here the wrapper's head-dim rule (1 ... 128, padded to 16, 32, 64
+or 128) and its in-place reading of strided operands are checked.
 """
 import numpy as np
 
@@ -28,9 +30,17 @@ def _qkvg(seed, shape):
     return [rng.randn(*shape).astype(np.float32) for _ in range(4)]
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_attention_and_gradients_match_jax(causal):
-    q, k, v, g = _qkvg(3, (2, 2, 64, 16))
+# head dims of the repo's configurations (4, 8, 12, 16; 6 has rows no
+# 16-byte copy can stage) and the largest the CUDA kernels take; D 16
+# keeps the ids it had before other head dims were added
+HEAD_DIM_CASES = [pytest.param(D, causal, id=("" if D == 16 else f"D{D}-")
+                               + ("causal" if causal else "full"))
+                  for D in (4, 6, 8, 12, 16, 128) for causal in (False, True)]
+
+
+@pytest.mark.parametrize("D,causal", HEAD_DIM_CASES)
+def test_flash_attention_and_gradients_match_jax(D, causal):
+    q, k, v, g = _qkvg(3, (2, 2, 64, D))
 
     def jloss(q, k, v):
         o = jflash(q, k, v, causal=causal, block_q=16, block_k=16,
@@ -94,3 +104,40 @@ def test_backward_wrappers_are_the_plain_versions_on_cpu():
     # CPU calls run no kernel, so they count no launch
     assert (tfl.flash_attention_dq.launches,
             tfl.flash_attention_dkv.launches) == before
+
+
+@pytest.mark.parametrize("D", [1, 4, 6, 12, 17, 64, 100, 128])
+def test_check_takes_every_head_dim_up_to_128(D):
+    q = torch.zeros((1, 2, 8, D))
+    assert tfl._check("flash_attention_dq", q, (q, q, q)) == q.shape
+
+
+def test_check_refuses_head_dims_above_128():
+    q = torch.zeros((1, 2, 8, tfl.FLASH_MAX_HEAD_DIM + 1))
+    with pytest.raises(ValueError, match="outside the kernels' range 1 ... "
+                                         "128"):
+        tfl._check("flash_attention_fwd", q, (q, q))
+
+
+def test_padded_head_dim_is_the_smallest_built_dim_at_or_above():
+    assert [tfl.padded_head_dim(d) for d in (4, 12, 100)] == [16, 16, 128]
+    assert [tfl.padded_head_dim(d) for d in (1, 16, 17, 32, 33, 64, 65,
+                                             128)] == [16, 16, 32, 32, 64,
+                                                       64, 128, 128]
+    for d in (0, 129):
+        with pytest.raises(ValueError):
+            tfl.padded_head_dim(d)
+
+
+def test_operand_reads_model_layout_in_place_at_any_head_dim():
+    # (B, T, H, D) with D 6: row stride H * D = 24 elements, rows 24 bytes
+    # apart from one another's 16-byte alignment; the kernels read it as is
+    x = torch.randn(2, 5, 4, 6).transpose(1, 2)
+    assert tfl._operand(x) is x
+    # a view starting one element in: 4-byte aligned only, read in place
+    y = x[..., 1:]
+    assert tfl._operand(y) is y
+    # an expanded gradient (D stride 0) is the one case copied
+    e = torch.ones(()).expand(2, 4, 5, 6)
+    got = tfl._operand(e)
+    assert got is not e and got.stride(-1) == 1 and torch.equal(got, e)
