@@ -14,14 +14,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. kernels: each kernel against its plain version on the card, in
    float32 and bfloat16. The decode kernels at the shapes the serving
    path gives them (tolerance 2e-5 and 2e-2), the wide kernel at Q = 5,
-   32 and 64 rows per slot; the flash-attention forward, dQ and dK/dV
+   32 and 64 rows per slot and at a head dim of 80 (Q 5, 4 heads), each
+   against the dense softmax and the split walk at the kernel's split
+   size, and bit-equal across two launches; the flash-attention forward,
+   dQ and dK/dV
    kernels at the training shape (B 8, H 8, T 512, D 64, causal, in the
    model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
    T 200, a non-causal ragged T 24, at D 16, at the padded head dims 4,
    6, 8, 12 and 128 (B 2, H 4, T 200, causal) and D 128 at T 512 (o and
    lse 2e-5 and 2e-2; dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2
-   of the largest reference value), dQ and dK/dV bit-equal across two
-   launches, and 2 train steps with use_flash at head dims 12 and 128
+   of the largest reference value), o, lse, dQ, dK and dV bit-equal across
+   two launches, and 2 train steps with use_flash at head dims 12 and 128
    (losses finite, step 1 equal to dense at rtol 1e-5); the softmax-xent
    forward and backward kernels at the train step's (4096, 32000), at the
    JAX tests' N 16 / V 50, N 8 / V 33 and a batched (2, 5, 17) through
@@ -70,12 +73,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1e-6 and its gradients at rtol 2e-4, atol 1e-5; every loss finite, the
    largest relative loss gap printed;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
-   prefill, tokens/s over each trace, the train step and train tokens/s of
+   prefill, the wide step at Q 5 and 64, tokens/s over each trace, the train step and train tokens/s of
    each training leg, and each kernel beside its plain version, its bound
    and, for flash_decode, the flash-attention and the softmax-xent
    kernels, one library call (the flash backward's: the library's
    backward alone, its kernels named from a profiler window, beside the
-   tensor-core bound and the HMMA / HGMMA count of the kernels' SASS;
+   tensor-core bound and the HMMA / HGMMA count of the flash and wide
+   kernels' SASS, which must not be 0; the flash kernels and the wide
+   kernel (Q 5, 32, 64) in float32 and bfloat16;
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
    ResNet-50 leg's step, host time and images/s; then
@@ -197,11 +202,11 @@ def recycled_case(device, dtype, seed=1):
     return q, kp, vp, table, nv
 
 
-def wide_case(device, dtype, Q, seed=3):
+def wide_case(device, dtype, Q, seed=3, H=8, D=64):
     """The serving shape with Q rows per slot: 8 slots, 8 heads of 64,
     pages of 16, table 32, pool 257; ragged n_base, and rows past the
     table (cap 512) in the last two slots, the last one wholly past."""
-    S, H, D, W, P = SLOTS, 8, 64, 512 // PAGE, SLOTS * 512 // PAGE + 1
+    S, W, P = SLOTS, 512 // PAGE, SLOTS * 512 // PAGE + 1
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_base = torch.tensor([0, 1, 15, 16, 200, 300, 511 - Q // 2, 512])
     alloc = PageAllocator(P, PAGE)
@@ -217,10 +222,11 @@ def wide_case(device, dtype, Q, seed=3):
                  if a.is_floating_point() else a.to(device) for a in args)
 
 
-def wide_recycled_case(device, dtype, Q, seed=4):
+def wide_recycled_case(device, dtype, Q, seed=4, **head):
     """Slot 5's pages handed, in another order, to a new sequence with
     new K/V and another n_base: the kernel must read the new contents."""
-    q, kp, vp, table, nb = (a.clone() for a in wide_case(device, dtype, Q))
+    q, kp, vp, table, nb = (a.clone() for a in wide_case(device, dtype, Q,
+                                                          **head))
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_pages = int((table[5] != 0).sum())
     new = list(reversed(table[5, :n_pages].tolist()))
@@ -231,6 +237,37 @@ def wide_recycled_case(device, dtype, Q, seed=4):
     table[5, :len(new)] = torch.tensor(new, dtype=torch.int32)
     nb[5] = len(new) * PAGE - Q - 3
     return q, kp, vp, table, nb
+
+
+# (Q, head shape) of the wide kernel's checks: the serving head shape at
+# the levers' widths, and a head dim that is no power of two (D_p 128)
+WIDE_CASES = (*((Q, dict(H=8, D=64)) for Q in WIDE_Q), (5, dict(H=4, D=80)))
+
+
+def wide_against_plain(label, args, tol):
+    """The wide kernel against both plain versions: the dense softmax and
+    the split walk at the kernel's own split size."""
+    got = dk.paged_decode_attention_wide(*args)
+    keys = dk.wide_keys_per_split(args[0].shape[-1])
+    return max(
+        check(f"paged_decode_attention_wide {label}", got,
+              dk.paged_decode_attention_wide_ref(*args), tol),
+        check(f"paged_decode_attention_wide {label} vs the split walk "
+              f"({keys} keys a split)", got,
+              dk.paged_decode_attention_wide_split_ref(*args, keys), tol))
+
+
+def wide_deterministic(device, dtype):
+    """Two launches of the wide kernel give bit-equal outputs (no
+    atomics, the combine's order fixed) at every width of WIDE_Q."""
+    for Q in WIDE_Q:
+        args = wide_case(device, dtype, Q)
+        if not torch.equal(dk.paged_decode_attention_wide(*args),
+                           dk.paged_decode_attention_wide(*args)):
+            raise AssertionError(f"paged_decode_attention_wide differs "
+                                 f"between two launches (Q {Q}, {dtype})")
+    print(f"  paged_decode_attention_wide {str(dtype)[6:]} Q {WIDE_Q}: "
+          f"bit-equal across two launches")
 
 
 def flash_case(device, dtype, B, T, n_valid, seed=2):
@@ -332,20 +369,25 @@ def flash_against_plain(device, errs):
 
 
 def flash_deterministic(device, dtype):
-    """Two launches of the dQ and of the dK/dV kernel on the training
-    shape give bit-equal gradients (no atomics, fixed summation order)."""
+    """Two launches of the forward, of the dQ and of the dK/dV kernel on
+    the training shape give bit-equal o, lse and gradients (no atomics,
+    fixed summation order)."""
     B, H, T, D, causal, _ = ATTN_CASES["B8 H8 T512 D64 causal (training)"]
     q, k, v, do = attn_case(device, dtype, B, H, T, D, True)
     o, lse = fl.flash_attention_fwd_ref(q, k, v, causal)
     args = (q, k, v, do, lse, fl._delta(o, do), causal)
-    first = (fl.flash_attention_dq(*args), *fl.flash_attention_dkv(*args))
-    again = (fl.flash_attention_dq(*args), *fl.flash_attention_dkv(*args))
-    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+
+    def launch():
+        return (*fl.flash_attention_fwd(q, k, v, causal),
+                fl.flash_attention_dq(*args), *fl.flash_attention_dkv(*args))
+
+    first, again = launch(), launch()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), first, again):
         if not torch.equal(a, b):
             raise AssertionError(f"flash {name} differs between two launches "
                                  f"({dtype})")
-    print(f"  flash_attention_dq / _dkv {str(dtype)[6:]} training shape: "
-          f"dq, dk, dv bit-equal across two launches")
+    print(f"  flash_attention_fwd / _dq / _dkv {str(dtype)[6:]} training "
+          f"shape: o, lse, dq, dk, dv bit-equal across two launches")
 
 
 def flash_head_dim_steps(device):
@@ -583,16 +625,16 @@ def kernels_against_plain(device):
                         tol)
             if dtype == torch.float32:
                 errs["flash_decode"] = max(errs["flash_decode"], err)
-        for Q in WIDE_Q:
+        for Q, head in WIDE_CASES:
             for label, make in (("ragged, rows past the table", wide_case),
                                 ("recycled pages", wide_recycled_case)):
-                args = make(device, dtype, Q)
-                err = check(f"paged_decode_attention_wide {name} Q {Q} "
-                            f"{label}", dk.paged_decode_attention_wide(*args),
-                            dk.paged_decode_attention_wide_ref(*args), tol)
+                err = wide_against_plain(f"{name} Q {Q} H{head['H']} "
+                                         f"D{head['D']} {label}",
+                                         make(device, dtype, Q, **head), tol)
                 if dtype == torch.float32:
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
+        wide_deterministic(device, dtype)
     errs = xent_against_plain(device, flash_against_plain(device, errs))
     flash_head_dim_steps(device)
     return epilogue_against_plain(device, errs)
@@ -1214,29 +1256,37 @@ def kernel_rows(errs, launches, flush, device, gpu):
                 "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
                 "library_ms": lib})
 
-    for Q in WIDE_Q:
-        q, kp, _, table, nb = args = wide_case(device, torch.float32, Q)
-        S, _, H, D = q.shape
-        pages_read = int(((torch.clamp(nb.long() + Q, max=512) + PAGE - 1)
-                          // PAGE).sum())
-        w_ms, w_by = wide_bound_ms(nb, Q, table.shape[1] * PAGE, H, D, 4, S,
-                                   extra_bytes=4 * pages_read + 4 * S)
-        ms = device_ms(lambda: dk.paged_decode_attention_wide(*args),
-                       flush=flush)
-        plain = device_ms(lambda: dk.paged_decode_attention_wide_ref(*args),
-                          flush=flush)
-        print(f"  paged_decode_attention_wide S{S} Q{Q} H{H} D{D} page "
-              f"{PAGE} n_base {nb.tolist()}: kernel {ms * 1e3:.1f} us, plain "
-              f"{plain * 1e3:.1f} us, bound {w_ms * 1e3:.2f} us ({w_by}) "
-              f"[{gpu}]")
-        if Q == WIDE_Q[0]:  # the JSON row: speculative verification
-            rows.append({
-                "name": "paged_decode_attention_wide", "route": "cuda",
-                "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:808",
-                "launches": launches["wide"],
-                "max_abs_err": errs["paged_decode_attention_wide"],
-                "ms": ms, "plain_ms": plain, "bound_ms": w_ms,
-                "bound_by": w_by, "library_ms": None})
+    wide = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for Q in WIDE_Q:
+            q, kp, _, table, nb = args = wide_case(device, dtype, Q)
+            S, _, H, D = q.shape
+            pages_read = int(((torch.clamp(nb.long() + Q, max=512) + PAGE
+                               - 1) // PAGE).sum())
+            w_ms, w_by = wide_bound_ms(nb, Q, table.shape[1] * PAGE, H, D,
+                                       kp.element_size(), S,
+                                       extra_bytes=4 * pages_read + 4 * S)
+            ms = device_ms(lambda: dk.paged_decode_attention_wide(*args),
+                           flush=flush)
+            plain = device_ms(lambda: dk.paged_decode_attention_wide_ref(
+                *args), flush=flush)
+            print(f"  paged_decode_attention_wide {str(dtype)[6:]} S{S} Q{Q} "
+                  f"H{H} D{D} page {PAGE} n_base {nb.tolist()}: kernel "
+                  f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+                  f"{w_ms * 1e3:.2f} us ({w_by}) [{gpu}]")
+            if dtype == torch.float32:
+                wide[Q] = (ms, plain, w_ms, w_by)
+    # the JSON row: speculative verification's Q, the other widths beside
+    ms, plain, w_ms, w_by = wide[WIDE_Q[0]]
+    rows.append({
+        "name": "paged_decode_attention_wide", "route": "cuda",
+        "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:808",
+        "launches": launches["wide"],
+        "max_abs_err": errs["paged_decode_attention_wide"],
+        "ms": ms, "plain_ms": plain, "bound_ms": w_ms, "bound_by": w_by,
+        "library_ms": None,
+        "ms_by_q": {str(Q): t[0] for Q, t in wide.items()},
+        "bound_ms_by_q": {str(Q): t[2] for Q, t in wide.items()}})
     return rows
 
 
@@ -1267,15 +1317,20 @@ def tensor_core_bound(B, H, T, D, causal, elem, kernel):
     return flash_bound_ms(B, H, T, D, causal, elem, kernel, BF16_OPS_PER_S)
 
 
-def mma_counts(kernels=("flash_dq_kernel", "flash_dkv_kernel")):
+MMA_KERNELS = {"flash_attention": ("flash_fwd_kernel", "flash_dq_kernel",
+                                    "flash_dkv_kernel"),
+               "decode": ("paged_decode_wide_kernel",)}
+
+
+def mma_counts(lib, kernels):
     """{kernel fragment: (HMMA, HGMMA) instructions in its SASS, summed
-    over its variants} from `cuobjdump -sass` of the built flash library,
+    over its variants} from `cuobjdump -sass` of the built library `lib`,
     or None where the toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
                         "bin", "cuobjdump")
     if not os.path.isfile(tool):
         return None
-    path = _build.build(["flash_attention"])["flash_attention"]["path"]
+    path = _build.build([lib])[lib]["path"]
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts, current = {k: [0, 0] for k in kernels}, None
@@ -1317,9 +1372,10 @@ def flash_rows(errs, launches, flush, device, gpu):
     bound (float32 SIMT, the kernels line's; and at the tensor cores'
     rate) and the library's fused attention: forward alone for the
     forward, backward alone for dQ and dK/dV together (forward +
-    backward printed too). Then dQ and dK/dV in bfloat16, the library's
-    backward kernels by name, and the tensor-core instructions of the
-    backward kernels' SASS."""
+    backward printed too). Then the three kernels in bfloat16 beside the
+    library's bfloat16 forward, the library's backward kernels by name,
+    and the tensor-core instructions in the SASS of the flash and wide
+    kernels, none of which may have none."""
     B, H, T, D, causal, _ = ATTN_CASES["B8 H8 T512 D64 causal (training)"]
     q, k, v, do = attn_case(device, torch.float32, B, H, T, D, True)
     o, lse = fl.flash_attention_fwd(q, k, v, causal)
@@ -1355,10 +1411,14 @@ def flash_rows(errs, launches, flush, device, gpu):
     print("  its backward's kernels (one profiler window): " + "; ".join(
         f"{us:.1f} us {name[:100]}"
         for name, us in library_kernels(lib_backward)))
-    counts = mma_counts()
-    print("  tensor-core instructions in the SASS (HMMA, HGMMA): "
-          + ("cuobjdump not found" if counts is None else "; ".join(
-              f"{k} {v[0]}, {v[1]}" for k, v in counts.items())))
+    for lib, kernels in MMA_KERNELS.items():
+        counts = mma_counts(lib, kernels)
+        print(f"  tensor-core instructions in {lib}'s SASS (HMMA, HGMMA): "
+              + ("cuobjdump not found" if counts is None else "; ".join(
+                  f"{k} {v[0]}, {v[1]}" for k, v in counts.items())))
+        if counts is not None and not all(sum(v) for v in counts.values()):
+            raise AssertionError(f"a kernel of {lib} has no tensor-core "
+                                 f"instruction: {counts}")
     rows = []
     for name, (kernel, plain) in calls.items():
         ms = device_ms(kernel, flush=flush)
@@ -1379,12 +1439,22 @@ def flash_rows(errs, launches, flush, device, gpu):
     q, k, v, do = attn_case(device, torch.bfloat16, B, H, T, D, True)
     o, lse = fl.flash_attention_fwd(q, k, v, causal)
     bf_args = (q, k, v, do, lse, fl._delta(o, do), causal)
-    for name, kernel in (("flash_attention_dq", fl.flash_attention_dq),
-                         ("flash_attention_dkv", fl.flash_attention_dkv)):
-        ms = device_ms(lambda: kernel(*bf_args), flush=flush)
+    lib_bf = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), flush=flush)
+    print(f"  scaled_dot_product_attention bfloat16 B{B} H{H} T{T} D{D} "
+          f"causal: forward {lib_bf * 1e3:.1f} us [{gpu}]")
+    for name, kernel in (
+            ("flash_attention_fwd",
+             lambda: fl.flash_attention_fwd(q, k, v, causal)),
+            ("flash_attention_dq", lambda: fl.flash_attention_dq(*bf_args)),
+            ("flash_attention_dkv",
+             lambda: fl.flash_attention_dkv(*bf_args))):
+        ms = device_ms(kernel, flush=flush)
+        b_ms, b_by = flash_bound_ms(B, H, T, D, causal, 2, name)
         tc_ms, tc_by = tensor_core_bound(B, H, T, D, causal, 2, name)
         print(f"  {name} bfloat16 B{B} H{H} T{T} D{D} causal: kernel "
-              f"{ms * 1e3:.1f} us, tensor-core bound {tc_ms * 1e3:.2f} us "
+              f"{ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+              f"float32 SIMT); tensor-core bound {tc_ms * 1e3:.2f} us "
               f"({tc_by}, bfloat16) [{gpu}]")
     return rows
 
@@ -1617,7 +1687,8 @@ def train_times(step, params, batch, gpu, leg="flash"):
 
 def path_times(cfg, params, device, gpu):
     """Median device time of one full-width decode step (8 live slots at
-    ragged depths) and of one prefill of a 200-token prompt (bucket 256),
+    ragged depths), of one prefill of a 200-token prompt (bucket 256) and
+    of one wide step (8 slots of 5 and of 64 rows from the same depths),
     then a traced window over decode steps."""
     W = 512 // PAGE
     paged = tfm.init_paged_kv_cache(cfg, SLOTS * W + 1, PAGE, device=device)
@@ -1645,18 +1716,30 @@ def path_times(cfg, params, device, gpu):
               f"clock {step_host:.3f} ms [{gpu}]")
         print(f"  prefill (1 x 256 bucket, 200 tokens): device "
               f"{prefill_ms:.3f} ms [{gpu}]")
+        for Q in (WIDE_Q[0], WIDE_Q[-1]):  # speculation, a prefill chunk
+            wide_tok = torch.randint(1, cfg.vocab, (SLOTS, Q), device=device,
+                                     generator=torch.Generator(
+                                         device=device).manual_seed(4))
+            n_real = torch.full((SLOTS,), Q, device=device)
+            wide_ms = device_ms(lambda: tfm.decode_step_paged_wide(
+                params, paged, wide_tok, positions, n_real, table,
+                cfg)[0].argmax(-1), reps=25, sleep_cycles=20_000_000)
+            print(f"  wide step ({SLOTS} slots x {Q} rows from positions "
+                  f"{positions.tolist()}): device {wide_ms:.3f} ms [{gpu}]")
         busy_share(lambda: tfm.decode_step_paged(
             params, paged, tokens, positions, table, cfg)[0].argmax(-1)
             .cpu(), "decode step + token read-back", gpu)
 
 
-def flash_ptxas(output):
-    """One line per flash-attention kernel variant from ptxas -v's report:
-    registers, and spill stores / loads in bytes."""
+def ptxas_lines(output):
+    """One line per variant of the flash-attention and wide decode kernels
+    from ptxas -v's report: registers, and spill stores / loads in
+    bytes."""
     lines, name = [], None
     for line in output.splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_(?:fwd|dq|dkv)"
-                      r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?((?:flash_(?:fwd|dq|dkv)"
+                      r"|paged_decode_wide)_kernel)I(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", line)
         if m:
             name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
                     f", {m.group(3)}>")
@@ -1756,8 +1839,9 @@ def main():
               f"({'cached' if rec['cached'] else 'nvcc'}); ptxas: "
               f"{len(regs)} lines, first: {regs[:2]}")
     print(f"  build {time.perf_counter() - t0:.1f} s")
-    for line in flash_ptxas(built["flash_attention"]["output"]):
-        print(f"  {line}")
+    for lib in MMA_KERNELS:
+        for line in ptxas_lines(built[lib]["output"]):
+            print(f"  {line}")
     print(gpu)
 
     print("phase 2: kernels against their plain versions")

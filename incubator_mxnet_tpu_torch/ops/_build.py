@@ -4,8 +4,9 @@ Each source `ops/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 (`sm_90a`) into a shared library with a plain C interface and loaded
 with `ctypes`. Builds happen at first use, into `build/torch_kernels/`
 at the root of the checkout (listed in `.gitignore`), and each library
-is named by a hash of its source and the compiler flags: an edited
-source rebuilds, an unchanged one loads at once. `build()` starts one
+is named by a hash of its source, the shared headers (`csrc/*.cuh`) and
+the compiler flags: an edited source or header rebuilds, an unchanged
+one loads at once. `build()` starts one
 `nvcc` per source, all at the same time. A missing `nvcc` or a failed
 compile raises with the compiler's output; nothing falls back.
 """
@@ -45,6 +46,8 @@ def _nvcc():
 def _target(name):
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):  # what the sources include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

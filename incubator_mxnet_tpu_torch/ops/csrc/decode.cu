@@ -35,29 +35,21 @@
 // walk stops at min(n_valid, T). n_valid == 0 writes zeros, as the TPU
 // kernel does (o = 0, l floored at 1e-30).
 //
-// Known limits, left to later work: at full width the grid is S * H = 64
-// blocks on 132 SMs (split the key walk across blocks and combine in a
-// second pass), and rows are read with plain loads (cp.async or TMA staging
-// would keep more bytes in flight).
+// Known limits of the two single-query kernels, left to later work: at
+// full width their grid is S * H = 64 blocks on 132 SMs (the wide kernel's
+// split key walk and combine pass below would spread it), and they read
+// rows with plain loads (the wide kernel stages with cp.async).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
 constexpr int kMaxLanesPerRow = 8;  // head_dim <= 256
-constexpr int kWideUnroll = 8;  // keys per round of a wide-kernel row
-constexpr int kStage = 8;       // K and V loads in flight per thread
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Row offsets (in elements) of key t for the block's (slot, head).
 struct DenseRows {  // cache (B, T, H, D), contiguous
@@ -110,8 +102,8 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
       for (int r = 0; r < R; ++r) {
         const int d = lane + 32 * r;
         const bool ok = live && d < head_dim;
-        kr[u][r] = ok ? to_f32(k[off + d]) : 0.f;
-        vr[u][r] = ok ? to_f32(v[off + d]) : 0.f;
+        kr[u][r] = ok ? to_float(k[off + d]) : 0.f;
+        vr[u][r] = ok ? to_float(v[off + d]) : 0.f;
       }
     }
     float s[kUnroll];
@@ -325,216 +317,385 @@ cudaError_t dispatch_flash(int lanes, const void* q, const void* k,
 // prefix cache's tail prefill (Q = 32) and speculative verification
 // (Q = lookahead + 1).
 //
-// What bounds it on an H100: bytes for small Q (every live K/V row of the
-// (slot, head) read once, as in the single-query kernel), operations as Q
-// grows: 4 * D float32 operations per (row, live key) pair, so at Q = 64
-// the arithmetic can outweigh the bytes.
+// What bounds it on an H100: bytes. Every live K/V row of a (slot, head)
+// is read once (2 * D * elem bytes) for all Q rows; the arithmetic, 4 * D
+// operations per (row, live key) pair, stays below the bytes' time up to
+// Q 64 even at the SIMT float32 rate, and the products run on the tensor
+// cores.
 //
-// Design (correctness first). One thread block per (head, slot, row group)
-// of up to kWarps rows; warp w owns row group * kWarps + w and keeps its
-// own online softmax (m, l, o) in registers, lanes splitting D, with a
-// warp-shuffle reduction for each score, kWideUnroll keys per round. All
-// rows of a block read the same keys, so the block stages a tile of
-// tile_keys K and V rows in shared memory (converted to float32) once and
-// every warp reads it there; each thread issues kStage loads of each
-// tensor before its first store, so the staging is not a chain of
-// dependent trips to device memory. The
-// block walks only as far as its deepest row needs; a row stops at its own
-// causal limit. The block's page ids are staged in shared memory first, as
-// in the single-query kernel; an id outside the pool reads the null page 0.
-// Left to later work: tensor cores for the Q x K tile, cp.async/TMA
-// staging, and splitting long walks across blocks.
+// Design: a split key walk with a combine pass.
+//   paged_decode_wide_kernel: one block of four warps per (head, slot, key
+// split, group of 64 rows); every Q <= 64 is one group, so each live K/V
+// row of a (slot, head) is read from device memory once per split for all
+// Q rows. A split is Wide::BN consecutive keys (64 up to
+// D_p 64, 32 at 128, 16 at 256): whole pages where the page size divides
+// it. Splits come from table_width and page_size alone: the host never
+// reads n_base (a blocking copy), and a split past the group's deepest
+// causal limit writes empty partials (m = -1e30, l = 0) and stops. The
+// block issues q's cp.async copies, stages the split's pool row of each
+// key in shared memory (page ids read once; an id outside the pool reads
+// the null page 0), then copies K and V rows with cp.async, K before V, so
+// that the scores start while V is in flight. The four warps share the
+// staging; each 16 query rows (Q padded to 16-row mma tiles) are one
+// warp's, so no warp combines another's sums: S = q.K^T and P.V are
+// mma.sync TF32 products from tf32_mma.cuh. q is float32, so it splits
+// into hi and lo: 3 x TF32 against a float32 pool, 2 passes (hi.k + lo.k)
+// against a bfloat16 pool, whose values are exact in TF32; p is rounded to
+// the pool's type before P.V, as in JAX (exact in TF32 for bfloat16). Each
+// warp writes float32 partials for its rows: the split's max m (base 2),
+// sum l and unnormalised output o.
+//   wide_combine_kernel: one warp per output row merges the row's splits
+// in a fixed order by the log-sum-exp rule, skipping empty partials; a row
+// whose every split is empty gives zeros (l floored at 1e-30, as the TPU
+// kernel does). No atomics: results are bit-equal across launches.
+//   The partials' workspace is the caller's (the wrapper takes it from
+// PyTorch's caching allocator on the call's stream), so a CUDA graph can
+// capture the call.
+//   What limits it now (chip_smoke.py phase 5, tools/kernel_variants.py;
+// PERF.md, PR 7): latency, not bytes. At Q 5 the split kernel is a chain
+// of dependent waits (the page table, then K, the products, V) in blocks
+// that each move 32 KB, and the combine is a second launch; at Q 64 the
+// 3 x TF32 products weigh more. Splits of 32 or 16 keys measured slower
+// (the combine grows more than the split kernel shrinks), and so did a
+// programmatic dependent launch of the combine at Q 64 (faster at Q 5).
 // ---------------------------------------------------------------------------
 
-template <typename T, int R>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int kWideRows = 64;  // query rows of a block: four 16-row tiles
+
+// 16-row tiles of a row group (all groups are sized as the first): one
+// warp each; a block runs four warps all the same, which share the
+// staging.
+__host__ __device__ __forceinline__ int wide_tiles(int n_q) {
+  return min(4, (n_q + 15) / 16);
+}
+
+// Tile shape at padded head dim D: BN keys a split, row strides of the
+// staged q (float32) and K/V (T) tiles, 16 bytes of padding each, which
+// makes the fragment reads conflict-free in shared memory.
+template <typename T, int D>
+struct Wide {
+  static_assert(D % 16 == 0 && D <= 256, "padded head dim 16 ... 256");
+  static constexpr int BN = D <= 64 ? 64 : 4096 / D;  // at most 128 threads
+  static constexpr int NT = BN / 8;
+  static constexpr int LSQ = D + 4;
+  static constexpr int LS = D + 16 / int(sizeof(T));
+  static size_t smem(int tiles) {
+    return sizeof(float) * 16 * tiles * LSQ + sizeof(T) * 2 * BN * LS +
+           sizeof(int) * BN;
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
     paged_decode_wide_kernel(const float* __restrict__ q,
                              const T* __restrict__ k_pages,
                              const T* __restrict__ v_pages,
                              const int32_t* __restrict__ page_table,
                              const int32_t* __restrict__ n_base,
-                             float* __restrict__ out, int n_q, int heads,
+                             float* __restrict__ part_o,
+                             float* __restrict__ part_ml, int n_q, int heads,
                              int head_dim, int page_size, int num_pages,
-                             int table_width, int tile_keys, float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.z * kWarps;
-  const int rows_here = min(kWarps, n_q - row0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+                             int table_width, int n_split, float scale,
+                             int width, int q_width) {
+  using P = Wide<T, D>;
+  constexpr int BN = P::BN, NT = P::NT, LSQ = P::LSQ, LS = P::LS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tiles = wide_tiles(n_q);
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // [16 tiles][LSQ]
+  T* k_s = reinterpret_cast<T*>(q_s + 16 * tiles * LSQ);  // [BN][LS]
+  T* v_s = k_s + BN * LS;                                 // [BN][LS]
+  int* rows_s = reinterpret_cast<int*>(v_s + BN * LS);   // [BN] pool rows
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.z % n_split, row0 = blockIdx.z / n_split *
+                                                 kWideRows;
+  const int rows_here = min(kWideRows, n_q - row0);
   const int cap = table_width * page_size;
+  const int k_lo = split * BN;
+  // thread r < BN reads key k_lo + r's page id before n_base, so the two
+  // trips to device memory overlap
+  int page = 0;
+  if (threadIdx.x < BN && k_lo + int(threadIdx.x) < cap)
+    page = page_table[int64_t(b) * table_width +
+                      (k_lo + int(threadIdx.x)) / page_size];
   const int nb = max(0, n_base[b]);
-  // the deepest row of the block, row0 + rows_here - 1, attends this many
-  const int n_keys = min(nb + row0 + rows_here, cap);
-  const int n_pages = (n_keys + page_size - 1) / page_size;
-
-  int* pages = reinterpret_cast<int*>(smem);
-  float* ks = smem + table_width;
-  float* vs = ks + tile_keys * head_dim;
-  for (int j = threadIdx.x; j < n_pages; j += blockDim.x) {
-    const int p = page_table[int64_t(b) * table_width + j];
-    pages[j] = (p >= 0 && p < num_pages) ? p : 0;
+  const int n_keys = min(nb + row0 + rows_here, cap);  // the deepest row's
+  // partial (m, l) of row i at part_ml[2 * at(i)], its o at part_o[at(i) * D]
+  const int64_t at0 = (int64_t(b) * n_split + split) * n_q * heads + h;
+  if (k_lo >= n_keys) {  // no row of the group sees a key of this split
+    for (int r = threadIdx.x; r < rows_here; r += blockDim.x) {
+      part_ml[2 * (at0 + int64_t(row0 + r) * heads)] = kNegInf;
+      part_ml[2 * (at0 + int64_t(row0 + r) * heads) + 1] = 0.f;
+    }
+    return;
   }
-
-  const bool active = warp < rows_here;
-  const int row = row0 + warp;
-  const int limit = active ? min(nb + row + 1, cap) : 0;
-  const int64_t qo = ((int64_t(b) * n_q + row) * heads + h) * head_dim;
-  float qr[R], o[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int d = lane + 32 * r;
-    qr[r] = active && d < head_dim ? q[qo + d] : 0.f;
-    o[r] = 0.f;
+  if (head_dim < D) {
+    zero_tiles(q_s, 16 * tiles * LSQ);
+    zero_tiles(k_s, 2 * BN * LS);
+    __syncthreads();
   }
-  float m = kNegInf, l = 0.f;
+  stage_tile<float, LSQ>(
+      q_s,
+      [&](int r) -> const float* {
+        const int i = row0 + r;
+        return i < n_q ? q + ((int64_t(b) * n_q + i) * heads + h) * head_dim
+                       : nullptr;
+      },
+      q, 16 * tiles, head_dim, q_width);
+  if (threadIdx.x < BN) {
+    const int key = k_lo + threadIdx.x;
+    rows_s[threadIdx.x] =
+        key < n_keys ? (page >= 0 && page < num_pages ? page : 0) * page_size +
+                           key % page_size
+                     : -1;
+  }
+  __syncthreads();
   const int64_t stride_row = int64_t(heads) * head_dim;
   const int64_t head_off = int64_t(h) * head_dim;
-  __syncthreads();  // the page ids are staged
+  stage_tile<T, LS>(
+      k_s,
+      [&](int r) -> const T* {
+        return rows_s[r] >= 0 ? k_pages + rows_s[r] * stride_row + head_off
+                              : nullptr;
+      },
+      k_pages, BN, head_dim, width);
+  cp_commit();
+  stage_tile<T, LS>(
+      v_s,
+      [&](int r) -> const T* {
+        return rows_s[r] >= 0 ? v_pages + rows_s[r] * stride_row + head_off
+                              : nullptr;
+      },
+      v_pages, BN, head_dim, width);
+  cp_commit();
 
-  for (int t0 = 0; t0 < n_keys; t0 += tile_keys) {
-    const int nt = min(tile_keys, n_keys - t0);
-    const int n_el = nt * head_dim;
-    // kStage elements of K and of V in flight per thread: every load of a
-    // batch is issued before the first store
-    for (int i0 = threadIdx.x; i0 < n_el; i0 += kStage * blockDim.x) {
-      float kb[kStage], vb[kStage];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4,
+            t = lane % 4;
+  const int w0 = row0 + 16 * warp;  // the warp's first row
+  // the warp computes if it has rows and its deepest row sees the split
+  const bool live_warp = w0 < n_q && k_lo < min(nb + w0 + 16, cap);
+  const float scale2 = scale * kLog2e;  // scores in base 2
+  float s[1][NT][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {};
+  cp_wait<1>();  // q and K
+  __syncthreads();
+  if (live_warp) {
+    sum_over_d<float, T, D, 1, NT, LSQ, LS>(s, q_s + 16 * warp * LSQ, k_s,
+                                             g, t);
 #pragma unroll
-      for (int j = 0; j < kStage; ++j) {
-        const int i = i0 + j * blockDim.x;
-        kb[j] = vb[j] = 0.f;
-        if (i < n_el) {
-          const int t = i / head_dim;
-          const int key = t0 + t;
-          const int64_t src = (int64_t(pages[key / page_size]) * page_size +
-                               key % page_size) *
-                                  stride_row +
-                              head_off + (i - t * head_dim);
-          kb[j] = to_f32(k_pages[src]);
-          vb[j] = to_f32(v_pages[src]);
-        }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = w0 + g + 8 * (e >> 1);
+        const int key = k_lo + nt * 8 + 2 * t + (e & 1);
+        const bool live = key < min(nb + row + 1, cap);
+        s[0][nt][e] = live ? s[0][nt][e] * scale2 : kNegInf;
+        m[e >> 1] = fmaxf(m[e >> 1], s[0][nt][e]);
       }
 #pragma unroll
-      for (int j = 0; j < kStage; ++j) {
-        const int i = i0 + j * blockDim.x;
-        if (i < n_el) {
-          ks[i] = kb[j];
-          vs[i] = vb[j];
-        }
+    for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+    // masked keys give p = 0, so a row with no live key here has l = 0
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[0][nt][e];
+        const float p = x > kNegInf ? exp2f(x - m[e >> 1]) : 0.f;
+        l[e >> 1] += p;
+        s[0][nt][e] = round_to<T>(p);
       }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+  }
+  cp_wait<0>();  // V
+  __syncthreads();
+  float acc[1][D / 8][4] = {};
+  if (live_warp) sum_over_rows<T, D, 1, NT, LS>(acc, s, v_s, g, t);
+  if (warp >= tiles) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + g + 8 * i;
+    if (row >= n_q) continue;
+    const int64_t at = at0 + int64_t(row) * heads;
+    if (t == 0) {
+      part_ml[2 * at] = m[i];
+      part_ml[2 * at + 1] = l[i];
     }
-    __syncthreads();
-    const int kend = min(nt, limit - t0);  // this row's live keys here
-    for (int base = 0; base < kend; base += kWideUnroll) {
-      float s[kWideUnroll];
+    if (!live_warp) continue;  // no key of the split: l = 0, o not read
 #pragma unroll
-      for (int u = 0; u < kWideUnroll; ++u) {
-        const int t = min(base + u, nt - 1);
-        float acc = 0.f;
+    for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int d = lane + 32 * r;
-          if (d < head_dim) acc = fmaf(qr[r], ks[t * head_dim + d], acc);
-        }
-        s[u] = acc;
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + 2 * t + e;
+        if (col < head_dim) part_o[at * head_dim + col] = acc[0][dn][2 * i + e];
       }
+  }
+}
+
+// One warp per output row (slot, row, head): the row's n_split partials
+// merged in split order, empty ones (l = 0) skipped. The lanes read the
+// splits' (m, l) side by side (lane j: splits j, j + 32, ...), so the loads
+// do not queue one behind another; the sums then run in split order, each
+// split's weight handed round by a shuffle. Lanes split D: lane i holds
+// output elements i, i + 32, ... (R of them).
+template <int R>
+__global__ void __launch_bounds__(128)
+    wide_combine_kernel(const float* __restrict__ part_o,
+                        const float* __restrict__ part_ml,
+                        float* __restrict__ out, int n_rows, int n_q,
+                        int heads, int head_dim, int n_split) {
+  const int row = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  const int per_slot = n_q * heads;  // rows of one slot, (row, head) order
+  const int b = row / per_slot, rest = row - b * per_slot;
+  const int64_t at0 = int64_t(b) * n_split * per_slot + rest;
+  float mx = kNegInf;
+  for (int j = lane; j < n_split; j += 32) {
+    const int64_t at = at0 + int64_t(j) * per_slot;
+    if (part_ml[2 * at + 1] > 0.f) mx = fmaxf(mx, part_ml[2 * at]);
+  }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-        for (int u = 0; u < kWideUnroll; ++u)
-          s[u] += __shfl_xor_sync(kFullMask, s[u], off);
-      }
-      float m_new = m;
-#pragma unroll
-      for (int u = 0; u < kWideUnroll; ++u) {
-        s[u] = base + u < kend ? s[u] * scale : kNegInf;
-        m_new = fmaxf(m_new, s[u]);
-      }
-      const float alpha = expf(m - m_new);
-      float p[kWideUnroll], psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kWideUnroll; ++u) {
-        p[u] = base + u < kend ? expf(s[u] - m_new) : 0.f;
-        psum += p[u];
-      }
-      l = l * alpha + psum;
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
+  float o[R] = {}, lsum = 0.f;
+  for (int j0 = 0; j0 < n_split; j0 += 32) {
+    float c = 0.f, lj = 0.f;  // split j0 + lane's sum and weight
+    if (j0 + lane < n_split) {
+      const int64_t at = at0 + int64_t(j0 + lane) * per_slot;
+      lj = part_ml[2 * at + 1];
+      if (lj > 0.f) c = exp2f(part_ml[2 * at] - mx);
+    }
+    const int n = min(32, n_split - j0);
+#pragma unroll 8
+    for (int u = 0; u < n; ++u) {
+      const float cu = __shfl_sync(kFullMask, c, u);
+      lsum = fmaf(__shfl_sync(kFullMask, lj, u), cu, lsum);
+      const float* src = part_o + (at0 + int64_t(j0 + u) * per_slot) *
+                                      head_dim;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int d = lane + 32 * r;
-        float acc = o[r] * alpha;
-        if (d < head_dim) {
-#pragma unroll
-          for (int u = 0; u < kWideUnroll; ++u) {
-            const int t = min(base + u, nt - 1);
-            acc = fmaf(p[u], vs[t * head_dim + d], acc);
-          }
-        }
-        o[r] = acc;
+        // an empty split's o is never written: not read either
+        const float x = cu > 0.f && d < head_dim ? src[d] : 0.f;
+        o[r] = fmaf(x, cu, o[r]);
       }
-      m = m_new;
     }
-    __syncthreads();  // every warp is done with the tile
   }
-
-  if (active) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int d = lane + 32 * r;
-      if (d < head_dim) out[qo + d] = o[r] * inv;
-    }
+  for (int r = 0; r < R; ++r) {
+    const int d = lane + 32 * r;
+    if (d < head_dim) out[int64_t(row) * head_dim + d] = o[r] * inv;
   }
 }
 
-// Keys staged per tile: 2 * tile_keys * head_dim floats of K and V, 32 KB.
-int wide_tile_keys(int head_dim) {
-  return head_dim >= 4096 ? 1 : 4096 / head_dim;
+// The padded head dim of the wide kernel: the smallest of 16, 32, 64, 128
+// and 256 at or above d.
+int wide_padded_dim(int d) {
+  int p = 16;
+  while (p < d) p *= 2;
+  return p;
 }
 
-template <typename T, int R>
+// Keys of one split of the wide kernel at head dim d (Wide<T, D_p>::BN).
+int wide_split_keys(int d) {
+  const int p = wide_padded_dim(d);
+  return p <= 64 ? 64 : 4096 / p;
+}
+
+// Bytes each staging copy moves: 16 or 4 where the base address and the
+// row's bytes allow (rows start at multiples of the row's bytes), else one
+// element.
+int wide_copy_width(const void* base, int row_bytes, int elem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (a % 16 == 0 && row_bytes % 16 == 0) return 16;
+  if (a % 4 == 0 && row_bytes % 4 == 0) return 4;
+  return elem;
+}
+
+template <typename T, int D>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
-                        const void* table, const void* nb, void* out,
-                        int slots, int n_q, int heads, int head_dim,
-                        int page_size, int num_pages, int table_width,
-                        float scale, cudaStream_t stream) {
-  const int tile = wide_tile_keys(head_dim);
-  const size_t smem = sizeof(int) * table_width +
-                      sizeof(float) * 2 * size_t(tile) * head_dim;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(heads, slots, (n_q + kWarps - 1) / kWarps);
-  paged_decode_wide_kernel<T, R><<<grid, kWarps * 32, smem, stream>>>(
+                        const void* table, const void* nb, void* part_o,
+                        void* part_ml, int slots, int n_q, int heads,
+                        int head_dim, int page_size, int num_pages,
+                        int table_width, int n_split, float scale,
+                        cudaStream_t stream) {
+  using P = Wide<T, D>;
+  const size_t smem = P::smem(wide_tiles(n_q));
+  auto kernel = paged_decode_wide_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err) return err;
+  }
+  const int elem = sizeof(T), row_bytes = head_dim * elem;
+  const int width = min(wide_copy_width(k, row_bytes, elem),
+                        wide_copy_width(v, row_bytes, elem));
+  const int groups = (n_q + kWideRows - 1) / kWideRows;
+  kernel<<<dim3(heads, slots, n_split * groups), 128, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(nb), static_cast<float*>(out), n_q, heads,
-      head_dim, page_size, num_pages, table_width, tile, scale);
+      static_cast<const int32_t*>(nb), static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), n_q, heads, head_dim, page_size,
+      num_pages, table_width, n_split, scale, width,
+      wide_copy_width(q, head_dim * 4, 4));
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_combine(const void* part_o, const void* part_ml,
+                           void* out, int slots, int n_q, int heads,
+                           int head_dim, int n_split, cudaStream_t stream) {
+  const int n_rows = slots * n_q * heads;
+  wide_combine_kernel<R><<<(n_rows + 3) / 4, 128, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<float*>(out), n_rows, n_q, heads, head_dim, n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_wide(int lanes, const void* q, const void* k,
-                          const void* v, const void* table, const void* nb,
-                          void* out, int slots, int n_q, int heads,
+cudaError_t dispatch_wide(const void* q, const void* k, const void* v,
+                          const void* table, const void* nb, void* part_o,
+                          void* part_ml, int slots, int n_q, int heads,
                           int head_dim, int page_size, int num_pages,
-                          int table_width, float scale, cudaStream_t s) {
-#define MXTPU_WIDE_CASE(R)                                                   \
-  case R:                                                                    \
-    return launch_wide<T, R>(q, k, v, table, nb, out, slots, n_q, heads,     \
-                             head_dim, page_size, num_pages, table_width,    \
-                             scale, s);
-  switch (lanes) {
-    MXTPU_WIDE_CASE(1)
-    MXTPU_WIDE_CASE(2)
-    MXTPU_WIDE_CASE(3)
-    MXTPU_WIDE_CASE(4)
-    MXTPU_WIDE_CASE(5)
-    MXTPU_WIDE_CASE(6)
-    MXTPU_WIDE_CASE(7)
-    MXTPU_WIDE_CASE(8)
+                          int table_width, int n_split, float scale,
+                          cudaStream_t s) {
+#define MXTPU_WIDE_CASE(D)                                                  \
+  case D:                                                                   \
+    return launch_wide<T, D>(q, k, v, table, nb, part_o, part_ml, slots,    \
+                             n_q, heads, head_dim, page_size, num_pages,    \
+                             table_width, n_split, scale, s);
+  switch (wide_padded_dim(head_dim)) {
+    MXTPU_WIDE_CASE(16)
+    MXTPU_WIDE_CASE(32)
+    MXTPU_WIDE_CASE(64)
+    MXTPU_WIDE_CASE(128)
+    MXTPU_WIDE_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
 #undef MXTPU_WIDE_CASE
+}
+
+cudaError_t dispatch_combine(int lanes, const void* part_o,
+                             const void* part_ml, void* out, int slots,
+                             int n_q, int heads, int head_dim, int n_split,
+                             cudaStream_t s) {
+#define MXTPU_COMBINE_CASE(R)                                              \
+  case R:                                                                  \
+    return launch_combine<R>(part_o, part_ml, out, slots, n_q, heads,      \
+                             head_dim, n_split, s);
+  switch (lanes) {
+    MXTPU_COMBINE_CASE(1)
+    MXTPU_COMBINE_CASE(2)
+    MXTPU_COMBINE_CASE(3)
+    MXTPU_COMBINE_CASE(4)
+    MXTPU_COMBINE_CASE(5)
+    MXTPU_COMBINE_CASE(6)
+    MXTPU_COMBINE_CASE(7)
+    MXTPU_COMBINE_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MXTPU_COMBINE_CASE
 }
 
 int lanes_for(int head_dim) {
@@ -589,27 +750,44 @@ extern "C" int mxtpu_flash_decode(int dtype, const void* q,
 }
 
 // q and out are (slots, n_q, heads, head_dim) float32; n_base is (slots,)
-// int32; the rest as for mxtpu_paged_decode_attention.
+// int32; the rest as for mxtpu_paged_decode_attention. `work` is float32
+// device memory for the partials: slots * n_split * n_q * heads *
+// (head_dim + 2) floats, where n_split = ceil(table_width * page_size /
+// keys), keys = 64 for a head_dim up to 64 and 4096 / D_p above (D_p the
+// power of two at or above it, up to 256); the caller passes n_split and
+// the call checks it. Launches the split kernel, then the combine kernel.
 extern "C" int mxtpu_paged_decode_attention_wide(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* n_base, void* out, int slots,
-    int n_q, int heads, int head_dim, int page_size, int num_pages,
-    int table_width, float scale, void* stream) {
+    const void* page_table, const void* n_base, void* work, void* out,
+    int slots, int n_q, int heads, int head_dim, int page_size,
+    int num_pages, int table_width, int n_split, float scale, void* stream) {
   const int lanes = lanes_for(head_dim);
   if (!lanes || page_size < 1 || table_width < 1 || n_q < 0)
     return cudaErrorInvalidValue;
+  const int keys = wide_split_keys(head_dim);
+  if (n_split != (table_width * page_size + keys - 1) / keys)
+    return cudaErrorInvalidValue;
   if (slots == 0 || heads == 0 || n_q == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part_o = static_cast<float*>(work);
+  float* part_ml =
+      part_o + int64_t(slots) * n_split * n_q * heads * head_dim;
+  cudaError_t err;
   if (dtype == 0)
-    return dispatch_wide<float>(lanes, q, k_pages, v_pages, page_table,
-                                n_base, out, slots, n_q, heads, head_dim,
-                                page_size, num_pages, table_width, scale, s);
-  if (dtype == 1)
-    return dispatch_wide<__nv_bfloat16>(lanes, q, k_pages, v_pages,
-                                        page_table, n_base, out, slots, n_q,
-                                        heads, head_dim, page_size, num_pages,
-                                        table_width, scale, s);
-  return cudaErrorInvalidValue;
+    err = dispatch_wide<float>(q, k_pages, v_pages, page_table, n_base,
+                               part_o, part_ml, slots, n_q, heads, head_dim,
+                               page_size, num_pages, table_width, n_split,
+                               scale, s);
+  else if (dtype == 1)
+    err = dispatch_wide<__nv_bfloat16>(q, k_pages, v_pages, page_table,
+                                       n_base, part_o, part_ml, slots, n_q,
+                                       heads, head_dim, page_size, num_pages,
+                                       table_width, n_split, scale, s);
+  else
+    return cudaErrorInvalidValue;
+  if (err) return err;
+  return dispatch_combine(lanes, part_o, part_ml, out, slots, n_q, heads,
+                          head_dim, n_split, s);
 }
 
 extern "C" const char* mxtpu_cuda_error_string(int err) {

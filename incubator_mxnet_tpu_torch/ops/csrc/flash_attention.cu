@@ -14,13 +14,12 @@
 // What bounds them on an H100: operations. Per causal (query row, key)
 // pair the forward does 4 * D operations (q.k and p * v), dQ 6 * D and
 // dK/dV 8 * D, while the bytes are a few D-wide rows per row of the
-// sequence. At the training shape (B 8, H 8, T 512, D 64, causal,
-// float32: 8.4 M pairs) the forward needs 32.1 us at the SIMT float32
-// rate (67 TFLOP/s). The backward runs on the tensor cores at three
-// TF32 products per float32 product (below): at 495 TFLOP/s that is
-// 19.6 us of tensor work for dQ and 26.1 us for dK/dV, while their bytes
-// (each operand read or written once) need 12.6 and 15.1 us at
-// 3.35 TB/s, so both are still bound by operations.
+// sequence. All three run on the tensor cores at three TF32 products per
+// float32 product (below). At the training shape (B 8, H 8, T 512, D 64,
+// causal, float32: 8.4 M pairs) and 495 TFLOP/s that is 13.0 us of tensor
+// work for the forward, 19.6 us for dQ and 26.1 us for dK/dV, while their
+// bytes (each operand read or written once) need 10.0, 12.6 and 15.1 us
+// at 3.35 TB/s, so all three are still bound by operations.
 //
 // Head dims: any D from 1 to 128. Each kernel is built for a padded
 // D_p of 16, 32, 64 or 128, the smallest at or above D; columns D ...
@@ -28,14 +27,21 @@
 // scale is the caller's (1 / sqrt(D) of the true D), and only the first D
 // columns of o, dq, dk and dv are written.
 //
-// Forward design (SIMT). One block of 256 threads per (batch * head, 64
-// query rows). The 64 x 64 score tile (and the 64 x D_p output tile) is
-// split into a 16 x 16 grid of threads, each owning 4 rows x 4 scores
-// (4 x D_p/16 outputs) in registers, over float32 tiles staged in shared
-// memory (transposed where the product sums over D, so every float4 read
-// feeds 4 to 32 FMAs). The row max and sum are 16-lane shuffle reductions.
-// With a causal mask the last query tiles walk the most keys and are
-// handed out first.
+// Forward design (tensor cores). One block of four warps per (batch *
+// head, 64 query rows), each warp owning 16 whole query rows: it
+// multiplies every key of each key tile, so no warp combines another's
+// sums. S = Q.K^T and O += P.V are mma.sync products built from the
+// backward's parts (tf32_mma.cuh): the permuted k index makes the S
+// accumulators P.V's A fragments, so p, the running max and sum and the O
+// accumulators stay in registers, and a row's max and sum reduce over the
+// 4 lanes of a quad. float32 runs 3 x TF32 (the lse it writes is what dQ
+// and dK/dV recompute p from); bfloat16 one pass, p rounded to v's type
+// before P.V as in JAX. Key and value tiles (64 keys up to D_p 64, 32 at
+// D_p 128, for registers) stream through a cp.async ring of two stages,
+// the next tile in flight while the current one is multiplied, with the
+// copy width chosen by shape as below. With a causal mask block i owns
+// query tiles i and n - 1 - i, so every block walks the same number of
+// key tiles.
 //
 // Backward design (tensor cores). Both kernels run four warps over the
 // block's 64 owned rows (query rows for dQ, key rows for dK/dV), and
@@ -74,7 +80,7 @@
 //   Causal balance: a causal walk's length grows (dQ) or shrinks (dK/dV)
 // with the row tile, so block i owns tiles i and n - 1 - i, one after the
 // other: every block walks the same length. Without it the longest walk
-// sets the kernel's time (tools/flash_bwd_variants.py times both).
+// sets the kernel's time (tools/kernel_variants.py times both).
 //   What bounds them now: at the training shape dQ runs its 3 x TF32
 // work at about a third of the rate mma.sync reaches on an H100 in a bare
 // loop (tools/tensor_core_rate.py; PERF.md, PR 6): the kernels issue the
@@ -84,13 +90,13 @@
 // waited for before its softmax, measured no faster by more than a few
 // percent; wgmma pays only once the softmax overlaps the products.
 //   Registers (ptxas -v, sm_90a, float32 / bfloat16; chip_smoke.py phase
-// 1 prints them for every build) at D_p 16, 32, 64, 128: dQ 165 / 119,
-// 180 / 159, 255 / 226, 168 / 165; dK/dV 118 / 125, 161 / 159,
-// 237 / 252, 255 / 245. Spills: 4 bytes in float32 dQ at D_p 128, none
-// elsewhere. Shared memory at D_p 64 (float32 / bfloat16): dQ 102 / 54
-// KB, dK/dV 69 / 37 KB; at D_p 128 both 132 / 68 KB. So at the
-// training shape dQ holds two blocks an SM (registers and shared memory)
-// and dK/dV two (registers).
+// 1 prints them for every build) at D_p 16, 32, 64, 128: forward 89 / 88,
+// 101 / 93, 131 / 128, 133 / 124; dQ 165 / 120, 166 / 159, 255 / 222,
+// 166 / 168; dK/dV 102 / 96, 161 / 164, 237 / 253, 255 / 247. Spills: 4
+// bytes in float32 dK/dV at D_p 128, none elsewhere. Shared memory at D_p
+// 64 (float32 / bfloat16): forward 87 / 46 KB, dQ 102 / 54 KB, dK/dV 69 /
+// 37 KB; at D_p 128 the forward 101 / 52 KB, the backward 132 / 68 KB. So
+// at the training shape every kernel holds two blocks an SM.
 //
 // Causal walks stop at the diagonal: the forward and dQ walk key tiles up
 // to the block's last query row, dK/dV walks query tiles from the block's
@@ -112,168 +118,23 @@
 // is read through its batch, head and row strides (its D stride is 1), so
 // the model's (B, T, H, D) tensors are read in place, without a copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
-
-#include <type_traits>
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;       // rows a block owns
-constexpr int kThreads = 256;    // forward: 16 x 16, a 4 x 4 score tile each
-constexpr int kBwdThreads = 128;  // backward: four warps of 16 owned rows
-constexpr int kPS = kBlock + 4;  // row stride of the forward's p tile
+constexpr int kBlock = 64;    // rows a block owns
+constexpr int kThreads = 128;  // four warps of 16 owned rows (or 2 x 2)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Strides, in elements, of one (B, H, T, D) operand whose D stride is 1.
 struct Layout {
   int64_t b, h, t;
 };
 
-template <typename T>
-constexpr bool kIsFloat = std::is_same<T, float>::value;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x) {
-  if constexpr (kIsFloat<T>) {
-    return x;
-  } else {
-    return __float2bfloat16(x);
-  }
-}
-
-// x rounded to T and back (the `.astype(dtype)` before a product in JAX).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-// -- forward (SIMT) ----------------------------------------------------------
-
-template <int D>
-struct Dims {
-  static_assert(D % 16 == 0 && D <= 128, "padded head dim 16 ... 128");
-  static constexpr int DC = D / 16;  // output columns per thread
-  static constexpr int NS = D + 4;   // row stride of a row-major tile
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  memcpy(&lo, &raw.x, sizeof(lo));
-  memcpy(&hi, &raw.y, sizeof(hi));
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Sum and max over the 16 threads of a row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, off));
-  return x;
-}
-
-// Rows [t0, t0 + 64), columns [0, d) of one (b, h) slice as float32, into
-// `nat` (row-major, [64][D + 4]) or `tr` (transposed, [D][64]), whichever
-// is not null; rows at or past `seq` and columns d ... D - 1 become zeros.
-// `vec`: 4-element loads (d is then a multiple of 4 and every row
-// aligned), else one element at a time. Consecutive threads take
-// consecutive rows, so the transposed stores, and the row-major ones at
-// the padded stride D + 4, do not conflict in shared memory.
-template <int D, typename T>
-__device__ __forceinline__ void stage(float* nat, float* tr, const T* src,
-                                      int64_t stride_t, int t0, int seq,
-                                      int d, bool vec) {
-  constexpr int NS = Dims<D>::NS;
-  for (int i = threadIdx.x; i < kBlock * D / 4; i += kThreads) {
-    const int r = i % kBlock, c = 4 * (i / kBlock);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < seq && c < d) {
-      const T* p = src + (t0 + r) * stride_t + c;
-      if (vec) {
-        x = load4(p);
-      } else {
-        x.x = to_float(p[0]);
-        if (c + 1 < d) x.y = to_float(p[1]);
-        if (c + 2 < d) x.z = to_float(p[2]);
-        if (c + 3 < d) x.w = to_float(p[3]);
-      }
-    }
-    if (nat) *reinterpret_cast<float4*>(nat + r * NS + c) = x;
-    if (tr) {
-      tr[c * kBlock + r] = x.x;
-      tr[(c + 1) * kBlock + r] = x.y;
-      tr[(c + 2) * kBlock + r] = x.z;
-      tr[(c + 3) * kBlock + r] = x.w;
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&y)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      const float4 v = load4(p + c);
-      y[c] = v.x;
-      y[c + 1] = v.y;
-      y[c + 2] = v.z;
-      y[c + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < N; ++c) y[c] = p[c];
-  }
-}
-
-// acc[i][j] += sum_{k < depth} a[k * sa + i] * b[k * sb + j]: the thread's
-// 4 x N block of a product whose operands are k-major in shared memory
-// (a and b already offset to the thread's rows and columns).
-template <int N>
-__device__ __forceinline__ void gemm(float (&acc)[4][N], const float* a,
-                                     int sa, const float* b, int sb,
-                                     int depth) {
-#pragma unroll 4
-  for (int k = 0; k < depth; ++k) {
-    const float4 x = load4(a + k * sa);
-    float y[N];
-    load_vec<N>(b + k * sb, y);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
-      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
-      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
-      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
-    }
-  }
-}
-
-// The tile index a query-row block works on: with a causal mask the last
-// tiles walk the most keys, so they are handed out first.
-__device__ __forceinline__ int query_tile(int causal) {
-  return causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-}
-
-// The 64-row tile a backward block owns in its pass 0 or 1, or -1. With a
-// causal mask a tile's walk grows (dQ) or shrinks (dK/dV) with its index,
+// The 64-row tile a block owns in its pass 0 or 1, or -1. With a causal
+// mask a tile's walk grows (forward, dQ) or shrinks (dK/dV) with its index,
 // so block i takes tiles i and n - 1 - i: every block walks the same
 // length, and the longest walk no longer sets the kernel's time.
 __device__ __forceinline__ int row_tile(int pass, int seq, int causal) {
@@ -282,11 +143,68 @@ __device__ __forceinline__ int row_tile(int pass, int seq, int causal) {
   return causal && n - 1 - i > i ? n - 1 - i : -1;
 }
 
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) *
-         (2 * D * kBlock + kBlock * Dims<D>::NS + kBlock * kPS);
+// Rows [t0, t0 + rows), columns [0, d) of one (b, h) slice into dst
+// ([rows][LS]); rows at or past seq become zeros (columns d ... D_p - 1
+// are zeroed once, up front). `width` as for stage_tile.
+template <typename T, int LS>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           int64_t stride_t, int t0,
+                                           int rows, int seq, int d,
+                                           int width) {
+  stage_tile<T, LS>(
+      dst,
+      [&](int r) -> const T* {
+        return t0 + r < seq ? src + (t0 + r) * stride_t : nullptr;
+      },
+      src, rows, d, width);
 }
+
+// (B * H, T) float32 statistics [t0, t0 + n) into dst; zeros past seq.
+__device__ __forceinline__ void stage_stat(float* dst, const float* src,
+                                           int t0, int n, int seq) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool in = t0 + i < seq;
+    cp_async<4>(dst + i, in ? src + t0 + i : src, in ? 4 : 0);
+  }
+}
+
+// The warp's 16 WM rows (r0 + 16 m + g, ... + 8) of its accumulator into
+// dst, columns below d, rows below seq.
+template <typename T, int D, int WM>
+__device__ __forceinline__ void put_rows(T* dst, int64_t stride_t, int r0,
+                                         int seq, int d, int g, int t,
+                                         const float (&acc)[WM][D / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < WM; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * m + g + 8 * i;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = dn * 8 + 2 * t + e;
+          if (col < d)
+            dst[row * stride_t + col] =
+                from_float<T>(acc[m][dn][2 * i + e]);
+        }
+    }
+}
+
+// -- forward (tensor cores) --------------------------------------------------
+
+// Tile shape of the forward at padded head dim D: four warps of 16 query
+// rows, each over every key of a BN-row key tile (64 keys up to D 64; 32 at
+// D 128, where the 16 x 128 output accumulator takes 64 registers a lane).
+template <typename T, int D>
+struct Fwd {
+  static_assert(D % 16 == 0 && D <= 128, "padded head dim 16 ... 128");
+  static constexpr int BN = D <= 64 ? 64 : 32;  // key tile rows
+  static constexpr int NT = BN / 8;             // their 8-key mma tiles
+  static constexpr int LS = D + 16 / int(sizeof(T));  // as Bwd::LS
+  static constexpr size_t smem = sizeof(T) * (kBlock + 4 * BN) * LS;
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -294,76 +212,111 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Layout lq, Layout lk,
                      Layout lv, Layout lo, int heads, int seq, int head_dim,
-                     float scale, int causal, int vec) {
-  constexpr int DC = Dims<D>::DC, NS = Dims<D>::NS;
-  extern __shared__ __align__(16) float smem[];
-  float* q_t = smem;                 // [D][64]
-  float* k_t = q_t + D * kBlock;     // [D][64]
-  float* v_n = k_t + D * kBlock;     // [64][NS]
-  float* p_t = v_n + kBlock * NS;    // [64 keys][kPS]
+                     float scale, int causal, int width) {
+  using P = Fwd<T, D>;
+  constexpr int BN = P::BN, NT = P::NT, LS = P::LS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][LS], the owned rows
+  T* k_s = q_s + kBlock * LS;               // [2][BN][LS], the key ring
+  T* v_s = k_s + 2 * BN * LS;               // [2][BN][LS]
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int q0 = query_tile(causal) * kBlock;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4,
+            t = lane % 4;
   const T* kb = k + b * lk.b + h * lk.h;
   const T* vb = v + b * lv.b + h * lv.h;
-  stage<D>(nullptr, q_t, q + b * lq.b + h * lq.h, lq.t, q0, seq, head_dim,
-           vec);
-
-  float acc[4][DC] = {}, m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.f;
-  const int k_end = causal ? min(q0 + kBlock, seq) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlock) {
-    __syncthreads();  // the previous tile is read
-    stage<D>(nullptr, k_t, kb, lk.t, k0, seq, head_dim, vec);
-    stage<D>(v_n, nullptr, vb, lv.t, k0, seq, head_dim, vec);
-    __syncthreads();
-    float s[4][4] = {};
-    gemm<4>(s, q_t + ty * 4, kBlock, k_t + tx * 4, kBlock, D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
-        const bool live = kj < seq && (!causal || kj <= qi);
-        s[i][j] = live ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);  // p
-        l[i] += s[i][j];
-      }
-      m[i] = m_new;
+  // scores in base 2, p = exp2(s * scale * log2(e) - m): one FFMA, one EX2
+  const float scale2 = scale * kLog2e;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int tile = row_tile(pass, seq, causal);
+    if (tile < 0) break;
+    const int q0 = tile * kBlock;
+    if (head_dim < D) {
+      zero_tiles(q_s, (kBlock + 4 * BN) * LS);
+      __syncthreads();
     }
-    // p, rounded to v's type, transposed into p_t
+    stage_rows<T, LS>(q_s, q + b * lq.b + h * lq.h, lq.t, q0, kBlock, seq,
+                      head_dim, width);
+    stage_rows<T, LS>(k_s, kb, lk.t, 0, BN, seq, head_dim, width);
+    stage_rows<T, LS>(v_s, vb, lv.t, 0, BN, seq, head_dim, width);
+    cp_commit();
+
+    const int w0 = q0 + 16 * warp;  // the warp's first query row
+    const int k_end = causal ? min(q0 + kBlock, seq) : seq;
+    // the warp computes while it has rows below seq and keys its rows see
+    const int w_end = w0 >= seq ? 0 : causal ? w0 + 16 : seq;
+    const int tiles = (k_end + BN - 1) / BN;
+    // per lane: rows g and g + 8 of the warp, their running max (base 2)
+    // and this lane's share of their sums
+    float acc[1][D / 8][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {};
+    for (int j = 0; j < tiles; ++j) {
+      const int k0 = j * BN;
+      if (j + 1 < tiles) {
+        const int slot = (j + 1) & 1;
+        stage_rows<T, LS>(k_s + slot * BN * LS, kb, lk.t, k0 + BN, BN, seq,
+                          head_dim, width);
+        stage_rows<T, LS>(v_s + slot * BN * LS, vb, lv.t, k0 + BN, BN, seq,
+                          head_dim, width);
+      }
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+      if (k0 < w_end) {  // else the tile is masked for all the warp's rows
+        const T* kt = k_s + (j & 1) * BN * LS;
+        float s[1][NT][4] = {};
+        sum_over_d<T, T, D, 1, NT, LS, LS>(s, q_s + 16 * warp * LS, kt, g,
+                                           t);
+        const bool edge = (causal && k0 + BN - 1 > w0) || k0 + BN > seq;
+        float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(p_t + (tx * 4 + j) * kPS + ty * 4) =
-          make_float4(round_to<T>(s[0][j]), round_to<T>(s[1][j]),
-                      round_to<T>(s[2][j]), round_to<T>(s[3][j]));
-    __syncthreads();
-    gemm<DC>(acc, p_t + ty * 4, kPS, v_n + tx * DC, NS,
-             min(kBlock, k_end - k0));
-  }
-  T* ob = o + b * lo.b + h * lo.h;
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(row_sum(l[i]), 1e-30f), inv = 1.f / li;
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= seq) continue;
-    if (tx == 0) lse[int64_t(bh) * seq + qi] = m[i] + logf(li);
+          for (int e = 0; e < 4; ++e) {
+            const int row = w0 + g + 8 * (e >> 1);
+            const int key = k0 + nt * 8 + 2 * t + (e & 1);
+            const bool live =
+                !edge || (key < seq && (!causal || key <= row));
+            s[0][nt][e] = live ? s[0][nt][e] * scale2 : kNegInf;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[0][nt][e]);
+          }
+        float alpha[2];
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (tx * DC + c < head_dim)
-        ob[qi * lo.t + tx * DC + c] = from_float<T>(acc[i][c] * inv);
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], quad_max(mx[i]));
+          alpha[i] = exp2f(m[i] - m_new);
+          l[i] *= alpha[i];
+          m[i] = m_new;
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][dn][e] *= alpha[e >> 1];
+        // p, summed as it stands and rounded to v's type for P.V
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2f(s[0][nt][e] - m[e >> 1]);
+            l[e >> 1] += p;
+            s[0][nt][e] = round_to<T>(p);
+          }
+        sum_over_rows<T, D, 1, NT, LS>(acc, s, v_s + (j & 1) * BN * LS, g,
+                                       t);
+      }
+      __syncthreads();  // the slot is read before the next tile refills it
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = fmaxf(quad_sum(l[i]), 1e-30f), inv = 1.f / li;
+      const int row = w0 + g + 8 * i;
+      if (t == 0 && row < seq)
+        lse[int64_t(bh) * seq + row] = m[i] * kLn2 + logf(li);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[0][dn][2 * i + e] *= inv;
+    }
+    put_rows<T, D, 1>(o + b * lo.b + h * lo.h, lo.t, w0, seq, head_dim, g, t,
+                      acc);
   }
 }
 
@@ -393,208 +346,6 @@ struct Bwd {
   static_assert(WC == 1 || 2 * 32 * ACC * sizeof(float) <= smem,
                 "the partial sums fit in the staged tiles' space");
 };
-
-// x = hi + lo for TF32 products: hi is x rounded to TF32 (add half of
-// the 13 dropped mantissa bits, clear them), lo = x - hi (exact in
-// float32, at most 2^-12 of x), passed as it stands: the tensor cores
-// read a TF32 operand's top 19 bits, so lo is truncated there, an error
-// of at most 2^-11 of lo, 2^-23 of x. A
-// bfloat16 value (and a float rounded to one) is exact in TF32: hi = x,
-// and lo is 0 and never multiplied.
-template <typename T>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kIsFloat<T>) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  }
-}
-
-// c += a * b on one 16 x 8 x 8 TF32 tile, float32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += (ah + al) * (bh + bl) as ah.bh + ah.bl + al.bh (3xTF32) for float32,
-// ah.bh alone for bfloat16. The small terms go first.
-template <typename T>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  if constexpr (kIsFloat<T>) {
-    mma_tf32(c, al, bh0, bh1);
-    mma_tf32(c, ah, bl0, bl1);
-  }
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-// c[m][nt] += A_m . B_nt^T for the warp's WM 16-row tiles m of A and
-// every 8-row tile nt of B: a product that sums over D. A is the warp's
-// rows of a staged tile, B its rows of the walked tile (both [rows][LS]).
-// mma fragments (lane = 4 g + t): A (g | g + 8, t | t + 4), B (k t |
-// t + 4, n g), C (g | g + 8, 2t | 2t + 1). No branch inside: the loads,
-// splits and products of all tiles interleave.
-template <typename T, int D, int WM, int NT, int LS>
-__device__ __forceinline__ void sum_over_d(float (&c)[WM][NT][4],
-                                           const T* a, const T* b, int g,
-                                           int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ah[WM][4], al[WM][4];
-#pragma unroll
-    for (int m = 0; m < WM; ++m) {
-      const T* ar = a + (16 * m + g) * LS + kk * 8 + t;
-      split<T>(to_float(ar[0]), ah[m][0], al[m][0]);
-      split<T>(to_float(ar[8 * LS]), ah[m][1], al[m][1]);
-      split<T>(to_float(ar[4]), ah[m][2], al[m][2]);
-      split<T>(to_float(ar[8 * LS + 4]), ah[m][3], al[m][3]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const T* br = b + (nt * 8 + g) * LS + kk * 8 + t;
-      uint32_t bh0, bl0, bh1, bl1;
-      split<T>(to_float(br[0]), bh0, bl0);
-      split<T>(to_float(br[4]), bh1, bl1);
-#pragma unroll
-      for (int m = 0; m < WM; ++m)
-        mma3<T>(c[m][nt], ah[m], al[m], bh0, bh1, bl0, bl1);
-    }
-  }
-}
-
-// acc[m][dn] += P_m . B over the walked rows: P holds, per 16-row tile m,
-// 16 rows x 8 walked rows per ks in the C layout of sum_over_d, B is the
-// warp's rows of the walked tile ([rows][LS]). The k index is permuted
-// (mma slot t <-> walked row 2t, slot t + 4 <-> row 2t + 1), which makes
-// P's registers the A fragment as they stand: (c0, c2, c1, c3).
-template <typename T, int D, int WM, int NT, int LS>
-__device__ __forceinline__ void sum_over_rows(float (&acc)[WM][D / 8][4],
-                                              const float (&p)[WM][NT][4],
-                                              const T* b, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < NT; ++ks) {
-    uint32_t ah[WM][4], al[WM][4];
-#pragma unroll
-    for (int m = 0; m < WM; ++m) {
-      split<T>(p[m][ks][0], ah[m][0], al[m][0]);
-      split<T>(p[m][ks][2], ah[m][1], al[m][1]);
-      split<T>(p[m][ks][1], ah[m][2], al[m][2]);
-      split<T>(p[m][ks][3], ah[m][3], al[m][3]);
-    }
-    const T* br = b + (ks * 8 + 2 * t) * LS + g;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split<T>(to_float(br[dn * 8]), bh0, bl0);
-      split<T>(to_float(br[LS + dn * 8]), bh1, bl1);
-#pragma unroll
-      for (int m = 0; m < WM; ++m)
-        mma3<T>(acc[m][dn], ah[m], al[m], bh0, bh1, bl0, bl1);
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// `bytes` (16 or 4) from global to shared memory, asynchronously; only
-// the first `valid` of them are read, the rest are zero-filled.
-template <int bytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int valid) {
-  if constexpr (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(valid)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(valid)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// wait until at most one group (the tile in flight) is pending
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// Rows [t0, t0 + rows), columns [0, d) of one (b, h) slice into dst
-// ([rows][LS]); rows at or past seq become zeros (columns d ... D_p - 1
-// are zeroed once, up front). `width`: bytes a copy moves, 16 or 4
-// (cp.async), else one bfloat16 element (plain loads and stores).
-template <typename T, int LS>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src,
-                                           int64_t stride_t, int t0,
-                                           int rows, int seq, int d,
-                                           int width) {
-  const int per = width / int(sizeof(T));  // elements a copy moves
-  const int chunks = d / per;              // copies a row
-  for (int i = threadIdx.x; i < rows * chunks; i += kBwdThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * per;
-    const bool in = t0 + r < seq;
-    const T* s = in ? src + (t0 + r) * stride_t + c : src;
-    T* o = dst + r * LS + c;
-    if (width == 16) {
-      cp_async<16>(o, s, in ? 16 : 0);
-    } else if (width == 4) {
-      cp_async<4>(o, s, in ? 4 : 0);
-    } else {
-      *o = in ? *s : from_float<T>(0.f);
-    }
-  }
-}
-
-// (B * H, T) float32 statistics [t0, t0 + n) into dst; zeros past seq.
-__device__ __forceinline__ void stage_stat(float* dst, const float* src,
-                                           int t0, int n, int seq) {
-  for (int i = threadIdx.x; i < n; i += kBwdThreads) {
-    const bool in = t0 + i < seq;
-    cp_async<4>(dst + i, in ? src + t0 + i : src, in ? 4 : 0);
-  }
-}
-
-// Zeros over n elements of staged tiles (n * sizeof(T) a multiple of 16).
-template <typename T>
-__device__ __forceinline__ void zero_tiles(T* p, int n) {
-  float4* p4 = reinterpret_cast<float4*>(p);
-  for (int i = threadIdx.x; i < n * int(sizeof(T)) / 16; i += kBwdThreads)
-    p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// The warp's 16 WM rows (r0 + 16 m + g, ... + 8) of its accumulator into
-// dst, columns below d, rows below seq.
-template <typename T, int D, int WM>
-__device__ __forceinline__ void put_rows(T* dst, int64_t stride_t, int r0,
-                                         int seq, int d, int g, int t,
-                                         const float (&acc)[WM][D / 8][4]) {
-#pragma unroll
-  for (int m = 0; m < WM; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + 16 * m + g + 8 * i;
-      if (row >= seq) continue;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = dn * 8 + 2 * t + e;
-          if (col < d)
-            dst[row * stride_t + col] =
-                from_float<T>(acc[m][dn][2 * i + e]);
-        }
-    }
-}
 
 // With two warps over the walked rows: the warp of column 1 hands its
 // partial sums to the warp of column 0 through `scratch` (each lane's
@@ -629,7 +380,7 @@ __device__ __forceinline__ void add_partner(float (&acc)[WM][D / 8][4],
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -692,15 +443,15 @@ __global__ void __launch_bounds__(kBwdThreads)
                           head_dim, width);
       }
       cp_commit();
-      cp_wait_one();
+      cp_wait<1>();
       __syncthreads();
       const int kc = k0 + wc * WB;  // the warp's first key of the tile
       const T* kt = k_s + ((j & 1) * BN + wc * WB) * LS;
       const T* vt = v_s + ((j & 1) * BN + wc * WB) * LS;
       if (kc < w_end) {  // else the warp's keys are masked for all its rows
         float s[WM][NT][4] = {}, dp[WM][NT][4] = {};
-        sum_over_d<T, D, WM, NT, LS>(s, q_s + (w0 - q0) * LS, kt, g, t);
-        sum_over_d<T, D, WM, NT, LS>(dp, do_s + (w0 - q0) * LS, vt, g, t);
+        sum_over_d<T, T, D, WM, NT, LS, LS>(s, q_s + (w0 - q0) * LS, kt, g, t);
+        sum_over_d<T, T, D, WM, NT, LS, LS>(dp, do_s + (w0 - q0) * LS, vt, g, t);
         const bool edge = (causal && kc + WB - 1 > w0) || kc + WB > seq;
   #pragma unroll
         for (int m = 0; m < WM; ++m)
@@ -732,7 +483,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -793,7 +544,7 @@ __global__ void __launch_bounds__(kBwdThreads)
         stage_stat(delta_s + slot * BN, delta_b, qs + BN, BN, seq);
       }
       cp_commit();
-      cp_wait_one();
+      cp_wait<1>();
       __syncthreads();
       const int qc = qs + wc * WB;  // the warp's first query of the tile
       const T* qt = q_s + ((j & 1) * BN + wc * WB) * LS;
@@ -804,8 +555,8 @@ __global__ void __launch_bounds__(kBwdThreads)
       if (!causal || qc + WB > w0) {
         // transposed scores: rows are the warp's keys, columns the queries
         float s[WM][NT][4] = {}, dp[WM][NT][4] = {};
-        sum_over_d<T, D, WM, NT, LS>(s, k_s + (w0 - k0) * LS, qt, g, t);
-        sum_over_d<T, D, WM, NT, LS>(dp, v_s + (w0 - k0) * LS, dot, g, t);
+        sum_over_d<T, T, D, WM, NT, LS, LS>(s, k_s + (w0 - k0) * LS, qt, g, t);
+        sum_over_d<T, T, D, WM, NT, LS, LS>(dp, v_s + (w0 - k0) * LS, dot, g, t);
         const bool edge =
             (causal && qc < w0 + 16 * WM - 1) || qc + WB > seq;
   #pragma unroll
@@ -887,8 +638,8 @@ Layout layout_at(const int64_t* strides, int i) {
   return Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-// One block per 64-row tile (per pair of tiles for the causal backward,
-// see row_tile) and (batch, head).
+// One block per 64-row tile (per pair of tiles when causal, see row_tile)
+// and (batch, head).
 dim3 grid_for(int batch, int heads, int seq, bool pairs = false) {
   const int n = (seq + kBlock - 1) / kBlock;
   return dim3(pairs ? (n + 1) / 2 : n, batch * heads);
@@ -908,12 +659,12 @@ bool aligned_to(int bytes, int elem, int head_dim, const void* const* ptrs,
   return true;
 }
 
-// Bytes each staging copy of the backward kernels moves (16 or 4 with
-// cp.async, else one element), for the operands q, k, v, dO.
-int copy_width(int elem, int head_dim, const void* const* ptrs,
+// Bytes each staging copy moves (16 or 4 with cp.async, else one
+// element), for the kernel's n input operands (q, k, v, and dO).
+int copy_width(int elem, int head_dim, const void* const* ptrs, int n,
                const int64_t* strides) {
-  if (aligned_to(16, elem, head_dim, ptrs, 4, strides)) return 16;
-  if (aligned_to(4, elem, head_dim, ptrs, 4, strides)) return 4;
+  if (aligned_to(16, elem, head_dim, ptrs, n, strides)) return 16;
+  if (aligned_to(4, elem, head_dim, ptrs, n, strides)) return 4;
   return elem;
 }
 
@@ -941,18 +692,18 @@ extern "C" int mxtpu_flash_attention_fwd(int dtype, const void* q,
     constexpr int D = decltype(dim)::value;
     if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
     const void* in[] = {q, k, v};
-    const int elem = sizeof(T);
-    const int vec = aligned_to(4 * elem, elem, head_dim, in, 3, strides);
+    const int width = copy_width(sizeof(T), head_dim, in, 3, strides);
     auto kernel = flash_fwd_kernel<T, D>;
-    cudaError_t err = allow_smem(kernel, fwd_smem<D>());
+    constexpr size_t smem = Fwd<T, D>::smem;
+    cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq), kThreads, fwd_smem<D>(),
+    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
         static_cast<float*>(lse), layout_at(strides, 0),
         layout_at(strides, 1), layout_at(strides, 2), layout_at(strides, 3),
-        heads, seq, head_dim, scale, causal, vec);
+        heads, seq, head_dim, scale, causal, width);
     return cudaGetLastError();
   });
 }
@@ -971,12 +722,12 @@ extern "C" int mxtpu_flash_attention_dq(int dtype, const void* q,
     constexpr int D = decltype(dim)::value;
     if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
     const void* in[] = {q, k, v, dout};
-    const int width = copy_width(sizeof(T), head_dim, in, strides);
+    const int width = copy_width(sizeof(T), head_dim, in, 4, strides);
     auto kernel = flash_dq_kernel<T, D>;
     constexpr size_t smem = Bwd<T, D, false>::smem;
     cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq, causal), kBwdThreads, smem,
+    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -1002,12 +753,12 @@ extern "C" int mxtpu_flash_attention_dkv(int dtype, const void* q,
     constexpr int D = decltype(dim)::value;
     if (batch == 0 || heads == 0 || seq == 0) return cudaSuccess;
     const void* in[] = {q, k, v, dout};
-    const int width = copy_width(sizeof(T), head_dim, in, strides);
+    const int width = copy_width(sizeof(T), head_dim, in, 4, strides);
     auto kernel = flash_dkv_kernel<T, D>;
     constexpr size_t smem = Bwd<T, D, true>::smem;
     cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq, causal), kBwdThreads, smem,
+    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),

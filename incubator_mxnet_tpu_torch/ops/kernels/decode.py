@@ -37,9 +37,11 @@ from .. import _build
 __all__ = ["DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",
            "paged_decode_attention_ref", "paged_decode_attention_wide",
-           "paged_decode_attention_wide_ref"]
+           "paged_decode_attention_wide_ref",
+           "paged_decode_attention_wide_split_ref", "wide_keys_per_split"]
 
 DECODE_BLOCK = 128
+WIDE_MAX_HEAD_DIM = 256  # the largest head dim the decode kernels take
 _NEG_INF = -1e30
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,8 +52,8 @@ _SIGNATURES = {
                                      _I, _I, _I, ctypes.c_float, _P],
     "mxtpu_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            ctypes.c_float, _P],
-    "mxtpu_paged_decode_attention_wide": [_I, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _I, _I,
+    "mxtpu_paged_decode_attention_wide": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _I, _I,
                                           ctypes.c_float, _P],
 }
 
@@ -131,6 +133,68 @@ def paged_decode_attention_wide_ref(q, k_pages, v_pages, page_table, n_base):
     s = torch.einsum("sqhd,sthd->shqt", q.float(), kc.float()) / math.sqrt(D)
     p = torch.softmax(s.masked_fill(~live[:, None], _NEG_INF), dim=-1)
     return torch.einsum("shqt,sthd->sqhd", p, vc.float()).to(q.dtype)
+
+
+def wide_keys_per_split(head_dim):
+    """Keys one split of the wide kernel's key walk covers at `head_dim`:
+    64 up to a head dim of 64, else 4096 / D_p, D_p the power of two at or
+    above it (32 at 128, 16 at 256), the same rule as `wide_split_keys` in
+    `decode.cu`. Raises for a head dim outside 1 ... 256."""
+    if not 1 <= head_dim <= WIDE_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} is outside the decode "
+                         f"kernels' range 1 ... {WIDE_MAX_HEAD_DIM}")
+    padded = 16
+    while padded < head_dim:
+        padded *= 2
+    return 64 if padded <= 64 else 4096 // padded
+
+
+def paged_decode_attention_wide_split_ref(q, k_pages, v_pages, page_table,
+                                          n_base, keys_per_split):
+    """Plain version of the wide kernel's split key walk: the same
+    function as `paged_decode_attention_wide_ref`, computed as the kernel
+    computes it. The keys are cut into splits of `keys_per_split`; each
+    split gives float32 partials for each row (its max m over the row's
+    live keys, l = sum exp(s - m), o = sum p v with p rounded to the
+    pool's dtype; m = -1e30 and l = 0 where the row sees no key of the
+    split), and the partials are merged in split order by the log-sum-exp
+    rule, empty ones skipped. Tests hold it against the JAX kernel; the
+    main path never calls it."""
+    S, Q, H, D = q.shape
+    P_max = page_table.shape[1]
+    ps = k_pages.shape[1]
+    T = P_max * ps
+    n = -(-T // keys_per_split)
+    pad = n * keys_per_split - T
+    idx = page_table.long()
+    kc = k_pages[idx].reshape(S, T, H, D)
+    vc = v_pages[idx].reshape(S, T, H, D)
+    nb = _per_seq_n_valid(n_base, S, q.device).clamp(min=0)
+    rows = torch.arange(Q, device=q.device)
+    limit = torch.clamp(nb[:, None] + rows[None] + 1, max=T)  # (S, Q)
+    live = (torch.arange(n * keys_per_split, device=q.device)[None, None]
+            < limit[..., None])                       # (S, Q, n * K)
+    live = live.reshape(S, 1, Q, n, keys_per_split)
+    s = torch.einsum("sqhd,sthd->shqt", q.float(), kc.float()) / math.sqrt(D)
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(S, H, Q, n,
+                                                     keys_per_split)
+    m = s.masked_fill(~live, _NEG_INF).amax(-1)       # (S, H, Q, n)
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    vs = torch.nn.functional.pad(vc.float(), (0, 0, 0, 0, 0, pad))
+    vs = vs.reshape(S, n, keys_per_split, H, D)
+    o = torch.einsum("shqnk,snkhd->shqnd", p.to(v_pages.dtype).float(), vs)
+    seen = l > 0
+    top = m.masked_fill(~seen, _NEG_INF).amax(-1)     # (S, H, Q)
+    total = torch.zeros_like(top)
+    out = torch.zeros((S, H, Q, D), dtype=torch.float32, device=q.device)
+    for j in range(n):  # the combine's order
+        c = torch.where(seen[..., j], torch.exp(m[..., j] - top),
+                        torch.zeros_like(top))
+        total = total + l[..., j] * c
+        out = out + o[..., j, :] * c[..., None]
+    out = out / total.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def _check_kv(name, q, caches, shape):
@@ -236,10 +300,14 @@ def paged_decode_attention_wide(q, k_pages, v_pages, page_table, n_base):
     a row past a slot's last owned page reads nothing outside its row.
     Returns (S, Q, H, D) in q's dtype.
 
-    CUDA tensors run the Hopper kernel of `ops/csrc/decode.cu` (one
-    thread block per (slot, head, group of 8 rows), K/V tiles staged in
-    shared memory once for the group's rows); CPU tensors run
-    `paged_decode_attention_wide_ref`."""
+    CUDA tensors run the Hopper kernels of `ops/csrc/decode.cu`: a split
+    key walk (one thread block per (head, slot, split of
+    `wide_keys_per_split(D)` keys, group of 64 rows), every live K/V row
+    of a (slot, head) read once per split for all the group's rows, the
+    products on the tensor cores) writes float32 partials into a
+    workspace taken here from PyTorch's allocator, and a combine kernel
+    merges them in a fixed order; one launch is counted for the two.
+    CPU tensors run `paged_decode_attention_wide_ref`."""
     name = "paged_decode_attention_wide"
     if not _route(name, q):
         return paged_decode_attention_wide_ref(q, k_pages, v_pages,
@@ -255,15 +323,20 @@ def paged_decode_attention_wide(q, k_pages, v_pages, page_table, n_base):
     W = page_table.shape[1]
     table = _index_vector(name, page_table, (S, W), q.device)
     nb = _per_seq_n_valid(n_base, S, q.device, torch.int32)
+    n_split = -(-W * ps // wide_keys_per_split(D))
     qf = q.float().contiguous()
     out = torch.empty_like(qf)
     lib = _lib()
     with torch.cuda.device(q.device):
+        # the partials (o, then m and l) on the call's stream
+        work = torch.empty(S * n_split * Q * H * (D + 2),
+                           dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mxtpu_paged_decode_attention_wide(
             _KV_DTYPES[k_pages.dtype], qf.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), table.data_ptr(), nb.data_ptr(),
-            out.data_ptr(), S, Q, H, D, ps, P, W, 1.0 / math.sqrt(D), stream)
+            work.data_ptr(), out.data_ptr(), S, Q, H, D, ps, P, W, n_split,
+            1.0 / math.sqrt(D), stream)
     _raise_on(lib, err, name)
     paged_decode_attention_wide.launches += 1
     return out.to(q.dtype)

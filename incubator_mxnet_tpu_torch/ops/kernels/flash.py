@@ -33,7 +33,7 @@ are not carried over: the kernels choose their own tiles.
 Head dims: the JAX kernels take any D; the CUDA kernels take any D up to
 `FLASH_MAX_HEAD_DIM` (128), each built for the padded D of
 `padded_head_dim(D)` (16, 32, 64 or 128) with the extra columns staged as
-zeros. The backward kernels run on the tensor cores, float32 as
+zeros. All three kernels run on the tensor cores, float32 as
 error-compensated TF32 (three TF32 products per float32 product).
 """
 from __future__ import annotations
@@ -206,10 +206,18 @@ def flash_attention_fwd(q, k, v, causal=False):
     bfloat16, any T, any D up to 128. Returns (o (B, H, T, D)
     in q's dtype and layout, lse (B, H, T) float32).
 
-    CUDA tensors run the Hopper kernel of `ops/csrc/flash_attention.cu`
-    (one block per (b·h, 64 query rows), online softmax over staged key
-    tiles, stopping at the diagonal when causal), reading each operand in
-    place through its strides; CPU tensors run `flash_attention_fwd_ref`."""
+    CUDA tensors run the Hopper kernel of `ops/csrc/flash_attention.cu`:
+    four warps per (b·h, 64 query rows), each owning 16 whole rows, an
+    online softmax over key tiles streamed through a two-stage cp.async
+    ring, Q·Kᵀ and P·V on the tensor cores (float32 as 3 × TF32, so the
+    lse that the backward recomputes p from keeps float32 accuracy), p
+    and the running sums in registers, causal walks stopping at the
+    diagonal with row tiles i and n - 1 - i paired in one block. Its bound
+    at the training shape is operations (13.0 µs of 3 × TF32 work at
+    495 TFLOP/s); it runs at several times that, held back by the
+    fragment loads, splits and softmax issued beside each product
+    (PERF.md). Each operand is read in place through its strides; CPU
+    tensors run `flash_attention_fwd_ref`."""
     name = "flash_attention_fwd"
     if not _route(name, q):
         return flash_attention_fwd_ref(q, k, v, causal)

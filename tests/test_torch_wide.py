@@ -6,6 +6,8 @@ mode, and the port's `decode_step_paged_wide` against the JAX version.
 The CUDA kernel runs only on the card: `chip_smoke.py` holds it against
 the plain version there.
 """
+import functools
+
 import numpy as np
 
 import jax.numpy as jnp
@@ -68,6 +70,41 @@ def test_wide_ref_matches_jax(shape, Q):
                                           _t(nb))
     np.testing.assert_array_equal(via.numpy(), got)
     assert tdk.paged_decode_attention_wide.launches == before
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wide(shape, Q):
+    """The case of `_wide_case(RandomState(Q), Q, *SHAPES[shape])` and the
+    JAX kernel's output on it (interpret mode), computed once per case."""
+    case = _wide_case(np.random.RandomState(Q), Q, *SHAPES[shape])
+    return case, np.asarray(jpk.paged_decode_attention_wide(
+        *(jnp.asarray(a) for a in case)))
+
+
+@pytest.mark.parametrize("keys", [16, 24, 64])
+@pytest.mark.parametrize("Q", [1, 5, 8])
+def test_wide_split_ref_matches_jax(Q, keys):
+    """The plain split walk (partials of `keys`-key ranges merged by the
+    log-sum-exp rule) against the JAX kernel at the serving head shape
+    (page 16: a 24-key split ends inside a page), with n_base 0, rows past
+    the table and the dead slot of `_wide_case`."""
+    (q, kp, vp, table, nb), want = _jax_wide("full", Q)
+    got = tdk.paged_decode_attention_wide_split_ref(
+        _t(q), _t(kp), _t(vp), _t(table), _t(nb), keys).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got.shape == q.shape and np.all(np.isfinite(got))
+
+
+def test_wide_keys_per_split():
+    """The split sizes the kernel is built with (decode.cu's
+    wide_split_keys): 64 keys up to D 64, 4096 / D_p above; the wrapper
+    sizes the partials' workspace by them."""
+    assert [tdk.wide_keys_per_split(d) for d in (1, 16, 48, 64, 65, 128,
+                                                 200, 256)] == [
+        64, 64, 64, 64, 32, 32, 16, 16]
+    for d in (0, 257):
+        with pytest.raises(ValueError):
+            tdk.wide_keys_per_split(d)
 
 
 def test_wide_ref_with_one_row_is_paged_decode():

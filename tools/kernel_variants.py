@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Time variants of the port's attention kernels on one card.
+
+    python3 tools/kernel_variants.py
+
+Builds copies of `incubator_mxnet_tpu_torch/ops/csrc/flash_attention.cu`
+and `decode.cu` (with `tf32_mma.cuh` inlined), each with one design choice
+undone by a text substitution, into `build/kernel_variants/`, and times
+them in turns, twice: CUDA events, median of 25 behind a device-side sleep
+with the L2 flushed (`chip_smoke.device_ms`), float32 and bfloat16. Beside
+each time stands the largest error against the plain version.
+
+- flash backward (dQ and dK/dV) and flash forward, at the transformer
+  train step's shape (B 8, H 8, T 512, D 64, causal, the model's (B, T, H,
+  D) layout). The "one TF32 pass" variants drop the two correction
+  products of 3 x TF32: they measure what those cost, and their float32
+  error is expected above the gates.
+- the wide paged decode kernel at the serving shape (`chip_smoke.
+  wide_case`, Q 5, 32 and 64), with the device time of its split and
+  combine kernels from one profiler window. The "no products" variant
+  skips the tensor-core products (its output is wrong): it measures what
+  the products add to the split kernel's time.
+
+Needs one CUDA card and nvcc; prints the card's name and power limit.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from incubator_mxnet_tpu_torch.ops import _build  # noqa: E402
+from incubator_mxnet_tpu_torch.ops.kernels import decode as dk  # noqa: E402
+from incubator_mxnet_tpu_torch.ops.kernels import flash as fl  # noqa: E402
+
+OUT = os.path.join(ROOT, "build", "kernel_variants")
+HEADER = "tf32_mma.cuh"
+CORRECTION = """  if constexpr (kIsFloat<TA>) mma_tf32(c, al, bh0, bh1);
+  if constexpr (kIsFloat<TB>) mma_tf32(c, ah, bl0, bl1);
+"""
+# flash_attention.cu
+WM = "  static constexpr int WM = D <= 64 ? 2 : 1;"
+BN = "  static constexpr int BN = D <= 64 && !kDkv ? 64 : 32;"
+FWD_BN = "  static constexpr int BN = D <= 64 ? 64 : 32;  // key tile rows"
+PAIR = "  return causal && n - 1 - i > i ? n - 1 - i : -1;"
+GRID = "grid_for(batch, heads, seq, causal), kThreads"
+FLASH_VARIANTS = {
+    "shipped": [],
+    "one row tile per block (no causal pairing)": [
+        (PAIR, "  return -1;"), (GRID, "grid_for(batch, heads, seq), "
+                                     "kThreads")],
+    "backward warps 4 x 1, 16 rows each": [
+        (WM, WM.replace("D <= 64 ? 2 : 1", "1"))],
+    "dQ walked tile 32 rows": [(BN, BN.replace("D <= 64 && !kDkv ? 64 : 32",
+                                               "32"))],
+    "forward key tile 32 rows": [(FWD_BN, FWD_BN.replace("D <= 64 ? 64 : 32",
+                                                         "32"))],
+    "one TF32 pass (no correction products)": [(CORRECTION, "")],
+}
+# decode.cu: split sizes change the kernel's tile and the host's rule
+WIDE_BN = "  static constexpr int BN = D <= 64 ? 64 : 4096 / D;"
+WIDE_RULE = "  return p <= 64 ? 64 : 4096 / p;"
+WIDE_VARIANTS = {
+    "shipped (64 keys a split)": ([], 64),
+    "32 keys a split": ([(WIDE_BN, WIDE_BN.replace("? 64 :", "? 32 :")),
+                         (WIDE_RULE, WIDE_RULE.replace("? 64 :", "? 32 :"))],
+                        32),
+    "16 keys a split": ([(WIDE_BN, WIDE_BN.replace("? 64 :", "? 16 :")),
+                         (WIDE_RULE, WIDE_RULE.replace("? 64 :", "? 16 :"))],
+                        16),
+    "no products (wrong output)": (
+        [("  if (live_warp) {\n    sum_over_d", "  if (false) {\n    "
+          "sum_over_d"), ("if (live_warp) sum_over_rows",
+                          "if (false) sum_over_rows")], 64),
+}
+
+
+def build(name, variants, signatures):
+    """{variant: loaded library} of ops/csrc/<name>.cu, every copy compiled
+    at once."""
+    os.makedirs(OUT, exist_ok=True)
+    src_dir = _build.SRC_DIR
+    # the shared header inlined, so that a substitution may reach into it
+    text = (src_dir / f"{name}.cu").read_text().replace(
+        f'#include "{HEADER}"', (src_dir / HEADER).read_text())
+    procs = {}
+    for i, (variant, subs) in enumerate(variants.items()):
+        src = text
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"{variant}: {old.strip()!r} is not in "
+                                   f"{name}.cu")
+            src = src.replace(old, new)
+        path = os.path.join(OUT, f"{name}{i}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        so = path[:-3] + ".so"
+        procs[variant] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for variant, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {variant}:\n{out}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.mxtpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtpu_cuda_error_string.restype = ctypes.c_char_p
+        libs[variant] = lib
+    return libs
+
+
+def err(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+
+
+def flash_round(libs, device, flush):
+    B, H, T, D, causal, _ = cs.ATTN_CASES["B8 H8 T512 D64 causal (training)"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = cs.attn_case(device, dtype, B, H, T, D, True)
+        o, lse = fl.flash_attention_fwd_ref(q, k, v, causal)
+        args = (q, k, v, do, lse, fl._delta(o, do), causal)
+        want = (fl.flash_attention_dq_ref(*args),
+                *fl.flash_attention_dkv_ref(*args))
+        for name, lib in libs.items():
+            fl._lib = lambda lib=lib: lib
+            e_fwd = err(fl.flash_attention_fwd(q, k, v, causal), (o, lse))
+            e_bwd = err((fl.flash_attention_dq(*args),
+                         *fl.flash_attention_dkv(*args)), want)
+            fwd_ms, dq_ms, dkv_ms = (cs.device_ms(fn, flush=flush) for fn in (
+                lambda: fl.flash_attention_fwd(q, k, v, causal),
+                lambda: fl.flash_attention_dq(*args),
+                lambda: fl.flash_attention_dkv(*args)))
+            print(f"  {str(dtype)[6:]:8s} {name:42s} forward "
+                  f"{fwd_ms * 1e3:6.1f} us (err {e_fwd:.2e})  dQ "
+                  f"{dq_ms * 1e3:6.1f} us  dK/dV {dkv_ms * 1e3:6.1f} us "
+                  f"(err {e_bwd:.2e})", flush=True)
+
+
+def wide_round(libs, device, flush, profile):
+    rule = dk.wide_keys_per_split
+    for dtype in (torch.float32, torch.bfloat16):
+        for Q in cs.WIDE_Q:
+            args = cs.wide_case(device, dtype, Q)
+            want = dk.paged_decode_attention_wide_ref(*args)
+            for name, (lib, keys) in libs.items():
+                dk._lib = lambda lib=lib: lib
+                dk.wide_keys_per_split = (
+                    lambda d, keys=keys: keys if d <= 64 else rule(d))
+                e = err((dk.paged_decode_attention_wide(*args),), (want,))
+                ms = cs.device_ms(lambda: dk.paged_decode_attention_wide(
+                    *args), flush=flush)
+                split = ""
+                if profile:  # every kernel of the call, dtype casts too
+                    split = "; ".join(
+                        f"{us:.1f} us {kname.split('::')[-1][:28]}"
+                        for kname, us in cs.library_kernels(
+                            lambda: dk.paged_decode_attention_wide(*args)))
+                print(f"  {str(dtype)[6:]:8s} Q {Q:2d} {name:46s} "
+                      f"{ms * 1e3:6.1f} us (err {e:.2e}) {split}",
+                      flush=True)
+    dk.wide_keys_per_split = rule
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs one CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    gpu = cs.card()
+    flash_libs = build("flash_attention", FLASH_VARIANTS, fl._SIGNATURES)
+    wide_libs = build("decode", {k: v[0] for k, v in WIDE_VARIANTS.items()},
+                      dk._SIGNATURES)
+    wide_libs = {k: (lib, WIDE_VARIANTS[k][1]) for k, lib in wide_libs.items()}
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    for rnd in range(2):
+        print(f"flash variants, B8 H8 T512 D64 causal, model layout, round "
+              f"{rnd + 1} [{gpu}]")
+        flash_round(flash_libs, device, flush)
+        print(f"wide decode variants, S8 H8 D64 page 16, round {rnd + 1} "
+              f"[{gpu}]")
+        wide_round(wide_libs, device, flush, profile=rnd == 0)
+    print(gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
