@@ -13,7 +13,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    source, all at once) into build/torch_kernels/;
 2. kernels: each kernel against its plain version on the card, in
    float32 and bfloat16. The decode kernels at the shapes the serving
-   path gives them (tolerance 2e-5 and 2e-2), the wide kernel at Q = 5,
+   path gives them (tolerance 2e-5 and 2e-2); the single-query ones
+   (paged_decode_attention, flash_decode) also at (H, D) (8, 8), (4, 100)
+   and (2, 256), each against the dense softmax and its split walk, a
+   dead slot or row giving zeros, bit-equal across two launches, and
+   each captured in a CUDA graph and replayed after n_valid and the page
+   table changed in place; the wide kernel at Q = 5,
    32 and 64 rows per slot and at a head dim of 80 (Q 5, 4 heads), each
    against the dense softmax and the split walk at the kernel's split
    size, and bit-equal across two launches; the flash-attention forward,
@@ -21,11 +26,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernels at the training shape (B 8, H 8, T 512, D 64, causal, in the
    model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
    T 200, a non-causal ragged T 24, at D 16, at the padded head dims 4,
-   6, 8, 12 and 128 (B 2, H 4, T 200, causal) and D 128 at T 512 (o and
+   6, 8, 12, 128, 160 and 256 (B 2, H 4, T 200, causal), D 128 at T 512
+   and D 256 non-causal at a ragged T 130 (o and
    lse 2e-5 and 2e-2; dQ, dK, dV 2e-4 in float32 and, in bfloat16, 2e-2
    of the largest reference value), o, lse, dQ, dK and dV bit-equal across
-   two launches, and 2 train steps with use_flash at head dims 12 and 128
-   (losses finite, step 1 equal to dense at rtol 1e-5); the softmax-xent
+   two launches, and 2 train steps with use_flash at head dims 12, 128
+   and 256 (losses finite, step 1 equal to dense at rtol 1e-5); the
+   softmax-xent
    forward and backward kernels at the train step's (4096, 32000), at the
    JAX tests' N 16 / V 50, N 8 / V 33 and a batched (2, 5, 17) through
    the autograd Function, and on strided, unaligned and transposed views,
@@ -80,7 +87,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    backward alone, its kernels named from a profiler window, beside the
    tensor-core bound and the HMMA / HGMMA count of the flash and wide
    kernels' SASS, which must not be 0; the flash kernels and the wide
-   kernel (Q 5, 32, 64) in float32 and bfloat16;
+   kernel (Q 5, 32, 64) in float32 and bfloat16, the decode kernels in
+   bfloat16 too, and the flash kernels at D 256 (B 8, H 2, T 512);
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
    ResNet-50 leg's step, host time and images/s; then
@@ -167,10 +175,10 @@ def check(label, got, want, tol, atol=None):
 
 # -- phase 2: kernels against their plain versions --------------------------
 
-def paged_case(device, dtype, seed=0):
+def paged_case(device, dtype, seed=0, H=8, D=64):
     """The serving shape: 8 slots, 8 heads of 64, pages of 16, table 32,
     pool 257; ragged n_valid including 0, 1, 16, 511 and 512."""
-    S, H, D, W, P = SLOTS, 8, 64, 512 // PAGE, SLOTS * 512 // PAGE + 1
+    S, W, P = SLOTS, 512 // PAGE, SLOTS * 512 // PAGE + 1
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_valid = torch.tensor([0, 1, 16, 17, 200, 300, 511, 512])
     alloc = PageAllocator(P, PAGE)
@@ -186,10 +194,11 @@ def paged_case(device, dtype, seed=0):
                  if a.is_floating_point() else a.to(device) for a in args)
 
 
-def recycled_case(device, dtype, seed=1):
+def recycled_case(device, dtype, seed=1, **head):
     """Slot 5's pages freed and handed to a new sequence, which writes new
     K/V into them: the kernel must read the new contents."""
-    q, kp, vp, table, nv = (a.clone() for a in paged_case(device, dtype))
+    q, kp, vp, table, nv = (a.clone() for a in paged_case(device, dtype,
+                                                          **head))
     g = torch.Generator(device="cpu").manual_seed(seed)
     pages = table[5, :-(-300 // PAGE)].tolist()
     new = list(reversed(pages))  # the same ids, in another order
@@ -270,11 +279,11 @@ def wide_deterministic(device, dtype):
           f"bit-equal across two launches")
 
 
-def flash_case(device, dtype, B, T, n_valid, seed=2):
+def flash_case(device, dtype, B, T, n_valid, seed=2, H=8, D=64):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((B, 8, 64), generator=g)
-    k = torch.randn((B, T, 8, 64), generator=g)
-    v = torch.randn((B, T, 8, 64), generator=g)
+    q = torch.randn((B, H, D), generator=g)
+    k = torch.randn((B, T, H, D), generator=g)
+    v = torch.randn((B, T, H, D), generator=g)
     if not isinstance(n_valid, int):
         n_valid = torch.tensor(n_valid, dtype=torch.int32, device=device)
     return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
@@ -286,8 +295,132 @@ FLASH_CASES = {
     "B8 T512 (B,) n_valid": (8, 512, [1, 2, 127, 128, 129, 300, 511, 512]),
     "B8 T200 scalar n_valid 137": (8, 200, 137),
     "B8 T200 (B,) n_valid": (8, 200, [1, 5, 64, 100, 128, 150, 199, 200]),
+    "B8 T200 (B,) n_valid, a dead row": (8, 200, [0, 5, 31, 32, 33, 150,
+                                                  199, 200]),
     "B1 T512 scalar n_valid 270 (generate)": (1, 512, 270),
 }
+# (heads, head dim) of kernels 8-9 beside the serving head (8, 64): the
+# smallest lane count, a head dim that is no power of two and the largest
+DECODE_HEADS = ((8, 64), (8, 8), (4, 100), (2, 256))
+
+
+def decode_against_plain(device, dtype, tol):
+    """Kernels 8 and 9 against both plain versions (the dense softmax and
+    the split walk at the kernel's split size) at every head shape of
+    DECODE_HEADS: the paged kernel on the ragged and recycled-page cases
+    (a dead slot must give zeros), flash_decode on FLASH_CASES at the
+    serving head and on its (B,) cases at the others. Returns the largest
+    error of each."""
+    name = str(dtype).replace("torch.", "")
+    keys = dk.DECODE_KEYS_PER_SPLIT
+    err = {"paged_decode_attention": 0.0, "flash_decode": 0.0}
+    for H, D in DECODE_HEADS:
+        head = dict(H=H, D=D)
+        for label, make in (("ragged", paged_case),
+                            ("recycled pages", recycled_case)):
+            args = make(device, dtype, **head)
+            got = dk.paged_decode_attention(*args)
+            tag = f"paged_decode_attention {name} H{H} D{D} {label}"
+            err["paged_decode_attention"] = max(
+                err["paged_decode_attention"],
+                check(tag, got, dk.paged_decode_attention_ref(*args), tol),
+                check(f"{tag} vs the split walk ({keys} keys a split)", got,
+                      dk.paged_decode_attention_split_ref(*args, keys), tol))
+            if got[args[4] == 0].any():
+                raise AssertionError("a dead slot must give zeros")
+        for label, (B, T, nv) in FLASH_CASES.items():
+            if (H, D) != (8, 64) and isinstance(nv, int):
+                continue
+            args = flash_case(device, dtype, B, T, nv, **head)
+            got = dk.flash_decode(*args)
+            tag = f"flash_decode {name} H{H} D{D} {label}"
+            err["flash_decode"] = max(
+                err["flash_decode"],
+                check(tag, got, dk.flash_decode_ref(*args), tol),
+                check(f"{tag} vs the split walk", got,
+                      dk.flash_decode_split_ref(*args, keys), tol))
+            if not isinstance(nv, int) and got[args[3] == 0].any():
+                raise AssertionError("a dead row must give zeros")
+    return err
+
+
+def decode_deterministic(device, dtype):
+    """Two launches of kernels 8 and 9 give bit-equal outputs (no atomics
+    on data, the merge's order fixed) at every head shape of
+    DECODE_HEADS."""
+    for H, D in DECODE_HEADS:
+        calls = ((dk.paged_decode_attention,
+                  paged_case(device, dtype, H=H, D=D)),
+                 (dk.flash_decode,
+                  flash_case(device, dtype, *FLASH_CASES[
+                      "B8 T512 (B,) n_valid"], H=H, D=D)))
+        for kernel, args in calls:
+            if not torch.equal(kernel(*args), kernel(*args)):
+                raise AssertionError(f"{kernel.__name__} differs between two "
+                                     f"launches (H{H} D{D}, {dtype})")
+    print(f"  paged_decode_attention, flash_decode {str(dtype)[6:]} at "
+          f"(H, D) {DECODE_HEADS}: bit-equal across two launches")
+
+
+def decode_graphs(device, dtype, tol):
+    """Each of kernels 8 and 9 captured in two CUDA graphs (one call each,
+    after a warm-up call outside them), then n_valid and the page table
+    changed in place and both graphs replayed at once on two streams: each
+    output must equal the plain version on the changed inputs. The capture
+    itself fails if a call reads the device from the host or allocates
+    outside PyTorch's allocator."""
+    name = str(dtype).replace("torch.", "")
+    paged = paged_case(device, dtype)
+    flash = flash_case(device, dtype, *FLASH_CASES["B8 T512 (B,) n_valid"])
+    for kernel, plain, args, change in (
+            (dk.paged_decode_attention, dk.paged_decode_attention_ref, paged,
+             lambda a: (a[3].copy_(a[3].roll(1, 0)),
+                        a[4].copy_(a[4].roll(1, 0)))),
+            (dk.flash_decode, dk.flash_decode_ref, flash,
+             lambda a: a[3].copy_(a[3].flip(0) - 1))):
+        kernel(*args)
+        torch.cuda.synchronize()
+        graphs, outs = [torch.cuda.CUDAGraph() for _ in range(2)], []
+        for graph in graphs:
+            with torch.cuda.graph(graph):
+                outs.append(kernel(*args))
+        change(args)
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(device) for _ in graphs]
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        want = plain(*args)
+        for i, out in enumerate(outs):
+            check(f"{kernel.__name__} {name} CUDA graph {i + 1} of 2 replayed "
+                  f"beside the other after n_valid and the table changed in "
+                  f"place", out, want, tol)
+        del graphs
+
+
+def decode_streams(device, dtype, tol):
+    """Kernels 8 and 9 called on two streams at once, four calls each
+    interleaved: the merge's arrival counters are the stream's, so every
+    output must equal the plain version."""
+    name = str(dtype).replace("torch.", "")
+    paged = paged_case(device, dtype)
+    flash = flash_case(device, dtype, *FLASH_CASES["B8 T512 (B,) n_valid"])
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    for kernel, plain, args in (
+            (dk.paged_decode_attention, dk.paged_decode_attention_ref, paged),
+            (dk.flash_decode, dk.flash_decode_ref, flash)):
+        want = plain(*args)
+        outs = []
+        for stream in streams:
+            stream.wait_stream(torch.cuda.current_stream(device))
+        for _ in range(4):
+            for stream in streams:
+                with torch.cuda.stream(stream):
+                    outs.append(kernel(*args))
+        torch.cuda.synchronize()
+        check(f"{kernel.__name__} {name}, 8 calls on two streams at once",
+              torch.stack(outs), want.expand(len(outs), *want.shape), tol)
 
 
 def check_rel(label, got, want, tol):
@@ -314,13 +447,16 @@ ATTN_CASES = {
     "B2 H4 T200 D16 causal, (B, H, T, D) layout": (2, 4, 200, 16, True,
                                                   False),
     **{f"B2 H4 T200 D{D} causal": (2, 4, 200, D, True, True)
-       for D in (4, 6, 8, 12, 128)},
+       for D in (4, 6, 8, 12, 128, 160, 256)},
     "B2 H4 T512 D128 causal": (2, 4, 512, 128, True, True),
+    "B2 H2 T130 D256 non-causal (ragged)": (2, 2, 130, 256, False, True),
 }
 # head dims of a few train steps with use_flash: d_model 48 over 4 heads
-# (D 12, examples/transformer_generate.py's) and 512 over 4 (D 128)
+# (D 12, examples/transformer_generate.py's), 512 over 4 (D 128) and 512
+# over 2 (D 256, the padded head dim of its own tile)
 HEAD_DIM_STEPS = {12: dict(d_model=48, n_heads=4),
-                  128: dict(d_model=512, n_heads=4)}
+                  128: dict(d_model=512, n_heads=4),
+                  256: dict(d_model=512, n_heads=2)}
 
 
 def attn_case(device, dtype, B, H, T, D, model_layout, seed=5):
@@ -606,25 +742,12 @@ def kernels_against_plain(device):
             "bn_act_epilogue_fwd": 0.0, "bn_act_epilogue_bwd": 0.0}
     for dtype, tol in TOL.items():
         name = str(dtype).replace("torch.", "")
-        for label, make in (("ragged", paged_case),
-                            ("recycled pages", recycled_case)):
-            args = make(device, dtype)
-            got = dk.paged_decode_attention(*args)
-            want = dk.paged_decode_attention_ref(*args)
-            err = check(f"paged_decode_attention {name} {label}", got, want,
-                        tol)
-            if got[args[4] == 0].float().abs().max() != 0:
-                raise AssertionError("a dead slot must give zeros")
+        for kernel, err in decode_against_plain(device, dtype, tol).items():
             if dtype == torch.float32:
-                errs["paged_decode_attention"] = max(
-                    errs["paged_decode_attention"], err)
-        for label, (B, T, nv) in FLASH_CASES.items():
-            args = flash_case(device, dtype, B, T, nv)
-            err = check(f"flash_decode {name} {label}",
-                        dk.flash_decode(*args), dk.flash_decode_ref(*args),
-                        tol)
-            if dtype == torch.float32:
-                errs["flash_decode"] = max(errs["flash_decode"], err)
+                errs[kernel] = max(errs[kernel], err)
+        decode_deterministic(device, dtype)
+        decode_graphs(device, dtype, tol)
+        decode_streams(device, dtype, tol)
         for Q, head in WIDE_CASES:
             for label, make in (("ragged, rows past the table", wide_case),
                                 ("recycled pages", wide_recycled_case)):
@@ -1175,13 +1298,13 @@ def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(n_valid, T_cap, H, D, elem, B, extra_bytes=0):
+def bound_ms(n_valid, T_cap, H, D, elem, B, extra_bytes=0, q_elem=4):
     """Least time for one call on this card: each live key and value row
-    read once, q read and the output written once (float32), against the
-    memory rate; the 4*D operations per row against the float32 rate.
-    Returns (ms, "bytes" or "operations")."""
+    read once, q read and the output written once (`q_elem` bytes each),
+    against the memory rate; the 4*D operations per row against the
+    float32 rate. Returns (ms, "bytes" or "operations")."""
     rows = int(torch.clamp(n_valid.cpu().long(), 0, T_cap).sum())
-    nbytes = rows * H * D * 2 * elem + 2 * B * H * D * 4 + extra_bytes
+    nbytes = rows * H * D * 2 * elem + 2 * B * H * D * q_elem + extra_bytes
     ops = 4 * rows * H * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -1205,56 +1328,70 @@ def wide_bound_ms(n_base, Q, cap, H, D, elem, S, extra_bytes=0):
 
 
 def kernel_rows(errs, launches, flush, device, gpu):
-    """Times of each kernel at the serving path's shapes, float32."""
+    """Times of each decode kernel at the serving path's shapes, float32
+    (the JSON rows) and bfloat16 (pool, q and output)."""
     rows = []
-    args = paged_case(device, torch.float32)
-    q, kp, _, table, nv = args
-    S, H, D = q.shape
-    pages_read = int(((nv.long() + PAGE - 1) // PAGE).sum())
-    b_ms, b_by = bound_ms(nv, table.shape[1] * PAGE, H, D, 4, S,
-                          extra_bytes=4 * pages_read + 4 * S)
-    ms = device_ms(lambda: dk.paged_decode_attention(*args), flush=flush)
-    plain = device_ms(lambda: dk.paged_decode_attention_ref(*args),
-                      flush=flush)
-    rows.append({
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:719",
-        "launches": launches["paged"],
-        "max_abs_err": errs["paged_decode_attention"], "ms": ms,
-        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
-    print(f"  paged_decode_attention S{S} H{H} D{D} page {PAGE} n_valid "
-          f"{nv.tolist()}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f}"
-          f" us, bound {b_ms * 1e3:.2f} us ({b_by}) [{gpu}]")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        args = paged_case(device, dtype)
+        q, kp, _, table, nv = args
+        S, H, D = q.shape
+        pages_read = int(((nv.long() + PAGE - 1) // PAGE).sum())
+        b_ms, b_by = bound_ms(nv, table.shape[1] * PAGE, H, D,
+                              kp.element_size(), S,
+                              extra_bytes=4 * pages_read + 4 * S,
+                              q_elem=q.element_size())
+        ms = device_ms(lambda: dk.paged_decode_attention(*args), flush=flush)
+        plain = device_ms(lambda: dk.paged_decode_attention_ref(*args),
+                          flush=flush)
+        print(f"  paged_decode_attention {name} S{S} H{H} D{D} page {PAGE} "
+              f"n_valid {nv.tolist()}: kernel {ms * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}) "
+              f"[{gpu}]")
+        if dtype == torch.float32:
+            rows.append({
+                "name": "paged_decode_attention", "route": "cuda",
+                "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:719",
+                "launches": launches["paged"],
+                "max_abs_err": errs["paged_decode_attention"], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None})
 
     generate_shape = "B1 T512 n_valid 270 (generate)"
-    for label, (B, T, n) in ((generate_shape, (1, 512, 270)),
-                             ("B8 T512 (B,) n_valid",
-                              FLASH_CASES["B8 T512 (B,) n_valid"])):
-        fq, fk, fv, fnv = flash_case(device, torch.float32, B, T, n)
-        nv_vec = dk._per_seq_n_valid(fnv, B, device)
-        f_ms, f_by = bound_ms(nv_vec, T, 8, 64, 4, B, extra_bytes=4 * B)
-        ms = device_ms(lambda: dk.flash_decode(fq, fk, fv, fnv), flush=flush)
-        plain = device_ms(lambda: dk.flash_decode_ref(fq, fk, fv, fnv),
-                          flush=flush)
-        # yardstick only: one library call for the same function, on the
-        # transposed cache with a length mask (the port never calls it)
-        mask = (torch.arange(T, device=device)[None]
-                < nv_vec[:, None])[:, None, None, :]
-        lq, lk, lv = fq[:, :, None], fk.transpose(1, 2), fv.transpose(1, 2)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            lq, lk, lv, attn_mask=mask), flush=flush)
-        print(f"  flash_decode {label}: kernel {ms * 1e3:.1f} us, plain "
-              f"{plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, bound "
-              f"{f_ms * 1e3:.2f} us ({f_by}) [{gpu}]")
-        if label == generate_shape:  # the JSON row: generate()'s shape
-            rows.append({
-                "name": "flash_decode", "route": "cuda",
-                "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:455",
-                "launches": launches["flash"],
-                "max_abs_err": errs["flash_decode"], "ms": ms,
-                "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
-                "library_ms": lib})
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for label, (B, T, n) in ((generate_shape, (1, 512, 270)),
+                                 ("B8 T512 (B,) n_valid",
+                                  FLASH_CASES["B8 T512 (B,) n_valid"])):
+            fq, fk, fv, fnv = flash_case(device, dtype, B, T, n)
+            nv_vec = dk._per_seq_n_valid(fnv, B, device)
+            f_ms, f_by = bound_ms(nv_vec, T, 8, 64, fk.element_size(), B,
+                                  extra_bytes=0 if isinstance(n, int)
+                                  else 4 * B, q_elem=fq.element_size())
+            ms = device_ms(lambda: dk.flash_decode(fq, fk, fv, fnv),
+                           flush=flush)
+            plain = device_ms(lambda: dk.flash_decode_ref(fq, fk, fv, fnv),
+                              flush=flush)
+            # yardstick only: one library call for the same function, on
+            # the transposed cache with a length mask (the port never
+            # calls it)
+            mask = (torch.arange(T, device=device)[None]
+                    < nv_vec[:, None])[:, None, None, :]
+            lq, lk, lv = (fq[:, :, None], fk.transpose(1, 2),
+                          fv.transpose(1, 2))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask), flush=flush)
+            print(f"  flash_decode {name} {label}: kernel {ms * 1e3:.1f} us,"
+                  f" plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us,"
+                  f" bound {f_ms * 1e3:.2f} us ({f_by}) [{gpu}]")
+            if label == generate_shape and dtype == torch.float32:
+                rows.append({  # the JSON row: generate()'s shape
+                    "name": "flash_decode", "route": "cuda",
+                    "source": DECODE_SOURCE, "replaces": f"{JAX_KERNELS}:455",
+                    "launches": launches["flash"],
+                    "max_abs_err": errs["flash_decode"], "ms": ms,
+                    "plain_ms": plain, "bound_ms": f_ms, "bound_by": f_by,
+                    "library_ms": lib})
 
     wide = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1456,7 +1593,46 @@ def flash_rows(errs, launches, flush, device, gpu):
               f"{ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
               f"float32 SIMT); tensor-core bound {tc_ms * 1e3:.2f} us "
               f"({tc_by}, bfloat16) [{gpu}]")
+    flash_wide_head_times(flush, device, gpu)
     return rows
+
+
+def flash_wide_head_times(flush, device, gpu):
+    """The three flash kernels at head dim 256 (D_p 256's own tile), at the
+    head-dim-256 model's train shape (d_model 512 over 2 heads, batch 8 x
+    seq 512, causal: the training shape's operations), float32 and
+    bfloat16, each beside its plain version, its bounds and, for the
+    forward, the library's."""
+    B, H, T, D, causal = 8, 2, 512, 256, True
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, do = attn_case(device, dtype, B, H, T, D, True)
+        o, lse = fl.flash_attention_fwd(q, k, v, causal)
+        args = (q, k, v, do, lse, fl._delta(o, do), causal)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), flush=flush)
+        for kernel_name, kernel, plain in (
+                ("flash_attention_fwd",
+                 lambda: fl.flash_attention_fwd(q, k, v, causal),
+                 lambda: fl.flash_attention_fwd_ref(q, k, v, causal)),
+                ("flash_attention_dq", lambda: fl.flash_attention_dq(*args),
+                 lambda: fl.flash_attention_dq_ref(*args)),
+                ("flash_attention_dkv", lambda: fl.flash_attention_dkv(*args),
+                 lambda: fl.flash_attention_dkv_ref(*args))):
+            ms = device_ms(kernel, flush=flush)
+            plain_ms = device_ms(plain, flush=flush)
+            elem = q.element_size()
+            b_ms, b_by = flash_bound_ms(B, H, T, D, causal, elem,
+                                        kernel_name)
+            tc_ms, tc_by = tensor_core_bound(B, H, T, D, causal, elem,
+                                             kernel_name)
+            extra = (f", library {lib * 1e3:.1f} us"
+                     if kernel_name == "flash_attention_fwd" else "")
+            print(f"  {kernel_name} {name} B{B} H{H} T{T} D{D} causal: "
+                  f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+                  f"{extra}, bound {b_ms * 1e3:.2f} us ({b_by}, float32 "
+                  f"SIMT); tensor-core bound {tc_ms * 1e3:.2f} us ({tc_by})"
+                  f" [{gpu}]")
 
 
 XENT_LINES = {"softmax_xent_fwd": 291, "softmax_xent_bwd": 306}
@@ -1732,17 +1908,23 @@ def path_times(cfg, params, device, gpu):
 
 
 def ptxas_lines(output):
-    """One line per variant of the flash-attention and wide decode kernels
-    from ptxas -v's report: registers, and spill stores / loads in
-    bytes."""
+    """One line per variant of the flash-attention and decode kernels from
+    ptxas -v's report: registers, and spill stores / loads in bytes."""
     lines, name = [], None
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '.*?((?:flash_(?:fwd|dq|dkv)"
                       r"|paged_decode_wide)_kernel)I(f|13__nv_bfloat16)"
                       r"Li(\d+)E", line)
+        split = re.search(r"Compiling entry function '.*?decode_split_kernel"
+                          r"I(f|13__nv_bfloat16)(f|13__nv_bfloat16)Li(\d+)E"
+                          r"NS_9(Dense|Paged)Rows", line)
         if m:
-            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
-                    f", {m.group(3)}>")
+            name = f"{m.group(1)}<{types[m.group(2)]}, {m.group(3)}>"
+        elif split:
+            name = (f"decode_split_kernel<{types[split.group(1)]}, "
+                    f"{types[split.group(2)]}, {split.group(3)}, "
+                    f"{split.group(4)}Rows>")
         elif name and "spill stores" in line:
             spill = re.findall(r"(\d+) bytes spill", line)
         elif name and "registers" in line:

@@ -1,12 +1,13 @@
 // Decode attention, hand-written for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of incubator_mxnet_tpu/ops/pallas_kernels.py:
-//   paged_decode_kernel  <- paged_decode_attention / _paged_decode_kernel
-//                           (attention of one query per decode slot over a
-//                           global KV page pool, walking the slot's page
-//                           table);
-//   flash_decode_kernel  <- flash_decode / _decode_kernel (the same over a
-//                           dense (B, T, H, D) cache);
+//   decode_split_kernel<PagedRows> <- paged_decode_attention /
+//                           _paged_decode_kernel (attention of one query
+//                           per decode slot over a global KV page pool,
+//                           walking the slot's page table);
+//   decode_split_kernel<DenseRows> <- flash_decode / _decode_kernel (the
+//                           same over a dense (B, T, H, D) cache);
+//   each a split key walk that merges its splits in the same launch;
 //   paged_decode_wide_kernel <- paged_decode_attention_wide /
 //                           _paged_decode_wide_kernel (Q consecutive query
 //                           rows per slot over the page pool, causal inside
@@ -16,293 +17,301 @@
 // and value row once: sum_b n_valid[b] * H * D * 2 * sizeof(elem), plus the
 // query and the output, at 3.35 TB/s. The arithmetic is 4 * D operations
 // per key row (0.5 operations per byte in float32), far below the card's
-// ratio of operations to bytes.
+// ratio of operations to bytes. At the serving shapes the bytes take 0.3-2
+// us, so what a call costs is latency: the chain of dependent trips to
+// device memory, and how many SMs pull bytes at once.
 //
-// Design. One thread block per (slot, head). Its kWarps warps take keys in
-// turn, kUnroll consecutive keys per warp per iteration, so each warp has
-// kUnroll independent row loads in flight. A key's score is a warp-shuffle
-// dot product over D: lane i holds elements i, i + 32, ... of the query,
-// key and value rows. Each warp keeps its own online softmax (running max
-// m, sum l and output o) in registers; the warps' states are combined in
-// shared memory at the end. Scores and sums are float32 for float32 and
-// bfloat16 caches alike; the query and the output are float32.
-//
-// The paged kernel stages the slot's live page-table entries in shared
-// memory (Hopper has no scalar prefetch) and walks only
-// ceil(n_valid / page_size) pages; a page id outside the pool reads the
-// null page 0. The dense kernel reads the (B, T, H, D) cache in place
-// through its strides, so no transposed copy is made, and takes any T: the
-// walk stops at min(n_valid, T). n_valid == 0 writes zeros, as the TPU
-// kernel does (o = 0, l floored at 1e-30).
-//
-// Known limits of the two single-query kernels, left to later work: at
-// full width their grid is S * H = 64 blocks on 132 SMs (the wide kernel's
-// split key walk and combine pass below would spread it), and they read
-// rows with plain loads (the wide kernel stages with cp.async).
+// Design of the single-query kernels: a split key walk, then a merge.
+//   decode_split_kernel: one block of four warps per (head, slot, split of
+// kDecodeKeys consecutive keys). The number of splits comes from what the
+// host knows without reading the device: the cache length T (dense) or
+// table_width * page_size (paged), never n_valid. At generate()'s shape
+// (B 1, H 8, T 512) that is 128 blocks on 132 SMs, where one block per
+// (slot, head) gave 8; at the serving shape (S 8, H 8, table 32 x 16)
+// 1024. A split at or past the slot's n_valid stops at once. Thread r <
+// kDecodeKeys reads key r's page id (one division per key, once) before
+// n_valid, so the two trips overlap; an id outside the pool reads the null
+// page 0. The split's K rows, then its V rows, go to shared memory by
+// cp.async, 16 bytes a copy where the base address and the row's bytes
+// allow (wide_copy_width), so the scores start while V is in flight; rows
+// at or past min(n_valid, cap) are masked and not read. The products stay
+// on the CUDA cores: a single query does 4 * D operations a key, which
+// would leave a 16-row tensor-core tile 15/16 idle. Each warp scores its
+// keys (lane i holds elements i, i + 32, ... of q and of the key row; a
+// shuffle sum over the warp), the scores meet in shared memory, and every
+// thread takes the split's max and sums for itself, then P.V for its
+// columns of the output. Scores and sums are float32; p is rounded to the
+// pool's type before P.V, as in JAX. Each live split writes float32
+// partials to the workspace: its max m (base 2), sum l and unnormalised
+// output o.
+//   The merge, in the same launch: each live block, its partials written
+// and fenced, adds one to its (slot, head)'s arrival counter; the block
+// that arrives last (the slot's live splits are ceil(n_valid / 32), so
+// every block knows how many arrive) reads the partials from L2, merges
+// them in split order by the log-sum-exp rule, writes the output row and
+// sets the counter back to zero, so the next call, or a CUDA graph's
+// replay, finds it clean. A slot with no live key gives zeros, as the TPU
+// kernel does. No atomics on data: results are bit-equal across launches.
+// The counters (one per (slot, head)) are the caller's: the wrapper keeps
+// one zeroed array per stream, and a call captured in a CUDA graph gets
+// its own, so calls that overlap never share one.
+// Measured (tools/kernel_variants.py; PERF.md): this one launch is 2-3 us
+// faster at both serving shapes than empty partials for dead splits and
+// wide_combine_kernel at n_q = 1 in a second launch (the tool builds that
+// variant by text substitution), and 32-key splits beat 16 and 64 at
+// generate()'s shape and come within 0.5 us of 64 at the serving one; a
+// merge through a thread block cluster's distributed shared memory was
+// correct but no faster.
+//   q and the output are float32 or bfloat16 (the same type), K and V
+// float32 or bfloat16, D from 1 to 256. The partials' workspace is the
+// caller's (the wrapper takes it from PyTorch's caching allocator on the
+// call's stream), nothing synchronises and the host reads nothing, so a
+// CUDA graph can capture a call and replay it with other n_valid and
+// page tables. flash_decode's n_valid may be one value for every sequence,
+// passed by value (generate() passes a python int), which saves a fill.
+//   What bounds it now: latency. Each live split is a chain of dependent
+// trips (page ids, K, V, its partials, the fence and the counter), and the
+// merging block adds another (the partials from L2); at the serving shapes
+// the kernel runs 5-10 us against bytes that need 0.3-2 us.
 
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
-constexpr int kMaxLanesPerRow = 8;  // head_dim <= 256
+constexpr int kDecodeKeys = 32;     // keys a split of the single-query walk
+constexpr int kDecodeThreads = 128;  // four warps
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Row offsets (in elements) of key t for the block's (slot, head).
+// Where key `key` of slot b lives: fetch() is issued first (a page id, or
+// nothing), row() then gives the key's row in the (rows, H, D) cache.
 struct DenseRows {  // cache (B, T, H, D), contiguous
-  int64_t row0;     // offset of (b, 0, h, 0)
-  int64_t stride_t;  // H * D
-  __device__ __forceinline__ int64_t operator()(int t) const {
-    return row0 + t * stride_t;
+  int cap;          // T
+  __device__ __forceinline__ int fetch(int, int) const { return 0; }
+  __device__ __forceinline__ int64_t row(int b, int key, int) const {
+    return int64_t(b) * cap + key;
   }
 };
 
 struct PagedRows {  // pool (P, page_size, H, D), contiguous
-  const int* pages;  // the slot's page ids, staged in shared memory
-  int page_size;
-  int64_t head_off;  // h * D
-  int64_t stride_row;  // H * D
-  __device__ __forceinline__ int64_t operator()(int t) const {
-    const int64_t row =
-        int64_t(pages[t / page_size]) * page_size + t % page_size;
-    return row * stride_row + head_off;
+  const int32_t* table;  // (slots, width) page ids
+  int width, page_size, num_pages, cap;  // cap = width * page_size
+  __device__ __forceinline__ int fetch(int b, int key) const {
+    return table[int64_t(b) * width + key / page_size];
+  }
+  __device__ __forceinline__ int64_t row(int, int key, int page) const {
+    return int64_t(page >= 0 && page < num_pages ? page : 0) * page_size +
+           key % page_size;
   }
 };
 
-// Online-softmax attention of one query row over keys [0, nv); every
-// thread of the block calls it. `scratch` holds 2 * kWarps + kWarps * R * 32
-// floats of shared memory.
-template <typename T, int R, typename Rows>
-__device__ __forceinline__ void attend(const float* __restrict__ q,
-                                       const T* __restrict__ k,
-                                       const T* __restrict__ v,
-                                       float* __restrict__ out, int nv,
-                                       int head_dim, float scale,
-                                       const Rows& rows, float* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float qr[R], o[R];
+// In the block that arrives last: the (slot, head)'s partials merged, in
+// split order, into its output row `out`. Splits 0 ... n_live - 1 (split
+// j's partials at at0 + j * heads) are the live ones, each with l >= 1;
+// the rest are empty and not read. The partials are read from L2 (__ldcg:
+// the other blocks wrote them); each thread reads every split's (m, l).
+// The loops unroll by 8, so 8 splits' loads are in flight at once.
+template <typename TO, int C>
+__device__ void merge_splits(const float* part_o, const float* part_ml,
+                             TO* out, int64_t at0, int heads, int head_dim,
+                             int n_live) {
+  float mx = kNegInf;
+#pragma unroll 8
+  for (int j = 0; j < n_live; ++j)
+    mx = fmaxf(mx, __ldcg(part_ml + 2 * (at0 + int64_t(j) * heads)));
+  float lsum = 0.f, o[C] = {};
+#pragma unroll 8
+  for (int j = 0; j < n_live; ++j) {
+    const int64_t at = at0 + int64_t(j) * heads;
+    const float c = exp2f(__ldcg(part_ml + 2 * at) - mx);
+    lsum = fmaf(__ldcg(part_ml + 2 * at + 1), c, lsum);
+    const float* src = part_o + at * head_dim;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int d = threadIdx.x + kDecodeThreads * i;
+      if (d < head_dim) o[i] = fmaf(__ldcg(src + d), c, o[i]);
+    }
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int d = threadIdx.x + kDecodeThreads * i;
+    if (d < head_dim) out[d] = from_float<TO>(o[i] * inv);
+  }
+}
+
+// One split of one (slot, head): keys [k_lo, k_lo + keys) of the slot,
+// keys >= 1, staged by the whole block (after its __syncthreads) through
+// the smem tiles `sm`; returns the split's max m (base 2) and sum l in
+// every thread, and its unnormalised P.V for columns tid, tid + 128, ...
+// in o. q_r: the lane's elements of q (lane + 32 r). Every thread calls
+// it.
+template <typename T, int R>
+struct SplitSmem {
+  static constexpr int K = kDecodeKeys, LS = 32 * R;
+  T* k_s;           // [K][LS]
+  T* v_s;           // [K][LS]
+  int64_t* rows_s;  // [K] element offsets of the rows (-1: masked)
+  float* s_s;       // [K] scores, base 2
+  __device__ explicit SplitSmem(unsigned char* raw)
+      : k_s(reinterpret_cast<T*>(raw)),
+        v_s(k_s + K * LS),
+        rows_s(reinterpret_cast<int64_t*>(v_s + K * LS)),
+        s_s(reinterpret_cast<float*>(rows_s + K)) {}
+  __host__ __device__ static constexpr size_t bytes() {
+    return sizeof(T) * 2 * K * LS + (sizeof(int64_t) + sizeof(float)) * K;
+  }
+};
+
+template <typename T, int R, int C, typename Rows>
+__device__ __forceinline__ void attend_split(
+    const SplitSmem<T, R>& sm, const T* __restrict__ k,
+    const T* __restrict__ v, const Rows& rows, const float (&q_r)[R], int b,
+    int h, int heads, int head_dim, int k_lo, int keys, int fetched,
+    float scale2, int width, float& m, float& l, float (&o)[C]) {
+  constexpr int K = kDecodeKeys, LS = 32 * R, W = kDecodeThreads / 32;
+  constexpr int KW = K / W;  // keys a warp scores
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid < K)
+    sm.rows_s[tid] =
+        tid < keys ? rows.row(b, k_lo + tid, fetched) * heads * head_dim +
+                         int64_t(h) * head_dim
+                   : -1;
+  __syncthreads();
+  stage_tile<T, LS>(
+      sm.k_s,
+      [&](int r) -> const T* { return sm.rows_s[r] >= 0 ? k + sm.rows_s[r]
+                                                         : nullptr; },
+      k, K, head_dim, width);
+  cp_commit();
+  stage_tile<T, LS>(
+      sm.v_s,
+      [&](int r) -> const T* { return sm.rows_s[r] >= 0 ? v + sm.rows_s[r]
+                                                         : nullptr; },
+      v, K, head_dim, width);
+  cp_commit();
+  cp_wait<1>();  // K
+  __syncthreads();
+  // scores: warp w takes keys w, w + W, ...
+  float s[KW];
+#pragma unroll
+  for (int i = 0; i < KW; ++i) {
+    const T* kr = sm.k_s + (warp + W * i) * LS;
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int d = lane + 32 * r;
+      // columns past head_dim are not staged: not read either
+      if (d < head_dim) acc = fmaf(q_r[r], to_float(kr[d]), acc);
+    }
+    s[i] = acc;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < KW; ++i) s[i] += __shfl_xor_sync(kFullMask, s[i], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < KW; ++i) sm.s_s[warp + W * i] = s[i] * scale2;
+  }
+  cp_wait<0>();  // V
+  __syncthreads();
+  // every thread: the split's max and sum, and P.V for its columns
+  m = kNegInf;
+  for (int kk = 0; kk < keys; ++kk) m = fmaxf(m, sm.s_s[kk]);
+  l = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) o[c] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < keys; ++kk) {
+    const float p = exp2f(sm.s_s[kk] - m);
+    l += p;
+    const float pr = round_to<T>(p);  // p.astype(v.dtype), as in JAX
+    const T* vr = sm.v_s + kk * LS;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = tid + kDecodeThreads * c;
+      if (d < head_dim) o[c] = fmaf(pr, to_float(vr[d]), o[c]);
+    }
+  }
+  __syncthreads();  // the tiles are read before anyone stages again
+}
+
+// The lane's elements of q (lane + 32 r; zeros past head_dim), as float.
+template <typename TQ, int R>
+__device__ __forceinline__ void load_q(const TQ* qb, int head_dim,
+                                       float (&q_r)[R]) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int d = lane + 32 * r;
-    qr[r] = d < head_dim ? q[d] : 0.f;
-    o[r] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-  for (int base = warp * kUnroll; base < nv; base += kWarps * kUnroll) {
-    float kr[kUnroll][R], vr[kUnroll][R];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool live = base + u < nv;
-      const int64_t off = live ? rows(base + u) : 0;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int d = lane + 32 * r;
-        const bool ok = live && d < head_dim;
-        kr[u][r] = ok ? to_float(k[off + d]) : 0.f;
-        vr[u][r] = ok ? to_float(v[off + d]) : 0.f;
-      }
-    }
-    float s[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float acc = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc = fmaf(qr[r], kr[u][r], acc);
-      s[u] = acc;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        s[u] += __shfl_xor_sync(kFullMask, s[u], off);
-    }
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      s[u] = base + u < nv ? s[u] * scale : kNegInf;
-      m_new = fmaxf(m_new, s[u]);
-    }
-    const float alpha = expf(m - m_new);
-    float p[kUnroll], psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      p[u] = expf(s[u] - m_new);
-      psum += p[u];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float acc = o[r] * alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc = fmaf(p[u], vr[u][r], acc);
-      o[r] = acc;
-    }
-    m = m_new;
-  }
-
-  float* sm_m = scratch;
-  float* sm_l = scratch + kWarps;
-  float* sm_o = scratch + 2 * kWarps;  // [kWarps][R * 32]
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) sm_o[warp * R * 32 + lane + 32 * r] = o[r];
-  __syncthreads();
-  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-    float lsum = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w] - mx);
-      lsum = fmaf(sm_l[w], c, lsum);
-      acc = fmaf(sm_o[w * R * 32 + d], c, acc);
-    }
-    out[d] = acc / fmaxf(lsum, 1e-30f);
+    q_r[r] = d < head_dim ? to_float(qb[d]) : 0.f;
   }
 }
 
-template <int R>
-__host__ __device__ constexpr int scratch_floats() {
-  return 2 * kWarps + kWarps * R * 32;
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const float* __restrict__ q,
-                        const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
-                        const int32_t* __restrict__ page_table,
-                        const int32_t* __restrict__ n_valid,
-                        float* __restrict__ out, int heads, int head_dim,
-                        int page_size, int num_pages, int table_width,
-                        float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int nv = max(0, min(n_valid[b], table_width * page_size));
-  const int n_pages = (nv + page_size - 1) / page_size;
-  int* pages = reinterpret_cast<int*>(smem + scratch_floats<R>());
-  for (int j = threadIdx.x; j < n_pages; j += blockDim.x) {
-    const int p = page_table[int64_t(b) * table_width + j];
-    pages[j] = (p >= 0 && p < num_pages) ? p : 0;
+// One split of one (slot, head) a block, float32 partials to device
+// memory: see the design note above. R: lanes of a row (32 R >= head_dim).
+template <typename T, typename TQ, int R, typename Rows>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_split_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, Rows rows,
+                        const int32_t* __restrict__ n_valid, int n_valid_all,
+                        float* __restrict__ part_o,
+                        float* __restrict__ part_ml,
+                        unsigned int* __restrict__ counters,
+                        TQ* __restrict__ out,
+                        int heads, int head_dim, int n_split, float scale,
+                        int width) {
+  constexpr int K = kDecodeKeys, C = (32 * R + kDecodeThreads - 1) /
+                                     kDecodeThreads;  // columns a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const SplitSmem<T, R> sm(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, k_lo = split * K;
+  int fetched = 0;  // issued before n_valid: the two trips overlap
+  if (tid < K && k_lo + tid < rows.cap) fetched = rows.fetch(b, k_lo + tid);
+  const int nv = max(0, min(n_valid ? n_valid[b] : n_valid_all, rows.cap));
+  const int64_t at0 = int64_t(b) * n_split * heads + h;  // split 0's
+  const int64_t at = at0 + int64_t(split) * heads;
+  const int n_live = (nv + K - 1) / K;  // splits with a live key
+  if (split >= n_live) {  // no live key in this split
+    // only live splits arrive and merge; with none, split 0 writes zeros
+    if (n_live == 0 && split == 0)
+      for (int d = tid; d < head_dim; d += kDecodeThreads)
+        out[(int64_t(b) * heads + h) * head_dim + d] = from_float<TQ>(0.f);
+    return;
+  }
+  float q_r[R], m, l, o[C];
+  load_q<TQ, R>(q + (int64_t(b) * heads + h) * head_dim, head_dim, q_r);
+  attend_split<T, R, C>(sm, k, v, rows, q_r, b, h, heads, head_dim, k_lo,
+                        min(K, nv - k_lo), fetched, scale * kLog2e, width, m,
+                        l, o);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int d = tid + kDecodeThreads * c;
+    if (d < head_dim) part_o[at * head_dim + d] = o[c];
+  }
+  if (tid == 0) {
+    part_ml[2 * at] = m;
+    part_ml[2 * at + 1] = l;
+  }
+  __shared__ bool last;
+  __syncthreads();  // every thread's partials are written
+  if (tid == 0) {
+    // the block's partials visible to the device before its arrival (a
+    // fence after the barrier covers the writes of the whole block)
+    __threadfence();
+    unsigned int* count = counters + int64_t(b) * heads + h;
+    last = atomicAdd(count, 1u) == unsigned(n_live - 1);
+    if (last) *count = 0u;  // clean for the next call (or graph replay)
   }
   __syncthreads();
-  const PagedRows rows{pages, page_size, int64_t(h) * head_dim,
-                       int64_t(heads) * head_dim};
-  const int64_t qo = (int64_t(b) * heads + h) * head_dim;
-  attend<T, R>(q + qo, k_pages, v_pages, out + qo, nv, head_dim, scale, rows,
-               smem);
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_decode_kernel(const float* __restrict__ q,
-                        const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache,
-                        const int32_t* __restrict__ n_valid,
-                        float* __restrict__ out, int cache_len, int heads,
-                        int head_dim, float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int nv = max(0, min(n_valid[b], cache_len));
-  const int64_t stride_t = int64_t(heads) * head_dim;
-  const DenseRows rows{int64_t(b) * cache_len * stride_t +
-                           int64_t(h) * head_dim,
-                       stride_t};
-  const int64_t qo = (int64_t(b) * heads + h) * head_dim;
-  attend<T, R>(q + qo, k_cache, v_cache, out + qo, nv, head_dim, scale, rows,
-               smem);
-}
-
-template <typename T, int R>
-cudaError_t launch_paged(const void* q, const void* k, const void* v,
-                         const void* table, const void* nv, void* out,
-                         int slots, int heads, int head_dim, int page_size,
-                         int num_pages, int table_width, float scale,
-                         cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * scratch_floats<R>() + sizeof(int) * table_width;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(heads, slots);
-  paged_decode_kernel<T, R><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(nv), static_cast<float*>(out), heads,
-      head_dim, page_size, num_pages, table_width, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int R>
-cudaError_t launch_flash(const void* q, const void* k, const void* v,
-                         const void* nv, void* out, int batch, int cache_len,
-                         int heads, int head_dim, float scale,
-                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * scratch_floats<R>();
-  const dim3 grid(heads, batch);
-  flash_decode_kernel<T, R><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(nv),
-      static_cast<float*>(out), cache_len, heads, head_dim, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_paged(int lanes, const void* q, const void* k,
-                           const void* v, const void* table, const void* nv,
-                           void* out, int slots, int heads, int head_dim,
-                           int page_size, int num_pages, int table_width,
-                           float scale, cudaStream_t s) {
-#define MXTPU_PAGED_CASE(R)                                               \
-  case R:                                                                 \
-    return launch_paged<T, R>(q, k, v, table, nv, out, slots, heads,      \
-                              head_dim, page_size, num_pages, table_width, \
-                              scale, s);
-  switch (lanes) {
-    MXTPU_PAGED_CASE(1)
-    MXTPU_PAGED_CASE(2)
-    MXTPU_PAGED_CASE(3)
-    MXTPU_PAGED_CASE(4)
-    MXTPU_PAGED_CASE(5)
-    MXTPU_PAGED_CASE(6)
-    MXTPU_PAGED_CASE(7)
-    MXTPU_PAGED_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MXTPU_PAGED_CASE
-}
-
-template <typename T>
-cudaError_t dispatch_flash(int lanes, const void* q, const void* k,
-                           const void* v, const void* nv, void* out,
-                           int batch, int cache_len, int heads, int head_dim,
-                           float scale, cudaStream_t s) {
-#define MXTPU_FLASH_CASE(R)                                                  \
-  case R:                                                                    \
-    return launch_flash<T, R>(q, k, v, nv, out, batch, cache_len, heads,     \
-                              head_dim, scale, s);
-  switch (lanes) {
-    MXTPU_FLASH_CASE(1)
-    MXTPU_FLASH_CASE(2)
-    MXTPU_FLASH_CASE(3)
-    MXTPU_FLASH_CASE(4)
-    MXTPU_FLASH_CASE(5)
-    MXTPU_FLASH_CASE(6)
-    MXTPU_FLASH_CASE(7)
-    MXTPU_FLASH_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MXTPU_FLASH_CASE
+  if (!last) return;
+  __threadfence();  // the other blocks' partials after their arrivals
+  merge_splits<TQ, C>(part_o, part_ml,
+                      out + (int64_t(b) * heads + h) * head_dim, at0, heads,
+                      head_dim, n_live);
 }
 
 // ---------------------------------------------------------------------------
@@ -583,7 +592,8 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int d = lane + 32 * r;
-    if (d < head_dim) out[int64_t(row) * head_dim + d] = o[r] * inv;
+    if (d < head_dim)
+      out[int64_t(row) * head_dim + d] = o[r] * inv;
   }
 }
 
@@ -698,55 +708,129 @@ cudaError_t dispatch_combine(int lanes, const void* part_o,
 #undef MXTPU_COMBINE_CASE
 }
 
+// Lanes of a row (32 per lane-row) at head dim d: ceil(d / 32); 0 for a
+// d outside 1 ... 256.
 int lanes_for(int head_dim) {
-  if (head_dim < 1 || head_dim > 32 * kMaxLanesPerRow) return 0;
+  if (head_dim < 1 || head_dim > 256) return 0;
   return (head_dim + 31) / 32;
+}
+
+// Calls f(T(), TQ(), integral_constant<int, R>()) for the K/V type, the
+// query type and the split kernel's lanes (1, 2, 4 or 8, the power of two
+// at or above lanes_for(head_dim)); anything else is refused.
+template <typename F>
+cudaError_t dispatch_decode(int kv_dtype, int q_dtype, int head_dim, F&& f) {
+  const int lanes = lanes_for(head_dim);
+  auto with_lanes = [&](auto tk, auto tq) -> cudaError_t {
+    if (lanes == 1) return f(tk, tq, std::integral_constant<int, 1>());
+    if (lanes == 2) return f(tk, tq, std::integral_constant<int, 2>());
+    if (lanes >= 3 && lanes <= 4)
+      return f(tk, tq, std::integral_constant<int, 4>());
+    if (lanes >= 5 && lanes <= 8)
+      return f(tk, tq, std::integral_constant<int, 8>());
+    return cudaErrorInvalidValue;
+  };
+  using bf16 = __nv_bfloat16;
+  if (kv_dtype == 0 && q_dtype == 0) return with_lanes(float(), float());
+  if (kv_dtype == 0 && q_dtype == 1) return with_lanes(float(), bf16());
+  if (kv_dtype == 1 && q_dtype == 0) return with_lanes(bf16(), float());
+  if (kv_dtype == 1 && q_dtype == 1) return with_lanes(bf16(), bf16());
+  return cudaErrorInvalidValue;
+}
+
+// The split kernel over `rows`, on n_split = ceil(rows.cap / kDecodeKeys)
+// splits. work: the partials, slots * n_split * heads * (head_dim + 2)
+// floats; counters: slots * heads zeroed arrival counters.
+template <typename T, typename TQ, int R, typename Rows>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const Rows& rows, const void* n_valid,
+                          int n_valid_all, void* work, void* counters,
+                          void* out, int slots, int heads, int head_dim,
+                          int n_split, float scale, cudaStream_t stream) {
+  if (n_split != (rows.cap + kDecodeKeys - 1) / kDecodeKeys)
+    return cudaErrorInvalidValue;
+  float* part_o = static_cast<float*>(work);
+  float* part_ml = part_o + int64_t(slots) * n_split * heads * head_dim;
+  constexpr size_t smem = SplitSmem<T, R>::bytes();
+  auto kernel = decode_split_kernel<T, TQ, R, Rows>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err) return err;
+  }
+  const int elem = sizeof(T), row_bytes = head_dim * elem;
+  const int width = min(wide_copy_width(k, row_bytes, elem),
+                        wide_copy_width(v, row_bytes, elem));
+  // a cache of no rows still runs one block a (slot, head): it writes the
+  // zeros
+  kernel<<<dim3(heads, slots, max(n_split, 1)), kDecodeThreads, smem,
+           stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), rows, static_cast<const int32_t*>(n_valid),
+      n_valid_all, part_o, part_ml, static_cast<unsigned int*>(counters),
+      static_cast<TQ*>(out), heads, head_dim, n_split, scale, width);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the key/value element type). q and out
-// are float32. Every pointer is device memory; nothing is allocated and
-// nothing synchronises. Returns the launch's cudaError_t (0 on success).
+// kv_dtype, q_dtype: 0 = float32, 1 = bfloat16, the type of the pools
+// and that of q and out. q and out are (slots, heads, head_dim); the pools
+// (num_pages, page_size, heads, head_dim); page_table (slots, table_width)
+// and n_valid (slots,) int32. `work` is float32 device memory for the
+// partials: slots * n_split * heads * (head_dim + 2) floats, where n_split
+// = ceil(table_width * page_size / 32), which the caller passes and the
+// call checks. `counters` is slots * heads unsigned ints, zero before the
+// call and left zero by it, which no call running at the same time may
+// share. Every pointer is device memory; nothing is allocated and nothing
+// synchronises. One launch (the split kernel, whose last blocks merge);
+// returns its cudaError_t (0 on success).
 extern "C" int mxtpu_paged_decode_attention(
-    int dtype, const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* n_valid, void* out, int slots,
-    int heads, int head_dim, int page_size, int num_pages, int table_width,
+    int kv_dtype, int q_dtype, const void* q, const void* k_pages,
+    const void* v_pages, const void* page_table, const void* n_valid,
+    void* work, void* counters, void* out, int slots, int heads,
+    int head_dim, int page_size, int num_pages, int table_width, int n_split,
     float scale, void* stream) {
-  const int lanes = lanes_for(head_dim);
-  if (!lanes || page_size < 1 || table_width < 1)
+  if (!lanes_for(head_dim) || page_size < 1 || table_width < 1 ||
+      !n_valid || !counters)
     return cudaErrorInvalidValue;
   if (slots == 0 || heads == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_paged<float>(lanes, q, k_pages, v_pages, page_table,
-                                 n_valid, out, slots, heads, head_dim,
-                                 page_size, num_pages, table_width, scale, s);
-  if (dtype == 1)
-    return dispatch_paged<__nv_bfloat16>(lanes, q, k_pages, v_pages,
-                                         page_table, n_valid, out, slots,
-                                         heads, head_dim, page_size,
-                                         num_pages, table_width, scale, s);
-  return cudaErrorInvalidValue;
+  const PagedRows rows{static_cast<const int32_t*>(page_table), table_width,
+                       page_size, num_pages, table_width * page_size};
+  return dispatch_decode(
+      kv_dtype, q_dtype, head_dim, [&](auto tk, auto tq, auto lanes) {
+        using T = decltype(tk);
+        using TQ = decltype(tq);
+        return launch_decode<T, TQ, decltype(lanes)::value>(
+            q, k_pages, v_pages, rows, n_valid, 0, work, counters, out,
+            slots, heads, head_dim, n_split, scale,
+            static_cast<cudaStream_t>(stream));
+      });
 }
 
-extern "C" int mxtpu_flash_decode(int dtype, const void* q,
+// The same over dense caches (batch, cache_len, heads, head_dim), with
+// n_split = ceil(cache_len / 32). n_valid is (batch,) int32, or null: then
+// every sequence has n_valid_all live positions.
+extern "C" int mxtpu_flash_decode(int kv_dtype, int q_dtype, const void* q,
                                   const void* k_cache, const void* v_cache,
-                                  const void* n_valid, void* out, int batch,
-                                  int cache_len, int heads, int head_dim,
-                                  float scale, void* stream) {
-  const int lanes = lanes_for(head_dim);
-  if (!lanes || cache_len < 0) return cudaErrorInvalidValue;
+                                  const void* n_valid, int n_valid_all,
+                                  void* work, void* counters, void* out,
+                                  int batch, int cache_len, int heads,
+                                  int head_dim, int n_split, float scale,
+                                  void* stream) {
+  if (!lanes_for(head_dim) || cache_len < 0 || !counters)
+    return cudaErrorInvalidValue;
   if (batch == 0 || heads == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_flash<float>(lanes, q, k_cache, v_cache, n_valid, out,
-                                 batch, cache_len, heads, head_dim, scale, s);
-  if (dtype == 1)
-    return dispatch_flash<__nv_bfloat16>(lanes, q, k_cache, v_cache, n_valid,
-                                         out, batch, cache_len, heads,
-                                         head_dim, scale, s);
-  return cudaErrorInvalidValue;
+  const DenseRows rows{cache_len};
+  return dispatch_decode(
+      kv_dtype, q_dtype, head_dim, [&](auto tk, auto tq, auto lanes) {
+        using T = decltype(tk);
+        using TQ = decltype(tq);
+        return launch_decode<T, TQ, decltype(lanes)::value>(
+            q, k_cache, v_cache, rows, n_valid, n_valid_all, work, counters,
+            out, batch, heads, head_dim, n_split, scale,
+            static_cast<cudaStream_t>(stream));
+      });
 }
 
 // q and out are (slots, n_q, heads, head_dim) float32; n_base is (slots,)

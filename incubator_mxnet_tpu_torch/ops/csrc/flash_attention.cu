@@ -21,11 +21,21 @@
 // bytes (each operand read or written once) need 10.0, 12.6 and 15.1 us
 // at 3.35 TB/s, so all three are still bound by operations.
 //
-// Head dims: any D from 1 to 128. Each kernel is built for a padded
-// D_p of 16, 32, 64 or 128, the smallest at or above D; columns D ...
+// Head dims: any D from 1 to 256. Each kernel is built for a padded
+// D_p of 16, 32, 64, 128 or 256, the smallest at or above D; columns D ...
 // D_p - 1 are staged as zeros, which leaves every dot product exact, the
 // scale is the caller's (1 / sqrt(D) of the true D), and only the first D
 // columns of o, dq, dk and dv are written.
+//
+// D_p 256 has a tile of its own: a 16 x 256 accumulator takes 128
+// registers a lane (two of them in dK/dV), so a block runs eight warps,
+// two over each 16-row tile, each owning half of the D columns of the
+// output (o, dq, dk and dv). Both warps of a row tile compute the tile's
+// S (and dP), which sum over all of D: the scores are recomputed rather
+// than passed through shared memory, so the two warps never wait on each
+// other. Walked tiles shrink to 16 rows, which keeps two stages of the
+// ring in shared memory (float32: forward 133 KB, backward 200 KB); one
+// block an SM.
 //
 // Forward design (tensor cores). One block of four warps per (batch *
 // head, 64 query rows), each warp owning 16 whole query rows: it
@@ -122,8 +132,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;    // rows a block owns
-constexpr int kThreads = 128;  // four warps of 16 owned rows (or 2 x 2)
+constexpr int kBlock = 64;  // rows a block owns
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -162,7 +171,7 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src,
 // (B * H, T) float32 statistics [t0, t0 + n) into dst; zeros past seq.
 __device__ __forceinline__ void stage_stat(float* dst, const float* src,
                                            int t0, int n, int seq) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const bool in = t0 + i < seq;
     cp_async<4>(dst + i, in ? src + t0 + i : src, in ? 4 : 0);
   }
@@ -194,34 +203,45 @@ __device__ __forceinline__ void put_rows(T* dst, int64_t stride_t, int r0,
 
 // -- forward (tensor cores) --------------------------------------------------
 
+// Warps over the D columns of an output at padded head dim D: two at
+// D_p 256, where each owns 128 columns (see the head-dim note above).
+template <int D>
+struct Cols {
+  static constexpr int WD = D > 128 ? 2 : 1;  // warps over the columns
+  static constexpr int DW = D / WD;           // columns a warp owns
+  static constexpr int kThreads = 128 * WD;   // four warps per column part
+};
+
 // Tile shape of the forward at padded head dim D: four warps of 16 query
-// rows, each over every key of a BN-row key tile (64 keys up to D 64; 32 at
-// D 128, where the 16 x 128 output accumulator takes 64 registers a lane).
+// rows (times Cols::WD), each over every key of a BN-row key tile (64 keys
+// up to D 64; 32 at D 128, where the 16 x 128 output accumulator takes 64
+// registers a lane; 16 at D 256).
 template <typename T, int D>
-struct Fwd {
-  static_assert(D % 16 == 0 && D <= 128, "padded head dim 16 ... 128");
-  static constexpr int BN = D <= 64 ? 64 : 32;  // key tile rows
-  static constexpr int NT = BN / 8;             // their 8-key mma tiles
+struct Fwd : Cols<D> {
+  static_assert(D % 16 == 0 && D <= 256, "padded head dim 16 ... 256");
+  static constexpr int BN = D <= 64 ? 64 : D <= 128 ? 32 : 16;  // key tile
+  static constexpr int NT = BN / 8;  // its 8-key mma tiles
   static constexpr int LS = D + 16 / int(sizeof(T));  // as Bwd::LS
   static constexpr size_t smem = sizeof(T) * (kBlock + 4 * BN) * LS;
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cols<D>::kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Layout lq, Layout lk,
                      Layout lv, Layout lo, int heads, int seq, int head_dim,
                      float scale, int causal, int width) {
   using P = Fwd<T, D>;
-  constexpr int BN = P::BN, NT = P::NT, LS = P::LS;
+  constexpr int BN = P::BN, NT = P::NT, LS = P::LS, DW = P::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][LS], the owned rows
   T* k_s = q_s + kBlock * LS;               // [2][BN][LS], the key ring
   T* v_s = k_s + 2 * BN * LS;               // [2][BN][LS]
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4,
-            t = lane % 4;
+  // warp: the 16-row tile; wd: the part of the D columns the warp owns
+  const int warp = threadIdx.x / 32 % 4, wd = threadIdx.x / 128,
+            lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const T* kb = k + b * lk.b + h * lk.h;
   const T* vb = v + b * lv.b + h * lv.h;
   // scores in base 2, p = exp2(s * scale * log2(e) - m): one FFMA, one EX2
@@ -247,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
     const int tiles = (k_end + BN - 1) / BN;
     // per lane: rows g and g + 8 of the warp, their running max (base 2)
     // and this lane's share of their sums
-    float acc[1][D / 8][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {};
+    float acc[1][DW / 8][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {};
     for (int j = 0; j < tiles; ++j) {
       const int k0 = j * BN;
       if (j + 1 < tiles) {
@@ -287,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
           m[i] = m_new;
         }
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn)
+        for (int dn = 0; dn < DW / 8; ++dn)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[0][dn][e] *= alpha[e >> 1];
         // p, summed as it stands and rounded to v's type for P.V
@@ -299,8 +319,8 @@ __global__ void __launch_bounds__(kThreads)
             l[e >> 1] += p;
             s[0][nt][e] = round_to<T>(p);
           }
-        sum_over_rows<T, D, 1, NT, LS>(acc, s, v_s + (j & 1) * BN * LS, g,
-                                       t);
+        sum_over_rows<T, DW, 1, NT, LS>(
+            acc, s, v_s + (j & 1) * BN * LS + wd * DW, g, t);
       }
       __syncthreads();  // the slot is read before the next tile refills it
     }
@@ -308,15 +328,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 2; ++i) {
       const float li = fmaxf(quad_sum(l[i]), 1e-30f), inv = 1.f / li;
       const int row = w0 + g + 8 * i;
-      if (t == 0 && row < seq)
+      if (t == 0 && wd == 0 && row < seq)
         lse[int64_t(bh) * seq + row] = m[i] * kLn2 + logf(li);
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
+      for (int dn = 0; dn < DW / 8; ++dn)
 #pragma unroll
         for (int e = 0; e < 2; ++e) acc[0][dn][2 * i + e] *= inv;
     }
-    put_rows<T, D, 1>(o + b * lo.b + h * lo.h, lo.t, w0, seq, head_dim, g, t,
-                      acc);
+    put_rows<T, DW, 1>(o + b * lo.b + h * lo.h + wd * DW, lo.t, w0, seq,
+                       head_dim - wd * DW, g, t, acc);
   }
 }
 
@@ -327,20 +347,22 @@ __global__ void __launch_bounds__(kThreads)
 // owns WM 16-row mma tiles and multiplies the BN / WC walked rows of its
 // column, so each walked-tile fragment it loads and splits feeds WM
 // products. With WC 2 the two warps of a row hold partial sums of the
-// same output rows, which are added in a fixed order at the end.
+// same output rows, which are added in a fixed order at the end. At D_p
+// 256 each of them is two warps (Cols::WD), one per half of the columns.
 template <typename T, int D, bool kDkv>
-struct Bwd {
-  static_assert(D % 16 == 0 && D <= 128, "padded head dim 16 ... 128");
+struct Bwd : Cols<D> {
+  static_assert(D % 16 == 0 && D <= 256, "padded head dim 16 ... 256");
   static constexpr int WM = D <= 64 ? 2 : 1;  // 16-row mma tiles a warp owns
   static constexpr int WC = WM;  // warps side by side over the walked rows
-  static constexpr int BN = D <= 64 && !kDkv ? 64 : 32;  // walked tile rows
+  static constexpr int BN =  // walked tile rows
+      D <= 64 && !kDkv ? 64 : D <= 128 ? 32 : 16;
   static constexpr int WB = BN / WC;  // walked rows a warp multiplies
   static constexpr int NT = WB / 8;   // their 8-row mma tiles
   // row stride of a staged tile, in elements: 16 bytes of padding, which
   // makes both fragment reads below conflict-free in shared memory
   static constexpr int LS = D + 16 / int(sizeof(T));
-  // floats a lane holds in one 16 WM x D accumulator
-  static constexpr int ACC = WM * D / 8 * 4;
+  // floats a lane holds in one 16 WM x DW accumulator
+  static constexpr int ACC = WM * Cols<D>::DW / 8 * 4;
   static constexpr size_t smem = sizeof(T) * (2 * kBlock + 4 * BN) * LS +
                                  (kDkv ? sizeof(float) * 4 * BN : 0);
   static_assert(WC == 1 || 2 * 32 * ACC * sizeof(float) <= smem,
@@ -380,7 +402,7 @@ __device__ __forceinline__ void add_partner(float (&acc)[WM][D / 8][4],
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cols<D>::kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -390,15 +412,17 @@ __global__ void __launch_bounds__(kThreads)
                     int causal, int width) {
   using P = Bwd<T, D, false>;
   constexpr int WM = P::WM, WC = P::WC, BN = P::BN, WB = P::WB,
-                NT = P::NT, LS = P::LS;
+                NT = P::NT, LS = P::LS, DW = P::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [64][LS], the owned rows
   T* do_s = q_s + kBlock * LS;              // [64][LS]
   T* k_s = do_s + kBlock * LS;              // [2][BN][LS], the key ring
   T* v_s = k_s + 2 * BN * LS;               // [2][BN][LS]
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x / 32, wr = warp / WC, wc = warp % WC,
-            lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  // wd: the part of the D columns of the output the warp owns
+  const int warp = threadIdx.x / 32 % 4, wr = warp / WC, wc = warp % WC,
+            wd = threadIdx.x / 128, lane = threadIdx.x % 32, g = lane / 4,
+            t = lane % 4;
   const T* kb = k + b * lk.b + h * lk.h;
   const T* vb = v + b * lv.b + h * lv.h;
   for (int pass = 0; pass < 2; ++pass) {
@@ -432,7 +456,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k_end = causal ? min(q0 + kBlock, seq) : seq;
     const int w_end = causal ? w0 + 16 * WM : seq;  // keys its rows see
     const int tiles = (k_end + BN - 1) / BN;
-    float acc[WM][D / 8][4] = {};
+    float acc[WM][DW / 8][4] = {};
     for (int j = 0; j < tiles; ++j) {
       const int k0 = j * BN;
       if (j + 1 < tiles) {
@@ -469,21 +493,21 @@ __global__ void __launch_bounds__(kThreads)
               s[m][nt][e] = round_to<T>(
                   p * (dp[m][nt][e] - row_delta[m][e >> 1]) * scale);
             }
-        sum_over_rows<T, D, WM, NT, LS>(acc, s, kt, g, t);
+        sum_over_rows<T, DW, WM, NT, LS>(acc, s, kt + wd * DW, g, t);
       }
       __syncthreads();  // the slot is read before the next tile refills it
     }
     if constexpr (WC == 2)
-      add_partner<WM, D>(acc, reinterpret_cast<float*>(smem_raw), wr, wc,
-                         lane);
+      add_partner<WM, DW>(acc, reinterpret_cast<float*>(smem_raw), wr, wc,
+                          lane);
     if (wc == 0)
-      put_rows<T, D, WM>(dq + b * ldq.b + h * ldq.h, ldq.t, w0, seq, head_dim,
-                         g, t, acc);
+      put_rows<T, DW, WM>(dq + b * ldq.b + h * ldq.h + wd * DW, ldq.t, w0,
+                          seq, head_dim - wd * DW, g, t, acc);
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cols<D>::kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -493,7 +517,7 @@ __global__ void __launch_bounds__(kThreads)
                      int head_dim, float scale, int causal, int width) {
   using P = Bwd<T, D, true>;
   constexpr int WM = P::WM, WC = P::WC, BN = P::BN, WB = P::WB,
-                NT = P::NT, LS = P::LS;
+                NT = P::NT, LS = P::LS, DW = P::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);  // [64][LS], the owned keys
   T* v_s = k_s + kBlock * LS;               // [64][LS]
@@ -502,8 +526,10 @@ __global__ void __launch_bounds__(kThreads)
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * BN * LS);  // [2][BN]
   float* delta_s = lse_s + 2 * BN;                              // [2][BN]
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x / 32, wr = warp / WC, wc = warp % WC,
-            lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  // wd: the part of the D columns of the output the warp owns
+  const int warp = threadIdx.x / 32 % 4, wr = warp / WC, wc = warp % WC,
+            wd = threadIdx.x / 128, lane = threadIdx.x % 32, g = lane / 4,
+            t = lane % 4;
   const T* qb = q + b * lq.b + h * lq.h;
   const T* dob = dout + b * ldo.b + h * ldo.h;
   const float* lse_b = lse + int64_t(bh) * seq;
@@ -531,7 +557,7 @@ __global__ void __launch_bounds__(kThreads)
 
     const int w0 = k0 + 16 * WM * wr;  // the warp's first key row
     const float scale2 = scale * kLog2e;  // p = exp2(s * scale2 - lse * log2e)
-    float dk_acc[WM][D / 8][4] = {}, dv_acc[WM][D / 8][4] = {};
+    float dk_acc[WM][DW / 8][4] = {}, dv_acc[WM][DW / 8][4] = {};
     for (int j = 0; j < tiles; ++j) {
       const int qs = q_start + j * BN;
       if (j + 1 < tiles) {
@@ -576,21 +602,21 @@ __global__ void __launch_bounds__(kThreads)
                   round_to<T>(p * (dp[m][nt][e] - delta_t[col]) * scale);
               s[m][nt][e] = round_to<T>(p);
             }
-        sum_over_rows<T, D, WM, NT, LS>(dv_acc, s, dot, g, t);
-        sum_over_rows<T, D, WM, NT, LS>(dk_acc, dp, qt, g, t);
+        sum_over_rows<T, DW, WM, NT, LS>(dv_acc, s, dot + wd * DW, g, t);
+        sum_over_rows<T, DW, WM, NT, LS>(dk_acc, dp, qt + wd * DW, g, t);
       }
       __syncthreads();  // the slot is read before the next tile refills it
     }
     if constexpr (WC == 2) {
       float* scratch = reinterpret_cast<float*>(smem_raw);
-      add_partner<WM, D>(dk_acc, scratch, wr, wc, lane);
-      add_partner<WM, D>(dv_acc, scratch, wr, wc, lane);
+      add_partner<WM, DW>(dk_acc, scratch, wr, wc, lane);
+      add_partner<WM, DW>(dv_acc, scratch, wr, wc, lane);
     }
     if (wc == 0) {
-      put_rows<T, D, WM>(dk + b * ldk.b + h * ldk.h, ldk.t, w0, seq, head_dim,
-                         g, t, dk_acc);
-      put_rows<T, D, WM>(dv + b * ldv.b + h * ldv.h, ldv.t, w0, seq, head_dim,
-                         g, t, dv_acc);
+      put_rows<T, DW, WM>(dk + b * ldk.b + h * ldk.h + wd * DW, ldk.t, w0,
+                          seq, head_dim - wd * DW, g, t, dk_acc);
+      put_rows<T, DW, WM>(dv + b * ldv.b + h * ldv.h + wd * DW, ldv.t, w0,
+                          seq, head_dim - wd * DW, g, t, dv_acc);
     }
   }
 }
@@ -598,9 +624,9 @@ __global__ void __launch_bounds__(kThreads)
 // -- host side ---------------------------------------------------------------
 
 // The padded head dim the kernels are built for: the smallest of 16, 32,
-// 64 and 128 at or above d; 0 for a d outside 1 ... 128.
+// 64, 128 and 256 at or above d; 0 for a d outside 1 ... 256.
 int padded_dim(int d) {
-  if (d < 1 || d > 128) return 0;
+  if (d < 1 || d > 256) return 0;
   int p = 16;
   while (p < d) p *= 2;
   return p;
@@ -620,6 +646,7 @@ cudaError_t dispatch(int dtype, int head_dim, F&& f) {
     MXTPU_FLASH_CASE(32)
     MXTPU_FLASH_CASE(64)
     MXTPU_FLASH_CASE(128)
+    MXTPU_FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -671,7 +698,7 @@ int copy_width(int elem, int head_dim, const void* const* ptrs, int n,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every (B, H, T, D) operand, D
-// from 1 to 128. Each operand's batch, head and row strides (in elements)
+// from 1 to 256. Each operand's batch, head and row strides (in elements)
 // come in `strides`, three per operand in argument order; its D stride
 // must be 1, and its address aligned to its element. Any other stride
 // runs: the kernels pick their widest copy that every input's address and
@@ -697,7 +724,7 @@ extern "C" int mxtpu_flash_attention_fwd(int dtype, const void* q,
     constexpr size_t smem = Fwd<T, D>::smem;
     cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
+    kernel<<<grid_for(batch, heads, seq, causal), Cols<D>::kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
@@ -727,7 +754,7 @@ extern "C" int mxtpu_flash_attention_dq(int dtype, const void* q,
     constexpr size_t smem = Bwd<T, D, false>::smem;
     cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
+    kernel<<<grid_for(batch, heads, seq, causal), Cols<D>::kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -758,7 +785,7 @@ extern "C" int mxtpu_flash_attention_dkv(int dtype, const void* q,
     constexpr size_t smem = Bwd<T, D, true>::smem;
     cudaError_t err = allow_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid_for(batch, heads, seq, causal), kThreads, smem,
+    kernel<<<grid_for(batch, heads, seq, causal), Cols<D>::kThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),

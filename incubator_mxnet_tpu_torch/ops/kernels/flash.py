@@ -30,11 +30,13 @@ counter. lse is a plain (B, H, T) float32 tensor, without the TPU
 kernel's lane replication. `block_q` / `block_k` are TPU parameters and
 are not carried over: the kernels choose their own tiles.
 
-Head dims: the JAX kernels take any D; the CUDA kernels take any D up to
-`FLASH_MAX_HEAD_DIM` (128), each built for the padded D of
-`padded_head_dim(D)` (16, 32, 64 or 128) with the extra columns staged as
-zeros. All three kernels run on the tensor cores, float32 as
-error-compensated TF32 (three TF32 products per float32 product).
+Head dims: the JAX kernels take any D, and so do the plain versions (the
+CPU route). The CUDA kernels take any D up to `FLASH_MAX_HEAD_DIM` (256,
+the decode kernels' limit too), each built for the padded D of
+`padded_head_dim(D)` (16, 32, 64, 128 or 256) with the extra columns
+staged as zeros; only the CUDA route checks D, and it raises above 256.
+All three kernels run on the tensor cores, float32 as error-compensated
+TF32 (three TF32 products per float32 product).
 """
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ __all__ = ["FLASH_MAX_HEAD_DIM", "padded_head_dim", "flash_attention",
            "flash_attention_dq_ref", "flash_attention_dkv",
            "flash_attention_dkv_ref"]
 
-FLASH_MAX_HEAD_DIM = 128  # the largest head dim the kernels take
-_PADDED_HEAD_DIMS = (16, 32, 64, 128)  # the head dims they are built for
+FLASH_MAX_HEAD_DIM = 256  # the largest head dim the kernels take
+_PADDED_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims they are built at
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -142,8 +144,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False):
 
 def padded_head_dim(d):
     """The head dim the kernels run a head dim `d` at: the smallest of 16,
-    32, 64 and 128 at or above it (the same rule as `padded_dim` in
-    `flash_attention.cu`). Raises for d outside 1 ... 128."""
+    32, 64, 128 and 256 at or above it (the same rule as `padded_dim` in
+    `flash_attention.cu`). Raises for d outside 1 ... 256."""
     if not 1 <= d <= FLASH_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} is outside the kernels' range 1 ... "
                          f"{FLASH_MAX_HEAD_DIM}")
@@ -152,7 +154,8 @@ def padded_head_dim(d):
 
 def _check(name, q, operands):
     """(B, H, T, D) of q, after checking that every operand has its shape,
-    device and dtype and that D is one the kernels take (1 ... 128)."""
+    device and dtype and that D is one the kernels take (1 ... 256). Only
+    the CUDA route calls it: the plain versions take any D."""
     if q.dim() != 4:
         raise ValueError(f"{name}: operands must be (B, H, T, D), got "
                          f"{tuple(q.shape)}")
@@ -203,11 +206,12 @@ def _stream(device):
 
 def flash_attention_fwd(q, k, v, causal=False):
     """FlashAttention-2 forward: q, k, v (B, H, T, D), all float32 or all
-    bfloat16, any T, any D up to 128. Returns (o (B, H, T, D)
+    bfloat16, any T, any D (up to 256 on the card). Returns (o (B, H, T, D)
     in q's dtype and layout, lse (B, H, T) float32).
 
     CUDA tensors run the Hopper kernel of `ops/csrc/flash_attention.cu`:
-    four warps per (b·h, 64 query rows), each owning 16 whole rows, an
+    four warps per (b·h, 64 query rows), each owning 16 whole rows (eight
+    at a padded D of 256, two per 16 rows over halves of the columns), an
     online softmax over key tiles streamed through a two-stage cp.async
     ring, Q·Kᵀ and P·V on the tensor cores (float32 as 3 × TF32, so the
     lse that the backward recomputes p from keeps float32 accuracy), p

@@ -1,12 +1,16 @@
 """Decode-attention parity of the PyTorch port with the JAX package (CPU).
 
 The port's plain versions (`paged_decode_attention_ref`,
-`flash_decode_ref`) against the JAX Pallas kernels run in interpret mode,
-as the JAX package's own tests run them on the CPU; the port's wrappers
-on CPU tensors dispatch to those plain versions. The CUDA kernels
-themselves run only on the card: `chip_smoke.py` holds them against the
-plain versions there.
+`flash_decode_ref`) and the plain versions of the kernels' split key
+walk (`paged_decode_attention_split_ref`, `flash_decode_split_ref`)
+against the JAX Pallas kernels run in interpret mode, as the JAX
+package's own tests run them on the CPU; the port's wrappers on CPU
+tensors dispatch to the plain versions. The CUDA kernels themselves run
+only on the card: `chip_smoke.py` holds them against the plain versions
+there.
 """
+import functools
+
 import numpy as np
 
 import jax.numpy as jnp
@@ -94,6 +98,67 @@ def test_paged_ref_reads_recycled_pages(shape):
     got = tdk.paged_decode_attention_ref(_t(q), _t(kp), _t(vp), _t(table),
                                          _t(nv)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+    # the kernel's split walk reads the new contents too
+    for keys in SPLIT_KEYS:
+        split = tdk.paged_decode_attention_split_ref(
+            _t(q), _t(kp), _t(vp), _t(table), _t(nv), keys).numpy()
+        np.testing.assert_allclose(split, want, **TOL)
+
+
+# splits of the plain split walk: the kernel's and others, 24 ending
+# inside a page; D 8, 64 and 256 (the kernels' largest); a table of 5
+# pages of 8 (40 keys, a multiple of no split) with the ragged n_valid of
+# `_ragged_case`: a dead slot and one at the full table among them
+SPLIT_KEYS = (16, 24, 64)
+SPLIT_HEADS = {8: 4, 64: 2, 256: 2}  # head dim -> heads
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_paged_split_case(D):
+    case = _ragged_case(np.random.RandomState(D), SPLIT_HEADS[D], D, 8, 12,
+                        5, 8)
+    return case, np.asarray(jpk.paged_decode_attention(
+        *(jnp.asarray(a) for a in case)))
+
+
+@pytest.mark.parametrize("D", sorted(SPLIT_HEADS))
+@pytest.mark.parametrize("keys", SPLIT_KEYS)
+def test_paged_split_ref_matches_jax(keys, D):
+    (q, kp, vp, table, nv), want = _jax_paged_split_case(D)
+    assert nv.max() == table.shape[1] * 8 and not nv.min()
+    got = tdk.paged_decode_attention_split_ref(_t(q), _t(kp), _t(vp),
+                                               _t(table), _t(nv),
+                                               keys).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(np.isfinite(got)) and not got[nv == 0].any()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_flash_split_case(D):
+    """B 4 over a cache of T 40 (one JAX block, a multiple of no split):
+    one live position, all of them, a dead sequence and 17."""
+    rng = np.random.RandomState(100 + D)
+    H, T = SPLIT_HEADS[D], 40
+    q = rng.randn(4, H, D).astype(np.float32)
+    k = rng.randn(4, T, H, D).astype(np.float32)
+    v = rng.randn(4, T, H, D).astype(np.float32)
+    nv = np.array([1, T, 0, 17], np.int32)
+    return (q, k, v, nv), np.asarray(jpk.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(nv)))
+
+
+@pytest.mark.parametrize("D", sorted(SPLIT_HEADS))
+@pytest.mark.parametrize("keys", SPLIT_KEYS)
+def test_flash_split_ref_matches_jax(keys, D):
+    (q, k, v, nv), want = _jax_flash_split_case(D)
+    got = tdk.flash_decode_split_ref(_t(q), _t(k), _t(v), _t(nv),
+                                     keys).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    # the dead sequence gives zeros, as the JAX kernel gives
+    assert np.all(np.isfinite(got)) and not got[nv == 0].any()
+    np.testing.assert_allclose(
+        tdk.flash_decode_ref(_t(q), _t(k), _t(v), _t(nv)).numpy(), want,
+        **TOL)
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))

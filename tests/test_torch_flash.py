@@ -5,10 +5,12 @@ and backward wrappers run their plain versions on CPU tensors) against the
 JAX Pallas FlashAttention-2 kernels in interpret mode, as the JAX
 package's own tests run them on the CPU. Outputs and gradients agree at
 2e-4, the gradient tolerance of `tests/test_pallas.py`, at every head dim
-of the repo's configurations and at 128. The CUDA kernels themselves run
-only on the card: `chip_smoke.py` holds them against the plain versions
-there; here the wrapper's head-dim rule (1 ... 128, padded to 16, 32, 64
-or 128) and its in-place reading of strided operands are checked.
+of the repo's configurations, at 128, and at 160 and 256 above it (the
+CPU route, like JAX, takes any head dim). The CUDA kernels themselves
+run only on the card: `chip_smoke.py` holds them against the plain
+versions there; here the CUDA route's head-dim rule (1 ... 256, padded
+to 16, 32, 64, 128 or 256) and its in-place reading of strided operands
+are checked.
 """
 import numpy as np
 
@@ -31,16 +33,19 @@ def _qkvg(seed, shape):
 
 
 # head dims of the repo's configurations (4, 8, 12, 16; 6 has rows no
-# 16-byte copy can stage) and the largest the CUDA kernels take; D 16
-# keeps the ids it had before other head dims were added
+# 16-byte copy can stage) and 128; D 16 keeps the ids it had before other
+# head dims were added. Above 128, at one batch row: D 160 (padded to 256
+# on the card) and 256, the largest the CUDA kernels take (Gemma's)
 HEAD_DIM_CASES = [pytest.param(D, causal, id=("" if D == 16 else f"D{D}-")
                                + ("causal" if causal else "full"))
                   for D in (4, 6, 8, 12, 16, 128) for causal in (False, True)]
+HEAD_DIM_CASES += [pytest.param(160, False, id="D160-full"),
+                   pytest.param(256, True, id="D256-causal")]
 
 
 @pytest.mark.parametrize("D,causal", HEAD_DIM_CASES)
 def test_flash_attention_and_gradients_match_jax(D, causal):
-    q, k, v, g = _qkvg(3, (2, 2, 64, D))
+    q, k, v, g = _qkvg(3, (1 if D > 128 else 2, 2, 64, D))
 
     def jloss(q, k, v):
         o = jflash(q, k, v, causal=causal, block_q=16, block_k=16,
@@ -112,19 +117,44 @@ def test_check_takes_every_head_dim_up_to_128(D):
     assert tfl._check("flash_attention_dq", q, (q, q, q)) == q.shape
 
 
+@pytest.mark.parametrize("D", [129, 160, 200, 256])
+def test_check_takes_head_dims_up_to_256(D):
+    q = torch.zeros((1, 2, 8, D))
+    assert tfl._check("flash_attention_fwd", q, (q, q)) == q.shape
+
+
 def test_check_refuses_head_dims_above_128():
+    """Named when the CUDA route refused head dims above 128; it now holds
+    the CUDA route's check to refusing 257, one above FLASH_MAX_HEAD_DIM
+    (256), with a message that names the limit."""
+    assert tfl.FLASH_MAX_HEAD_DIM == 256
     q = torch.zeros((1, 2, 8, tfl.FLASH_MAX_HEAD_DIM + 1))
     with pytest.raises(ValueError, match="outside the kernels' range 1 ... "
-                                         "128"):
+                                         "256"):
         tfl._check("flash_attention_fwd", q, (q, q))
+
+
+@pytest.mark.parametrize("D", [256, 257])
+def test_cpu_route_has_no_head_dim_limit(D):
+    """The CPU route runs the plain versions at any head dim, as the JAX
+    kernels take any: the forward against a float64 softmax at 1e-5."""
+    q, k, v, _ = _qkvg(9, (1, 1, 16, D))
+    got = tfl.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=True).numpy()
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / np.sqrt(D)
+    s = np.where(np.tril(np.ones((16, 16), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_padded_head_dim_is_the_smallest_built_dim_at_or_above():
     assert [tfl.padded_head_dim(d) for d in (4, 12, 100)] == [16, 16, 128]
     assert [tfl.padded_head_dim(d) for d in (1, 16, 17, 32, 33, 64, 65,
-                                             128)] == [16, 16, 32, 32, 64,
-                                                       64, 128, 128]
-    for d in (0, 129):
+                                             128, 129, 256)] == [
+        16, 16, 32, 32, 64, 64, 128, 128, 256, 256]
+    for d in (0, 257):
         with pytest.raises(ValueError):
             tfl.padded_head_dim(d)
 

@@ -50,17 +50,17 @@ def test_apply_with_flash_matches_jax():
     assert float(aux) == 0.0
 
 
-def _three_steps_match_jax(**kw):
-    """Returns the port's three losses after holding them, and the
-    parameters after them, to the JAX step's."""
-    jcfg = jtfm.TransformerConfig(**SMALL, **kw)
-    tcfg = ttfm.TransformerConfig(**SMALL, **kw)
+def _three_steps_match_jax(steps=3, **kw):
+    """Returns the port's losses after holding them, and the parameters
+    after `steps` steps, to the JAX step's; `kw` overrides SMALL."""
+    jcfg = jtfm.TransformerConfig(**{**SMALL, **kw})
+    tcfg = ttfm.TransformerConfig(**{**SMALL, **kw})
     mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1, 1),
                 axis_names=("dp", "ep", "tp"))
     jstep, jp = jtfm.make_gspmd_train_step(mesh, jcfg)
     tstep, tp = ttfm.make_train_step(tcfg, device="cpu")
     losses = []
-    for i in range(3):
+    for i in range(steps):
         tok, tgt = _batch(i)
         jloss, jp = jstep(jp, tok, tgt)  # donates the jp it was given
         tloss, tp = tstep(tp, torch.from_numpy(tok), torch.from_numpy(tgt))
@@ -85,6 +85,14 @@ def test_train_step_matches_jax_for_three_steps():
                          ids=["fused_xent", "moe_fused_xent", "moe"])
 def test_train_step_variants_match_jax_for_three_steps(kw):
     _three_steps_match_jax(**kw)
+
+
+def test_train_step_at_head_dim_256_matches_jax():
+    """One step with use_flash at head dim 256 (d_model 512 over 2 heads,
+    as Gemma's heads): the JAX step runs its Pallas flash kernels at any
+    head dim, and so does the port (plain versions here, the D_p 256
+    kernels on the card)."""
+    _three_steps_match_jax(steps=1, d_model=512, n_heads=2, n_layers=1)
 
 
 def test_fused_xent_still_raises():
