@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, its transformer train step and
-its ResNet-50 train step on one CUDA card and hold its hand-written
-kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving path (through CUDA graphs), its
+transformer train step and its ResNet-50 train step on one CUDA card and
+hold its hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    table changed in place; the wide kernel at Q = 5,
    32 and 64 rows per slot and at a head dim of 80 (Q 5, 4 heads), each
    against the dense softmax and the split walk at the kernel's split
-   size, and bit-equal across two launches; the flash-attention forward,
+   size, bit-equal across two launches, and captured in two CUDA graphs
+   (Q 5 and 64) replayed after n_base and the page table changed in
+   place; the flash-attention forward,
    dQ and dK/dV
    kernels at the training shape (B 8, H 8, T 512, D 64, causal, in the
    model's (B, T, H, D) layout), non-causal at T 512, at a causal ragged
@@ -50,11 +52,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    seed 0) serves the seeded trace through the engine (8 slots, page 16)
    with the levers off, then once with each lever on (prefix cache over
    a half-shared 32-token prefix, chunked prefill of 64, n-gram 2
-   speculation with lookahead 4). Every request must complete with its
-   full budget; the paged kernel must run once per layer per decode step
-   and the wide kernel once per layer per wide step; every request's
-   tokens must equal generate() with use_flash, which runs the
-   flash_decode kernel;
+   speculation with lookahead 4), each on an engine whose every site
+   warm() captured into a CUDA graph first. Every site must be captured
+   and the run must capture nothing (steady and warm-up compiles and
+   retraces 0); every request must complete with its full budget; the
+   paged kernel must run once per layer per decode step and the wide
+   kernel once per layer per wide step, every launch in a graph replay
+   (the launches each graph holds x its replays); every request's tokens
+   must equal generate() with use_flash, which runs the flash_decode
+   kernel. The levers-off leg serves the trace once more with
+   MXTPU_TRACE_DIR set: its MXTRACE1 file must parse with the port's
+   reader, with one complete causal chain per request;
 4. training: the same full-width model with use_flash (batch 8, seq 512,
    lr 0.1, aux_weight 0.01, tokens and targets from RandomState(0) as
    tools/bench_transformer.py draws them) takes 10 steps of
@@ -80,7 +88,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1e-6 and its gradients at rtol 2e-4, atol 1e-5; every loss finite, the
    largest relative loss gap printed;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
-   prefill, the wide step at Q 5 and 64, tokens/s over each trace, the train step and train tokens/s of
+   prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
+   latency over each trace (through graphs), the decode step eager
+   against its CUDA graph in 6 alternating turns (host clock with the
+   read-back, device time), the train step and train tokens/s of
    each training leg, and each kernel beside its plain version, its bound
    and, for flash_decode, the flash-attention and the softmax-xent
    kernels, one library call (the flash backward's: the library's
@@ -92,12 +103,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
    ResNet-50 leg's step, host time and images/s; then
-   traced windows (torch.profiler) over decode steps, over each trace and
-   over train steps (both models) give the device's busy share and the kernels that
-   take its time.
+   traced windows (torch.profiler) over decode steps (eager and
+   graphed), over each trace (through graphs, where the serving.step
+   span must show up by name) and over train steps (both models) give
+   the device's busy share and the kernels that take its time.
 
-The last lines are the card (`nvidia-smi` name and power limit), one JSON
-object describing the kernels, and the status JSON.
+The last lines are the whole call's seconds, the card (`nvidia-smi` name
+and power limit), one JSON object describing the kernels, and the status
+JSON.
 """
 from __future__ import annotations
 
@@ -106,6 +119,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -125,7 +139,10 @@ from incubator_mxnet_tpu_torch.ops.kernels import epilogue as ep
 from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
 from incubator_mxnet_tpu_torch.parallel import moe
-from incubator_mxnet_tpu_torch.serving import PageAllocator, run_trace
+from incubator_mxnet_tpu_torch import profiler, telemetry
+from incubator_mxnet_tpu_torch.serving import (PageAllocator, ServingEngine,
+                                               run_trace)
+from incubator_mxnet_tpu_torch.telemetry import distributed as tdist
 
 FULL = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
             max_len=512)
@@ -397,6 +414,36 @@ def decode_graphs(device, dtype, tol):
                   f"beside the other after n_valid and the table changed in "
                   f"place", out, want, tol)
         del graphs
+
+
+def wide_graphs(device, dtype, tol):
+    """Kernel 10 captured in two CUDA graphs, at Q 5 and Q 64 (one call
+    each, after a warm-up call outside them), then n_base and the page
+    table changed in place and both graphs replayed one after the other:
+    each output must equal the plain version on the changed inputs. The
+    wrapper's workspace and its second (combine) kernel must land in the
+    graph, on the capture's stream."""
+    name = str(dtype).replace("torch.", "")
+    cases = [wide_case(device, dtype, Q) for Q in (WIDE_Q[0], WIDE_Q[-1])]
+    for args in cases:
+        dk.paged_decode_attention_wide(*args)
+    torch.cuda.synchronize()
+    graphs, outs = [torch.cuda.CUDAGraph() for _ in cases], []
+    for graph, args in zip(graphs, cases):
+        with torch.cuda.graph(graph):
+            outs.append(dk.paged_decode_attention_wide(*args))
+    for args in cases:
+        args[3].copy_(args[3].roll(1, 0))
+        args[4].copy_(args[4].roll(1, 0))
+    torch.cuda.synchronize()
+    for graph in graphs:
+        graph.replay()
+    torch.cuda.synchronize()
+    for args, out in zip(cases, outs):
+        check(f"paged_decode_attention_wide {name} Q {args[0].shape[1]}, "
+              f"CUDA graph replayed after n_base and the table changed in "
+              f"place", out, dk.paged_decode_attention_wide_ref(*args), tol)
+    del graphs
 
 
 def decode_streams(device, dtype, tol):
@@ -758,6 +805,7 @@ def kernels_against_plain(device):
                     errs["paged_decode_attention_wide"] = max(
                         errs["paged_decode_attention_wide"], err)
         wide_deterministic(device, dtype)
+        wide_graphs(device, dtype, tol)
     errs = xent_against_plain(device, flash_against_plain(device, errs))
     flash_head_dim_steps(device)
     return epilogue_against_plain(device, errs)
@@ -765,34 +813,148 @@ def kernels_against_plain(device):
 
 # -- phase 3: the serving path at full width --------------------------------
 
+# the levers that configure the engine (the rest shape the trace)
+ENGINE_LEVERS = ("prefix_cache", "prefill_chunk", "spec_ngram",
+                 "spec_lookahead")
+
+
 def serve(cfg, params, n_requests, device, **levers):
-    """Serve the seeded trace with `levers` (none: the levers off); the
-    paged and wide kernels' launches are counted from zero over exactly
-    this run, and each must match the engine's calls of its step."""
-    dk.paged_decode_attention.launches = 0
-    dk.paged_decode_attention_wide.launches = 0
-    out = run_trace(params, cfg, n_requests=n_requests, slots=SLOTS,
-                    page_size=PAGE, seed=0, device=device, **levers)
-    out["launches"] = {"paged": dk.paged_decode_attention.launches,
-                       "wide": dk.paged_decode_attention_wide.launches}
+    """Serve the seeded trace with `levers` (none: the levers off) on an
+    engine whose every site `warm()` captured into a CUDA graph first, so
+    the run captures nothing: steady and warm-up-wave compiles and
+    retraces must all be 0. The paged and wide kernels' launches are
+    counted from zero over exactly this run; each must equal the engine's
+    calls of its step x layers, and equal the launches each graph of the
+    sites holds x that graph's replays in the run (so no launch was
+    eager). `device_launches` counts them again, from the device's own
+    kernel records."""
+    eng = ServingEngine(params, cfg, slots=SLOTS, page_size=PAGE,
+                        device=device, **{k: v for k, v in levers.items()
+                                          if k in ENGINE_LEVERS})
+    t0 = time.perf_counter()
+    warm = eng.warm()
+    warm_s = time.perf_counter() - t0
+    if set(warm.values()) != {"captured"}:
+        raise AssertionError(f"warm() did not capture every site: {warm}")
+    replays0 = {name: site.replays for name, site in eng.sites().items()}
+    replayed0 = {name: site.replayed_launches()
+                 for name, site in eng.sites().items()}
+    kernels = {"paged": dk.paged_decode_attention,
+               "wide": dk.paged_decode_attention_wide}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    out = run_trace(params, cfg, n_requests=n_requests, seed=0, engine=eng,
+                    **{k: v for k, v in levers.items()
+                       if k not in ENGINE_LEVERS})
+    out["launches"] = {k: kernel.launches for k, kernel in kernels.items()}
+    sites = eng.sites()
+    out["sites"] = {name: {"capture_s": sum(site.capture_seconds.values()),
+                           "replays": site.replays - replays0.get(name, 0)}
+                    for name, site in sites.items()}
+    replayed = {}
+    for name, site in sites.items():
+        for kernel, n in site.replayed_launches().items():
+            replayed[kernel] = (replayed.get(kernel, 0) + n
+                                - replayed0.get(name, {}).get(kernel, 0))
+    out.update(engine=eng, warm=warm, warm_s=warm_s,
+               pool_bytes=sum(site.pool_bytes for site in sites.values()))
+    for key in ("steady_compiles", "steady_retraces", "warmup_compiles",
+                "dense_fallbacks"):
+        if out[key] != 0:
+            raise AssertionError(f"{key} is {out[key]} after warm()")
     if out["requests_completed"] != n_requests:
         raise AssertionError(f"{out['requests_completed']} of {n_requests} "
                              f"requests completed")
     for r in out["trace"]:
         if len(out["results"][r["rid"]].tokens) != r["max_new"]:
             raise AssertionError(f"request {r['rid']} stopped early")
-    for kernel, calls, what in (
-            ("paged", out["decode_steps"], "decode steps"),
-            ("wide", out["wide_calls"], "wide steps")):
+    for key, calls, what in (("paged", out["decode_steps"], "decode steps"),
+                             ("wide", out["wide_calls"], "wide steps")):
         want = calls * cfg.n_layers
-        if out["launches"][kernel] != want:
-            raise AssertionError(f"{kernel} kernel launched "
-                                 f"{out['launches'][kernel]} times, "
-                                 f"expected {want} ({what} x layers)")
+        in_graphs = replayed.get(kernels[key].__name__, 0)
+        if not out["launches"][key] == in_graphs == want:
+            raise AssertionError(
+                f"{key} kernel launched {out['launches'][key]} times, "
+                f"{in_graphs} of them in graph replays; expected {want} "
+                f"({what} x layers), all replayed")
     used = "wide" if levers else "paged"
     if not out["launches"][used]:
         raise AssertionError(f"the {used} kernel never ran on this path")
     return out
+
+
+# the kernel function each counted wrapper launches once per call (the
+# wide wrapper's combine kernel is not counted)
+DEVICE_KERNELS = {"paged": "decode_split_kernel",
+                  "wide": "paged_decode_wide_kernel"}
+
+
+def device_launches(cfg, out, events, leg):
+    """A graphed trace's paged and wide launches counted a second way,
+    independent of the wrappers' counts a replay adds: from the kernel
+    records of the profiler window `events` ({device event name: count})
+    the run `out` was traced in. Each must equal the engine's steps x
+    layers, and the wrappers' counts over the same run."""
+    counted = {"paged": dk.paged_decode_attention.launches,
+               "wide": dk.paged_decode_attention_wide.launches}
+    seen = {key: sum(n for name, n in events.items() if frag in name)
+            for key, frag in DEVICE_KERNELS.items()}
+    want = {"paged": out["decode_steps"] * cfg.n_layers,
+            "wide": out["wide_calls"] * cfg.n_layers}
+    print(f"    levers {leg}: the device ran {seen} paged / wide kernels "
+          f"in the window; wrappers counted {counted}; layers x steps "
+          f"{want}")
+    if not seen == counted == want:
+        raise AssertionError(f"levers {leg}: device kernel records {seen}, "
+                             f"wrapper counts {counted}, expected {want} "
+                             f"(layers x steps)")
+
+
+def traced_chains(cfg, params, eng, trace_dir):
+    """Serve the trace once more on `eng` with MXTPU_TRACE_DIR set: the
+    MXTRACE1 file must parse with the port's own reader, and every request
+    of the run must have one complete causal chain (its root, its queued,
+    prefill and, past one token, decode stages under the root, one
+    req_step entry per decode step) whose figures equal its result."""
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    before = set(eng.results())
+    os.environ["MXTPU_TRACE_DIR"] = trace_dir
+    tdist.refresh_from_env()
+    try:
+        out = run_trace(params, cfg, n_requests=16, seed=0, engine=eng)
+    finally:
+        del os.environ["MXTPU_TRACE_DIR"]
+        tdist.refresh_from_env()  # flushes and closes the trace file
+    files = [os.path.join(trace_dir, f) for f in sorted(os.listdir(trace_dir))
+             if f.endswith(".mxtrace")]
+    records = [rec for f in files for rec in tdist.read_trace_file(f)]
+    results = {rid: res for rid, res in out["results"].items()
+               if rid not in before}
+    roots = {r["extra"]["request"]: r for r in records
+             if r.get("name") == "serving.request"}
+    if set(roots) != set(results):
+        raise AssertionError(f"trace roots {sorted(roots)} != requests "
+                             f"{sorted(results)}")
+    steps = [r for r in records if r.get("kind") == "req_step"]
+    for rid, res in results.items():
+        root = roots[rid]
+        stages = {r["name"]: r for r in records
+                  if r.get("name", "").startswith("serving.request.")
+                  and r["extra"].get("request") == rid}
+        want = {"serving.request.queued", "serving.request.prefill"}
+        if len(res.tokens) > 1:
+            want.add("serving.request.decode")
+        progressed = sum(1 for r in steps for slot in r["slots"]
+                         if slot[0] == rid)
+        if (set(stages) != want
+                or any(st["tid"] != root["tid"] or st["pid"] != root["sid"]
+                       for st in stages.values())
+                or root["extra"]["tokens"] != len(res.tokens)
+                or root["extra"]["finish"] != res.finish_reason
+                or progressed != len(res.tokens) - 1):
+            raise AssertionError(f"request {rid}: broken trace chain "
+                                 f"{sorted(stages)}, {progressed} steps")
+    return len(files), len(records), len(results)
 
 
 def top2_margin(params, cfg, seq):
@@ -1907,6 +2069,46 @@ def path_times(cfg, params, device, gpu):
             .cpu(), "decode step + token read-back", gpu)
 
 
+def graph_vs_eager(cfg, params, device, gpu, turns=6):
+    """One full-width decode step (8 live slots at path_times' ragged
+    depths) run eagerly against its CUDA graph (the engine's
+    `serving_decode_step` site after warm()), timed in alternating turns
+    (eager, graphed, graphed, eager, ...): the host clock with the token
+    read-back, and the device time (CUDA events behind a device-side
+    sleep, so they time the device alone), each the median of its turn's
+    reps; then a traced window over graphed steps."""
+    eng = ServingEngine(params, cfg, slots=SLOTS, page_size=PAGE,
+                        device=device)
+    eng.warm()
+    W = eng.table_width
+    inputs = (np.arange(1, SLOTS + 1, dtype=np.int64),
+              np.array([5, 40, 77, 120, 160, 199, 230, 269], np.int64),
+              np.arange(1, SLOTS * W + 1, dtype=np.int64).reshape(SLOTS, W))
+    steps = {
+        "eager": lambda: eng._decode_fn(*(
+            torch.from_numpy(a).to(device, non_blocking=True)
+            for a in inputs)),
+        "graphed": lambda: eng._decode(*inputs)}
+    if not torch.equal(steps["eager"]().cpu(), steps["graphed"]().cpu()):
+        raise AssertionError("the graphed decode step's tokens differ from "
+                             "the eager step's")
+    times = {label: {"host": [], "device": []} for label in steps}
+    for turn in range(turns):
+        for label in (("eager", "graphed") if turn % 2 == 0
+                      else ("graphed", "eager")):
+            fn = steps[label]
+            times[label]["host"].append(host_ms(lambda: fn().cpu()))
+            times[label]["device"].append(device_ms(
+                fn, reps=25, sleep_cycles=20_000_000))
+    for label, t in times.items():
+        print(f"  decode step {label}, {turns} turns: host clock with the "
+              f"token read-back " + ", ".join(f"{x:.3f}" for x in t["host"])
+              + " ms; device " + ", ".join(f"{x:.3f}" for x in t["device"])
+              + f" ms [{gpu}]")
+    busy_share(lambda: steps["graphed"]().cpu(),
+               "decode step through its CUDA graph + token read-back", gpu)
+
+
 def ptxas_lines(output):
     """One line per variant of the flash-attention and decode kernels from
     ptxas -v's report: registers, and spill stores / loads in bytes."""
@@ -1954,12 +2156,16 @@ KINDS = (("epilogue_", "epilogue kernels"),
          ("reduce_kernel", "reductions"), ("elementwise", "elementwise"))
 
 
-def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False):
+def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
+               spans=()):
     """Traced window (torch.profiler) over `steps` calls: the share of
     wall time with a kernel running, and the `top_n` kernels taking the
     most device time (with `kinds`, the device time by kind of kernel
     too). Tracing adds host time, so the busy share is a lower bound for
-    an untraced run."""
+    an untraced run. Each name in `spans` must appear among the window's
+    host ranges (a telemetry span's record_function); the spans' counts
+    are printed, and their ranges are no kernel time. Returns the last
+    call's result and {device event name: events in the window}."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -1969,18 +2175,29 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            fn()
+            result = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
+    kernels, ranges, events = {}, {}, {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.name in telemetry.SPAN_NAMES:
+            # a span's range: on the host, and mirrored on the device
+            # timeline (not a kernel)
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                ranges[evt.name] = ranges.get(evt.name, 0) + 1
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.name] = (kernels.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us())
+            events[evt.name] = events.get(evt.name, 0) + 1
+    if spans:
+        print(f"  {label}: telemetry spans in the window: {ranges}")
+        if not set(spans) <= set(ranges):
+            raise AssertionError(f"spans {sorted(set(spans) - set(ranges))} "
+                                 f"missing from the profiler window")
     if not kernels:
         print(f"  {label}: the profiler saw no device time; busy share "
               f"not measured [{gpu}]")
-        return
+        return result, events
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"  {label}, traced over {steps} calls: wall "
@@ -1997,6 +2214,7 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False):
         print("    by kind: " + "; ".join(
             f"{k} {us / steps / 1e3:.3f} ms ({us / busy:.1%})"
             for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return result, events
 
 
 def main():
@@ -2012,7 +2230,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
     print("phase 1: build")
-    t0 = time.perf_counter()
+    t0 = t_call = time.perf_counter()
     built = _build.build()
     for name, rec in built.items():
         regs = [ln.strip() for ln in rec["output"].splitlines()
@@ -2034,22 +2252,38 @@ def main():
     params = tfm.init_params(cfg, seed=0, device=device)
     legs = {"off": {}, **LEVER_LEGS}
     served, flash_launches = {}, {}
+    telemetry.enable()  # the capture registry counts only while it is on
     for leg, levers in legs.items():
         out = served[leg] = serve(cfg, params, 16, device, **levers)
-        print(f"  levers {leg} {levers}: {out['requests_completed']} "
-              f"requests, {out['generated_tokens']} tokens, "
-              f"{out['engine_steps']} engine steps, {out['decode_steps']} "
-              f"decode steps, {out['wide_calls']} wide steps; launches "
-              f"{out['launches']}; max_step_prefill_tokens "
+        print(f"  levers {leg} {levers}: warm() captured {len(out['warm'])} "
+              f"sites in {out['warm_s']:.2f} s, graph pool "
+              f"{out['pool_bytes'] / 2**20:.1f} MiB; "
+              + "; ".join(f"{name} {row['capture_s'] * 1e3:.1f} ms, "
+                          f"{row['replays']} replays"
+                          for name, row in out["sites"].items()))
+        print(f"    {out['requests_completed']} requests, "
+              f"{out['generated_tokens']} tokens, {out['engine_steps']} "
+              f"engine steps, {out['decode_steps']} decode steps, "
+              f"{out['wide_calls']} wide steps; launches {out['launches']}, "
+              f"all in graph replays; steady_compiles "
+              f"{out['steady_compiles']}, steady_retraces "
+              f"{out['steady_retraces']}; max_step_prefill_tokens "
               f"{out['max_step_prefill_tokens']}; "
               + ", ".join(f"{k} {out[k]}" for k in (
                   "prefill_tokens_saved", "cow_copies", "prefix_hit_rate",
                   "prefill_chunks", "spec_accepted_tokens",
                   "spec_proposed_tokens") if k in out))
         flash_launches[leg], ties = match_generate(cfg, params, out, device)
-        print(f"  tokens equal generate(use_flash=True) for every request "
+        print(f"    tokens equal generate(use_flash=True) for every request "
               f"({ties} near ties); flash_decode launches "
               f"{flash_launches[leg]}")
+    n_files, n_records, n_requests = traced_chains(
+        cfg, params, served["off"]["engine"],
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_trace"))
+    print(f"  MXTPU_TRACE_DIR run, levers off: {n_files} MXTRACE1 file(s), "
+          f"{n_records} records, one complete chain for each of "
+          f"{n_requests} requests")
     if not (served["prefix"]["prefill_tokens_saved"] > 0
             and served["prefix"]["cow_copies"] >= 1):
         raise AssertionError("the prefix leg saved no prefill or copied no "
@@ -2079,12 +2313,27 @@ def main():
               f"{out['tokens_per_sec']:.1f} ({out['generated_tokens']} "
               f"tokens in {out['measured_seconds']:.3f} s, host clock) "
               f"[{gpu}]")
+    for leg, out in served.items():
+        print(f"  levers {leg}, through CUDA graphs: TTFT p50 "
+              f"{out['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+              f"{out['ttft_p99_s'] * 1e3:.3f} ms; request latency p50 "
+              f"{out['p50_latency_s'] * 1e3:.3f} ms, p99 "
+              f"{out['p99_latency_s'] * 1e3:.3f} ms (host clock) [{gpu}]")
     path_times(cfg, params, device, gpu)
+    graph_vs_eager(cfg, params, device, gpu)
+    profiler.set_state("run")  # spans annotate the windows below
     for leg, levers in legs.items():
-        busy_share(lambda: run_trace(params, cfg, n_requests=16,
-                                     slots=SLOTS, page_size=PAGE, seed=0,
-                                     device=device, **levers),
-                   f"whole trace, levers {leg}", gpu, steps=1, warm=False)
+        for kernel in (dk.paged_decode_attention,
+                       dk.paged_decode_attention_wide):
+            kernel.launches = 0
+        out, events = busy_share(lambda: run_trace(
+            params, cfg, n_requests=16, seed=0,
+            engine=served[leg]["engine"],
+            **{k: v for k, v in levers.items() if k not in ENGINE_LEVERS}),
+            f"whole trace through CUDA graphs, levers {leg}", gpu, steps=1,
+            warm=False, spans=("serving.step",))
+        device_launches(cfg, out, events, leg)
+    profiler.set_state("stop")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     rows = kernel_rows(
         errs, {"paged": served["off"]["launches"]["paged"],
@@ -2102,6 +2351,7 @@ def main():
                           gpu)
     torch.cuda.synchronize()
 
+    print(f"whole call: {time.perf_counter() - t_call:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,15 @@ from .xent import (  # noqa: F401
     softmax_xent, softmax_xent_bwd, softmax_xent_bwd_ref, softmax_xent_fwd,
     softmax_xent_fwd_ref)
 
-__all__ = ["bn_act_epilogue", "bn_act_epilogue_bwd",
+# every wrapper that counts its kernel's launches in `.launches` (a CUDA
+# graph's capture hands its counts back and each replay adds them:
+# `graphs.Site`)
+COUNTED = (paged_decode_attention, paged_decode_attention_wide, flash_decode,
+           flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+           softmax_xent_fwd, softmax_xent_bwd, bn_act_epilogue_fwd,
+           bn_act_epilogue_bwd)
+
+__all__ = ["COUNTED", "bn_act_epilogue", "bn_act_epilogue_bwd",
            "bn_act_epilogue_bwd_ref", "bn_act_epilogue_fwd",
            "bn_act_epilogue_fwd_ref", "DECODE_BLOCK", "dense_decode_attention", "flash_decode",
            "flash_decode_ref", "paged_decode_attention",

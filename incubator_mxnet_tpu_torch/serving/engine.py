@@ -14,8 +14,19 @@ The PyTorch counterpart of the JAX package's base `ServingEngine`
 - eviction on EOS or max-tokens recycles pages at once.
 
 Greedy decoding, token-for-token identical to sequential
-`models.transformer.generate()` per request. The argmax stays on the
-device; the one host sync of a device call is reading its tokens back.
+`models.transformer.generate()` per request.
+
+Every device call is a named site (`graphs.wrap`), as every device call
+of the JAX engine is a named compiled program: `serving_decode_step`,
+`serving_prefill_b{T_b}` per prefill bucket, `serving_wide_q{n_q}` per
+wide-step width and `serving_page_copy`. On CUDA each site is captured
+into a CUDA graph once per shape signature, from one memory pool all the
+engine's sites share, and replayed from then on; `warm()` captures every
+site the enabled levers will call, so the steady state captures nothing
+(the capture registry, `telemetry/compilereg.py`, counts it). The host
+copies each call's inputs into the graph's static inputs, the argmax runs
+inside the graph, and the one host sync of a call is reading its tokens
+back.
 
 Three optional levers stack on this, as in the JAX engine; with all of
 them off the engine runs exactly the base path above. Each lever's query
@@ -39,9 +50,17 @@ width (`_wide`):
   Rejected rows need no rollback: their K/V lies past the slot's
   position, and the next write overwrites it.
 
-An explicit constructor argument wins over its knob. Not ported yet:
-spans, request tracing, SLOs, `warm()`, the compile registry and the
-page-sanitizer hooks; `debug_snapshot` has no sections for them.
+An explicit constructor argument wins over its knob.
+
+Observability, as in the JAX engine: the spans `serving.step`,
+`serving.prefill` and `serving.prefill_chunk`; with tracing on
+(`MXTPU_TRACE_DIR`), per-request lifecycle records (`serving.request` and
+its `.queued`, `.prefill` and `.decode` stages, one trace per request,
+born in `submit` or adopted from its `trace_ctx`) and one batched
+`req_step` record per decode step; an SLO monitor fed by every finished
+request (`slo`, or the `MXTPU_SLO_*` knobs); and `debug_snapshot`, served
+at `/debug/engine` by the telemetry HTTP server under
+`MXTPU_DEBUG_ENDPOINTS`. The page-sanitizer hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,9 +73,14 @@ from collections import deque
 import numpy as np
 import torch
 
-from .. import config, telemetry
+from .. import config, graphs, telemetry
 from ..config import resolve_device
 from ..models import transformer as _tfm
+from ..telemetry import compilereg
+from ..telemetry import distributed as _dtrace
+from ..telemetry import exporters as _exporters
+from ..telemetry import recorder as _recorder
+from ..telemetry import slo as _slo
 from .pages import PageAllocator, PrefixCache
 
 __all__ = ["Request", "RequestResult", "ServingEngine"]
@@ -89,6 +113,15 @@ _SYNC_TAIL_CHUNK = 32
 
 _EMPTY_PROP = np.zeros((0,), np.int32)
 
+# per-request lifecycle record names (registered in telemetry/names.py),
+# emitted straight through distributed.record_span: zero cost when tracing
+# is off, one lane per request in tools/trace_merge.py --requests
+REQ_SPAN = "serving.request"
+REQ_QUEUED_SPAN = "serving.request.queued"
+REQ_PREFILL_SPAN = "serving.request.prefill"
+REQ_DECODE_SPAN = "serving.request.decode"
+REQ_STEP_KIND = "req_step"  # batched decode-progress record, one per step
+
 # sub-ms to minutes: decode steps are ms-scale, queued requests can wait
 _LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                     0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
@@ -106,6 +139,7 @@ class Request:
     submitted_at: float = 0.0
     admitted_at: float = 0.0
     ttft_s: float = 0.0  # set at prefill; 0 until admitted
+    trace: dict | None = None  # per-request trace context (tracing on)
 
 
 @dataclasses.dataclass
@@ -146,13 +180,15 @@ class ServingEngine:
     one decode step) for callers that interleave serving with other work.
     `device=None` means CUDA (and raises without it); the params must
     already lie on the engine's device. The lever arguments default to
-    their knobs (None); an explicit value, 0 included, wins.
+    their knobs (None); an explicit value, 0 included, wins. `slo` is an
+    `SLOMonitor` (None: built from the `MXTPU_SLO_*` knobs, if any is
+    set; False: none).
     """
 
     def __init__(self, params, cfg, *, slots=None, page_size=None,
                  num_pages=None, max_len=None, clock=time.monotonic,
-                 prefix_cache=None, prefill_chunk=None, spec_ngram=None,
-                 spec_lookahead=None, device=None):
+                 slo=None, prefix_cache=None, prefill_chunk=None,
+                 spec_ngram=None, spec_lookahead=None, device=None):
         self.device = resolve_device(device)
         _tfm._check_device(params, self.device)
         self.params = params
@@ -173,6 +209,9 @@ class ServingEngine:
                                               device=self.device)
         self.prefill_buckets = _default_buckets(self.max_len)
         self._clock = clock
+        # explicit timeline lane for this engine's trace records (None: the
+        # process lane)
+        self.trace_lane = None
         # submit/cancel may arrive from other threads while step() runs
         self._lock = threading.RLock()
 
@@ -191,8 +230,6 @@ class ServingEngine:
             PrefixCache(self.allocator,
                         max_pages=prefix_cache if prefix_cache > 1 else 0)
             if prefix_cache else None)
-        # one wide-step callable per query width, built on first use
-        self._wides: dict = {}
 
         S, W = self.slots, self.table_width
         self._tables = np.zeros((S, W), np.int64)
@@ -229,43 +266,95 @@ class ServingEngine:
         self._prefill_chunks = 0
         self._spec_proposed = 0
         self._spec_accepted = 0
+        # last-N finished-request timelines, carried by SLO breach dumps
+        self._timelines: deque = deque(
+            maxlen=max(1, int(config.get("MXTPU_SLO_DUMP_TIMELINES"))))
+        if slo is None:
+            slo = _slo.from_env(timelines=self.recent_timelines)
+        self.slo = slo or None
+        _exporters.register_debug_handler("/debug/engine",
+                                          self.debug_snapshot)
+
+        # the device calls: one named site each, sharing one graph pool.
+        # Lever sites are built only for the levers that are on, and wide
+        # sites on first use (`_wide`), so an engine with every lever off
+        # has exactly the base sites
+        self._pool = graphs.Pool()
+        self._decode = self._site("serving_decode_step", self._decode_fn)
+        self._prefills = {
+            T_b: self._site(f"serving_prefill_b{T_b}", self._prefill_fn)
+            for T_b in self.prefill_buckets}
+        self._wides: dict = {}
+        self._page_copy = (self._site("serving_page_copy", self._copy_fn)
+                           if self.prefix_cache is not None else None)
 
     # -- device calls ------------------------------------------------------
+    # Each takes device tensors (the site's static inputs on CUDA) and
+    # returns the greedy tokens on the device; all-zero inputs write only
+    # the null page (position 0, zero table rows, no real rows), which is
+    # what a capture's warm-up runs and `warm()` rely on.
 
-    def _wide(self, n_q):
-        """The wide step for `n_q` query rows per slot: one callable per
-        width (chunked prefill, prefix tail prefill and speculative
-        verification each use one). It takes host arrays (tokens (S, n_q),
-        start (S,), n_real (S,), tables (S, W)), updates the pool in place
-        and returns each row's greedy token, (S, n_q), on the host."""
-        fn = self._wides.get(n_q)
-        if fn is None:
-            def fn(tokens, start, n_real, tables):
-                if tokens.shape != (self.slots, n_q):
-                    raise ValueError(f"wide step of width {n_q} given "
-                                     f"tokens of shape {tokens.shape}")
-                with torch.no_grad():
-                    logits, _ = _tfm.decode_step_paged_wide(
-                        self.params, self.paged, self._to_device(tokens),
-                        self._to_device(start), self._to_device(n_real),
-                        self._to_device(tables), self.cfg)
-                    tok = torch.argmax(logits, dim=-1).cpu().numpy()
-                self.wide_calls += 1
-                return tok
-            self._wides[n_q] = fn
-        return fn
+    def _site(self, name, fn):
+        return graphs.wrap(name, fn, device=self.device, pool=self._pool)
+
+    def _decode_fn(self, tokens, positions, tables):
+        with torch.no_grad():
+            logits, _ = _tfm.decode_step_paged(
+                self.params, self.paged, tokens, positions, tables, self.cfg)
+            return torch.argmax(logits, dim=-1)
+
+    def _prefill_fn(self, prompt, true_len, row):
+        with torch.no_grad():
+            _, logits = _tfm.prefill_paged(self.params, self.paged, prompt,
+                                           true_len, row, self.cfg)
+            return torch.argmax(logits, dim=-1)
+
+    def _wide_fn(self, tokens, start, n_real, tables):
+        with torch.no_grad():
+            logits, _ = _tfm.decode_step_paged_wide(
+                self.params, self.paged, tokens, start, n_real, tables,
+                self.cfg)
+            return torch.argmax(logits, dim=-1)
 
     def _copy_fn(self, src, dst):
-        """Copy page `src` onto page `dst` in every layer's K and V pool,
-        in place (a copy-on-write's device half)."""
-        for pool in (self.paged["k"], self.paged["v"]):
-            pool[:, dst] = pool[:, src]
+        """Copy page `src` onto page `dst` (0-d indices) in every layer's
+        K and V pool, in place: a copy-on-write's device half."""
+        with torch.no_grad():
+            for pool in (self.paged["k"], self.paged["v"]):
+                pool.index_copy_(1, dst.reshape(1),
+                                 pool.index_select(1, src.reshape(1)))
+
+    def _wide(self, n_q):
+        """The wide-step site for `n_q` query rows per slot,
+        `serving_wide_q{n_q}`: one per width (chunked prefill, prefix tail
+        prefill and speculative verification each use one), built on first
+        use."""
+        site = self._wides.get(n_q)
+        if site is None:
+            site = self._wides[n_q] = self._site(f"serving_wide_q{n_q}",
+                                                 self._wide_fn)
+        return site
+
+    def _run_wide(self, tokens, start, n_real, tables):
+        """One wide step over host arrays (tokens (S, n_q), start (S,),
+        n_real (S,), tables (S, W)); returns each row's greedy token,
+        (S, n_q), on the host."""
+        tok = self._wide(tokens.shape[1])(tokens, start, n_real, tables)
+        self.wide_calls += 1
+        return tok.cpu().numpy()
+
+    def _copy_page(self, src, dst):
+        self._page_copy(np.asarray(src, np.int64), np.asarray(dst, np.int64))
 
     # -- public API --------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens, eos_id=None):
+    def submit(self, prompt, max_new_tokens, eos_id=None, trace_ctx=None):
         """Queue one request; returns its request id. Validation is
-        eager: an unservable request fails here, not mid-decode."""
+        eager: an unservable request fails here, not mid-decode.
+
+        `trace_ctx` is an optional inbound (trace_id, parent_span_id)
+        pair: with tracing on, the request's records join that trace,
+        its root parented under that span."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -286,6 +375,18 @@ class ServingEngine:
             rid = next(self._ids)
             req = Request(rid, prompt, int(max_new_tokens), eos_id,
                           submitted_at=self._clock())
+            if _dtrace.trace_active():
+                # the trace context is born here (or adopted from
+                # trace_ctx): tid groups the whole lifecycle, sid is the
+                # root "serving.request" span every stage parents under,
+                # ns_submit anchors engine-clock deltas to wall time
+                tid, psid = trace_ctx if trace_ctx else (None, None)
+                req.trace = {"tid": tid or _dtrace.new_id(),
+                             "sid": _dtrace.new_id(),
+                             "ns_submit": time.time_ns(),
+                             "clk_submit": req.submitted_at}
+                if psid is not None:
+                    req.trace["pid"] = psid
             self._queue.append(req)
             telemetry.set_gauge(QUEUE_DEPTH, len(self._queue))
             telemetry.set_gauge(
@@ -300,13 +401,14 @@ class ServingEngine:
         single decode (or speculative) step. Returns the number of live
         slots after the iteration."""
         with self._lock:
-            self._admit()
-            if self.prefill_chunk:
-                self._prefill_chunks_once()
-            if self.spec_ngram:
-                live = self._decode_spec_once()
-            else:
-                live = self._decode_once()
+            with telemetry.span("serving.step", step=self.steps):
+                self._admit()
+                if self.prefill_chunk:
+                    self._prefill_chunks_once()
+                if self.spec_ngram:
+                    live = self._decode_spec_once()
+                else:
+                    live = self._decode_once()
             self.steps += 1
             self._export_gauges()
             return live
@@ -350,6 +452,42 @@ class ServingEngine:
     def slots_in_use(self):
         return sum(r is not None for r in self._slot_req)
 
+    def warm(self):
+        """Capture (on the CPU: run once and register) every site the
+        enabled levers will call: the decode step, every prefill bucket,
+        the wide widths (the prefill chunk, or `_SYNC_TAIL_CHUNK` for the
+        prefix cache's tail, and lookahead + 1 for speculation) and the
+        page copy, each on all-zero inputs, which write only the KV pool's
+        null page. Returns {site: status} with `graphs.Site.warm`'s
+        statuses."""
+        S, W = self.slots, self.table_width
+        with self._lock:
+            out = {"serving_decode_step": self._decode.warm((S,), (S,),
+                                                            (S, W))}
+            for T_b, site in self._prefills.items():
+                out[site.name] = site.warm((1, T_b), (1,), (1, W))
+            wide_qs = set()
+            if self.prefill_chunk:
+                wide_qs.add(self.prefill_chunk)
+            elif self.prefix_cache is not None:
+                wide_qs.add(min(_SYNC_TAIL_CHUNK, self.max_len))
+            if self.spec_ngram:
+                wide_qs.add(self.spec_lookahead + 1)
+            for q in sorted(wide_qs):
+                site = self._wide(q)
+                out[site.name] = site.warm((S, q), (S,), (S,), (S, W))
+            if self._page_copy is not None:
+                out["serving_page_copy"] = self._page_copy.warm((), ())
+            return out
+
+    def sites(self):
+        """{name: graphs.Site} of every site built so far."""
+        sites = [self._decode, *self._prefills.values(),
+                 *self._wides.values()]
+        if self._page_copy is not None:
+            sites.append(self._page_copy)
+        return {site.name: site for site in sites}
+
     # -- scheduling internals ----------------------------------------------
 
     def _free_slot(self):
@@ -364,12 +502,6 @@ class ServingEngine:
                 return b
         raise ValueError(f"prompt length {n} exceeds the largest "
                          f"prefill bucket {self.prefill_buckets[-1]}")
-
-    def _to_device(self, array):
-        # a fresh host copy, sent without waiting for the device: the one
-        # sync of a step stays the read-back of its tokens
-        return torch.tensor(array, dtype=torch.int64).to(self.device,
-                                                         non_blocking=True)
 
     def _admit(self):
         """FIFO admission: stop at the first request that can't get a
@@ -398,6 +530,7 @@ class ServingEngine:
                               req.admitted_at - req.submitted_at,
                               buckets=_LATENCY_BUCKETS)
             telemetry.set_gauge(QUEUE_DEPTH, len(self._queue))
+            self._emit_queued(req)
             self._prefill_into(slot, req, pages)
 
     def _prefill_into(self, slot, req, pages):
@@ -407,12 +540,12 @@ class ServingEngine:
             self.allocator.table_row(pages, self.table_width), np.int64)
         prompt = np.zeros((1, T_b), np.int64)
         prompt[0, :T_p] = req.prompt
-        with torch.no_grad():
-            _, logits = _tfm.prefill_paged(
-                self.params, self.paged, self._to_device(prompt),
-                self._to_device([T_p]), self._to_device(row[None]),
-                self.cfg)
-            first = int(torch.argmax(logits, dim=-1).cpu()[0])
+        clk_prefill = self._clock()
+        with telemetry.span("serving.prefill", request=req.request_id,
+                            bucket=T_b):
+            tok = self._prefills[T_b](prompt, np.asarray([T_p], np.int64),
+                                      row[None])
+            first = int(tok.cpu()[0])
         clk_first = self._clock()
         pad = T_b - T_p
         self._tokens["prefill"] += T_p
@@ -427,6 +560,14 @@ class ServingEngine:
         req.ttft_s = clk_first - req.submitted_at
         telemetry.observe(TTFT_SECONDS, req.ttft_s,
                           buckets=_LATENCY_BUCKETS)
+        if req.trace is not None:
+            req.trace["clk_first"] = clk_first
+            self._emit_request_record(
+                REQ_PREFILL_SPAN, req.trace,
+                ts=self._trace_ts(req.trace, clk_prefill),
+                dur_s=clk_first - clk_prefill, pid=req.trace["sid"],
+                extra={"request": req.request_id, "bucket": T_b,
+                       "prompt_len": T_p, "pad": pad})
         self._slot_req[slot] = req
         self._slot_pages[slot] = pages
         self._slot_out[slot] = [first]
@@ -494,6 +635,7 @@ class ServingEngine:
                           req.admitted_at - req.submitted_at,
                           buckets=_LATENCY_BUCKETS)
         telemetry.set_gauge(QUEUE_DEPTH, len(self._queue))
+        self._emit_queued(req)
         pages = used_full + fresh
         row = np.asarray(
             self.allocator.table_row(pages, self.table_width), np.int64)
@@ -501,7 +643,7 @@ class ServingEngine:
             # eager copy-on-write: the tail prefill writes into this
             # page's token range, so the slot gets a private copy of the
             # cached bytes first
-            self._copy_fn(part_page, fresh[0])
+            self._copy_page(part_page, fresh[0])
             self.allocator.free([part_page],  # drop the pin only
                                 owner=req.request_id)
             self._cow_copies += 1
@@ -511,7 +653,7 @@ class ServingEngine:
         self._slot_out[slot] = []
         self._slot_prefill[slot] = {
             "prompt": req.prompt, "row": row, "pos": n_cached,
-            "n_cached": n_cached, "chunks": 0}
+            "n_cached": n_cached, "chunks": 0, "clk_start": self._clock()}
         if not self.prefill_chunk:
             # synchronous tail prefill: every chunk before the next
             # admission (chunked mode leaves the descriptor for step() to
@@ -544,7 +686,8 @@ class ServingEngine:
             start[s] = pos
             n_real[s] = n
             tables[s] = st["row"]
-        out = self._wide(C)(toks, start, n_real, tables)
+        with telemetry.span("serving.prefill_chunk", slots=len(pend)):
+            out = self._run_wide(toks, start, n_real, tables)
         for s in pend:
             st = self._slot_prefill[s]
             n = int(n_real[s])
@@ -573,9 +716,19 @@ class ServingEngine:
         req = self._slot_req[slot]
         prompt = st["prompt"]
         T_p = prompt.size
-        req.ttft_s = self._clock() - req.submitted_at
+        clk_first = self._clock()
+        req.ttft_s = clk_first - req.submitted_at
         telemetry.observe(TTFT_SECONDS, req.ttft_s,
                           buckets=_LATENCY_BUCKETS)
+        if req.trace is not None:
+            req.trace["clk_first"] = clk_first
+            self._emit_request_record(
+                REQ_PREFILL_SPAN, req.trace,
+                ts=self._trace_ts(req.trace, st["clk_start"]),
+                dur_s=clk_first - st["clk_start"], pid=req.trace["sid"],
+                extra={"request": req.request_id, "prompt_len": int(T_p),
+                       "cached": int(st["n_cached"]),
+                       "chunks": int(st["chunks"])})
         self._slot_out[slot] = [first]
         self._tables[slot] = st["row"]
         self._positions[slot] = T_p
@@ -619,7 +772,7 @@ class ServingEngine:
                 f"copy-on-write of page {page} failed: KV pool exhausted "
                 f"and the prefix cache holds no evictable page")
         if new != page:
-            self._copy_fn(page, new)
+            self._copy_page(page, new)
             self._slot_pages[slot][idx] = new
             self._tables[slot, idx] = new
             self._cow_copies += 1
@@ -680,7 +833,7 @@ class ServingEngine:
             toks[s, 1:1 + prop.size] = prop
             start[s] = self._positions[s]
             n_real[s] = 1 + prop.size
-        tok = self._wide(Q)(toks, start, n_real, self._tables)
+        tok = self._run_wide(toks, start, n_real, self._tables)
         for s in live_slots:
             req = self._slot_req[s]
             prop = props[s]
@@ -725,22 +878,21 @@ class ServingEngine:
                 telemetry.inc(TOKENS_TOTAL, amount=float(pad), kind="pad")
                 telemetry.inc(WASTED_TOKENS, amount=float(pad),
                               reason="spec_pad")
+        self._emit_step_record(s for s in live_slots
+                               if self._slot_req[s] is not None)
         return self.slots_in_use
 
     def _decode_once(self):
         live_slots = self._decoding_slots()
         if not live_slots:
             return self.slots_in_use
-        with torch.no_grad():
-            logits, _ = _tfm.decode_step_paged(
-                self.params, self.paged, self._to_device(self._next_tok),
-                self._to_device(self._positions),
-                self._to_device(self._tables), self.cfg)
-            tok = torch.argmax(logits, dim=-1).cpu().numpy()
+        tok = self._decode(self._next_tok, self._positions,
+                           self._tables).cpu().numpy()
         self.decode_steps += 1
         n_live = len(live_slots)
         self._tokens["decode"] += n_live
         telemetry.inc(TOKENS_TOTAL, amount=float(n_live), kind="decode")
+        self._emit_step_record(live_slots)
         for s in live_slots:
             req = self._slot_req[s]
             self._slot_out[s].append(int(tok[s]))
@@ -785,6 +937,33 @@ class ServingEngine:
             self._wasted_evicted += wasted
             telemetry.inc(WASTED_TOKENS, amount=float(wasted),
                           reason="evicted")
+        self._record_timeline(req, len(out), reason, queue_wait, latency)
+        _recorder.log_event("serving_request_finish",
+                            request=req.request_id, outcome=reason,
+                            tokens=len(out))
+        if self.slo is not None:
+            self.slo.observe_request(
+                ttft=req.ttft_s, queue_wait=queue_wait,
+                request_latency=latency,
+                goodput=self.goodput()["fraction"])
+        tr = req.trace
+        if tr is not None:
+            clk_first = tr.get("clk_first")
+            if clk_first is not None and len(out) > 1:
+                self._emit_request_record(
+                    REQ_DECODE_SPAN, tr, ts=self._trace_ts(tr, clk_first),
+                    dur_s=now - clk_first, pid=tr["sid"],
+                    extra={"request": req.request_id,
+                           "steps": len(out) - 1})
+            self._emit_request_record(
+                REQ_SPAN, tr, ts=tr["ns_submit"], dur_s=latency,
+                sid=tr["sid"], pid=tr.get("pid"),
+                extra={"request": req.request_id,
+                       "prompt_len": int(req.prompt.size),
+                       "tokens": len(out), "finish": reason,
+                       "queue_wait_s": queue_wait,
+                       "ttft_s": req.ttft_s, "latency_s": latency,
+                       "decode_steps": max(0, len(out) - 1)})
         self.allocator.free(self._slot_pages[slot], owner=req.request_id)
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
@@ -795,7 +974,66 @@ class ServingEngine:
         self._positions[slot] = 0
         self._next_tok[slot] = 0
 
+    # -- per-request trace plumbing ----------------------------------------
+
+    @staticmethod
+    def _trace_ts(tr, clk):
+        """Wall-clock ns of an engine-clock instant: deltas come from the
+        engine's (injectable) clock, so trace durations agree with the
+        latency histograms, anchored to the wall time taken at submit."""
+        return tr["ns_submit"] + int((clk - tr["clk_submit"]) * 1e9)
+
+    def _emit_request_record(self, name, tr, *, ts, dur_s, extra,
+                             sid=None, pid=None):
+        record = {"name": name, "tid": tr["tid"],
+                  "sid": sid if sid is not None else _dtrace.new_id(),
+                  "ts": int(ts), "dur_ns": max(0, int(dur_s * 1e9)),
+                  "extra": extra}
+        if pid is not None:
+            record["pid"] = pid
+        if self.trace_lane is not None:
+            record["lane"] = self.trace_lane
+        _dtrace.record_span(record)
+
+    def _emit_queued(self, req):
+        if req.trace is not None:
+            self._emit_request_record(
+                REQ_QUEUED_SPAN, req.trace, ts=req.trace["ns_submit"],
+                dur_s=req.admitted_at - req.submitted_at,
+                pid=req.trace["sid"], extra={"request": req.request_id})
+
+    def _emit_step_record(self, slots):
+        """One batched progress record per decode step (not per token):
+        [request_id, tokens emitted so far + 1] per slot. Not a span:
+        trace_merge takes kind=req_step records out of the span pipeline
+        and counts each request's steps with them."""
+        if not _dtrace.trace_active():
+            return
+        rec = {"kind": REQ_STEP_KIND, "ts": time.time_ns(),
+               "step": self.steps,
+               "slots": [[self._slot_req[s].request_id,
+                          len(self._slot_out[s]) + 1] for s in slots]}
+        if self.trace_lane is not None:
+            rec["lane"] = self.trace_lane
+        _dtrace.record_span(rec)
+
+    def _record_timeline(self, req, n_tokens, reason, queue_wait, latency):
+        self._timelines.append({
+            "request_id": req.request_id,
+            "prompt_len": int(req.prompt.size),
+            "tokens": n_tokens,
+            "finish": reason,
+            "queue_wait_s": queue_wait,
+            "ttft_s": req.ttft_s if req.admitted_at else None,
+            "latency_s": latency,
+        })
+
     # -- introspection ------------------------------------------------------
+
+    def recent_timelines(self):
+        """Last-N finished-request timeline dicts (newest last): the
+        payload an SLO breach dump carries."""
+        return list(self._timelines)
 
     def goodput(self):
         """Token accounting split: device token positions by kind, the
@@ -876,7 +1114,9 @@ class ServingEngine:
 
     def debug_snapshot(self):
         """Live-engine JSON-able snapshot: slots, queue, page pool, the
-        levers and goodput."""
+        levers, goodput, the sites' capture counts and the SLO states.
+        Served at /debug/engine by the telemetry HTTP server
+        (MXTPU_DEBUG_ENDPOINTS=1) and rendered by tools/serving_top.py."""
         with self._lock:
             now = self._clock()
             slot_rows = []
@@ -902,6 +1142,11 @@ class ServingEngine:
                        "max_new_tokens": r.max_new_tokens}
                       for r in self._queue]
             prefix_rows, spec_rows, chunk_rows = self._lever_rows()
+            compile_rows = {
+                fn: {"signatures": v["signatures"],
+                     "retraces": v["retraces"]}
+                for fn, v in compilereg.snapshot().items()
+                if fn.startswith("serving_")}
             return {
                 "schema": "mxtpu-torch-serving-engine-debug-v2",
                 "device": str(self.device),
@@ -924,6 +1169,9 @@ class ServingEngine:
                 "speculation": spec_rows,
                 "chunked_prefill": chunk_rows,
                 "tokens": self.goodput(),
+                "compile": compile_rows,
+                "slo": (self.slo.snapshot() if self.slo is not None
+                        else None),
                 "requests_finished": len(self._results),
             }
 
@@ -945,6 +1193,20 @@ class ServingEngine:
                         queue_wait_s=waited, latency_s=waited)
                     telemetry.inc(REQUESTS_TOTAL, outcome="cancelled")
                     telemetry.set_gauge(QUEUE_DEPTH, len(self._queue))
+                    self._record_timeline(req, 0, "cancelled", waited,
+                                          waited)
+                    _recorder.log_event("serving_request_finish",
+                                        request=request_id,
+                                        outcome="cancelled", tokens=0)
+                    if req.trace is not None:
+                        self._emit_request_record(
+                            REQ_SPAN, req.trace, ts=req.trace["ns_submit"],
+                            dur_s=waited, sid=req.trace["sid"],
+                            pid=req.trace.get("pid"),
+                            extra={"request": request_id,
+                                   "prompt_len": int(req.prompt.size),
+                                   "tokens": 0, "finish": "cancelled",
+                                   "latency_s": waited, "decode_steps": 0})
                     return True
             for s, req in enumerate(self._slot_req):
                 if req is not None and req.request_id == request_id:

@@ -1,0 +1,372 @@
+"""Registered telemetry names: every metric family and span name the
+framework emits.
+
+A copy of the JAX package's registry (`incubator_mxnet_tpu/telemetry/
+names.py`), name for name, so one dashboard reads both packages. Any call
+site can mint a Counter by name, and a typo'd name forks a metric family,
+so every `mxtpu_*` metric and every `span()` name the port uses is
+declared here. The port's CUDA-graph capture registry
+(`telemetry/compilereg.py`) reports under the compile registry's names:
+`mxtpu_compiles_total` counts graph captures, `mxtpu_retraces_total` new
+signatures of an already captured site, and `mxtpu_compile_seconds` the
+capture time.
+
+User code is unconstrained: this registry governs the framework's own
+instrumentation, not application metrics.
+"""
+from __future__ import annotations
+
+__all__ = ["METRIC_NAMES", "SPAN_NAMES", "is_registered_metric",
+           "is_registered_span"]
+
+# name -> (kind, one-line description). Kind is documentation (the
+# registry in metrics.py enforces kind consistency at runtime).
+METRIC_NAMES = {
+    "mxtpu_span_seconds": (
+        "histogram", "Duration of telemetry spans, labeled by span name."),
+    "mxtpu_device_bytes_in_use": (
+        "gauge", "Current device (or host-RSS) memory, by device."),
+    "mxtpu_device_peak_bytes_in_use": (
+        "gauge", "Watermark of device (or host-RSS) memory, by device."),
+    "mxtpu_trainer_steps_total": (
+        "counter", "Trainer.step boundaries seen by the memory sampler."),
+    "mxtpu_trainer_step_seconds": (
+        "histogram", "End-to-end Trainer.step latency."),
+    "mxtpu_trainer_dispatches_total": (
+        "counter", "XLA program dispatches issued by the eager Trainer, "
+                   "by kind and path."),
+    "mxtpu_trainer_bucket_bytes": (
+        "histogram", "Payload bytes of one aggregated-dispatch bucket."),
+    "mxtpu_dataloader_fetch_seconds": (
+        "histogram", "Time the training loop blocked fetching a batch."),
+    "mxtpu_dataloader_queue_depth": (
+        "gauge", "Prefetch batches in flight."),
+    "mxtpu_kvstore_seconds": (
+        "histogram", "Latency of scalar-key kvstore operations."),
+    "mxtpu_kvstore_bytes_total": (
+        "counter", "Payload bytes through kvstore push/pull."),
+    "mxtpu_engine_waitall_seconds": (
+        "histogram", "Blocking time in engine.waitall barriers."),
+    "mxtpu_engine_waitall_errors_total": (
+        "counter", "Exceptions swallowed while draining waitall."),
+    "mxtpu_eager_jit_cache_size": (
+        "gauge", "Entries in the eager-dispatch jit cache (LRU)."),
+    "mxtpu_graph_validate_findings_total": (
+        "counter", "Findings emitted by bind-time graph validation "
+                   "(MXNET_GRAPH_VALIDATE), by code and severity."),
+    "mxtpu_retry_attempts_total": (
+        "counter", "Retry attempts issued by resilience.RetryPolicy, by "
+                   "site and outcome (retried/exhausted)."),
+    "mxtpu_ps_reconnects_total": (
+        "counter", "PSClient transparent reconnects after a mid-frame "
+                   "socket error, by cause."),
+    "mxtpu_ps_dedup_hits_total": (
+        "counter", "Retried mutating RPCs the ParameterServer suppressed "
+                   "via the per-client dedup window, by command."),
+    "mxtpu_ps_evictions_total": (
+        "counter", "Workers evicted from the barrier/sync quorum after "
+                   "heartbeat staleness (dist graceful degradation)."),
+    "mxtpu_ps_joins_total": (
+        "counter", "Join RPCs the ParameterServer accepted, by outcome "
+                   "(registered / readmitted / pending)."),
+    "mxtpu_ps_readmissions_total": (
+        "counter", "Evicted ranks re-admitted to the quorum, via a fresh "
+                   "heartbeat or a join RPC (elastic membership)."),
+    "mxtpu_ps_stale_epoch_rejections_total": (
+        "counter", "Sync contributions rejected for carrying a stale "
+                   "membership epoch, by command."),
+    "mxtpu_ps_membership_epoch": (
+        "gauge", "Current membership epoch of the ParameterServer; bumps "
+                 "on every membership change (readmission, rank "
+                 "takeover, world growth)."),
+    "mxtpu_fault_injections_total": (
+        "counter", "Faults fired by the deterministic injector "
+                   "(MXTPU_FAULT_SPEC), by site and mode."),
+    "mxtpu_ckpt_writes_total": (
+        "counter", "Checkpoint file writes through resilience.checkpoint, "
+                   "by outcome (ok/injected-fail/injected-torn)."),
+    "mxtpu_ckpt_verify_failures_total": (
+        "counter", "Checkpoint files failing manifest verification at "
+                   "load, by reason."),
+    "mxtpu_span_errors_total": (
+        "counter", "Spans whose body raised an exception, by span name "
+                   "(the span itself is tagged error=<ExcType>)."),
+    "mxtpu_flight_recorder_dumps_total": (
+        "counter", "Post-mortem flight-recorder dump files written, by "
+                   "reason."),
+    "mxtpu_ps_leaves_total": (
+        "counter", "Ranks that left the sync quorum via the graceful-leave "
+                   "RPC (preemption drain) — the quorum shrinks "
+                   "immediately, without a heartbeat timeout."),
+    "mxtpu_preemptions_total": (
+        "counter", "Preemption drains completed: a termination signal "
+                   "arrived, the in-flight step finished, and a resume "
+                   "bundle was written, by signal."),
+    "mxtpu_loss_scale": (
+        "gauge", "Current dynamic loss scale of the AMP scaler (moves on "
+                 "overflow backoff and growth-window promotion)."),
+    "mxtpu_guardrail_trips_total": (
+        "counter", "Divergence-guardrail trips in Trainer.step, by policy "
+                   "(skip/backoff/rollback) and reason."),
+    "mxtpu_step_phase_seconds": (
+        "gauge", "Rolling per-phase step-time quantiles from StepStats, "
+                 "by phase and quantile (q=0.5/0.99)."),
+    "mxtpu_step_anomalies_total": (
+        "counter", "Steps whose wall time exceeded "
+                   "MXNET_TELEMETRY_ANOMALY_FACTOR x the rolling median "
+                   "(each also logs a step_anomaly flight event)."),
+    "mxtpu_ledger_live_bytes": (
+        "gauge", "Live NDArray bytes tracked by the HBM ledger, by role "
+                 "(params/grads/optimizer_state/activations/kv_buffers)."),
+    "mxtpu_ledger_peak_bytes": (
+        "gauge", "High-watermark of ledger-tracked live bytes; "
+                 "ledger.peak_info() names the span active at the peak."),
+    "mxtpu_ledger_leak_events_total": (
+        "counter", "Leak-heuristic firings: the tracked live set grew for "
+                   "MXNET_TELEMETRY_LEAK_WINDOW consecutive samples."),
+    "mxtpu_compiles_total": (
+        "counter", "New (function, shape-signature) pairs registered with "
+                   "the compile registry, by fn."),
+    "mxtpu_retraces_total": (
+        "counter", "Recompilations of an already-seen function with a NEW "
+                   "shape signature, by fn (each also logs a retrace "
+                   "flight event naming the shape delta)."),
+    "mxtpu_compile_seconds": (
+        "histogram", "Trace+compile wall time observed for first-seen "
+                     "shape signatures, by fn."),
+    "mxtpu_compile_cache_hits_total": (
+        "counter", "Executables served from the persistent compile "
+                   "cache instead of XLA, by fn."),
+    "mxtpu_compile_cache_misses_total": (
+        "counter", "Compile-cache lookups that fell through to a fresh "
+                   "XLA compile (the entry is then written back), "
+                   "by fn."),
+    "mxtpu_compile_cache_evictions_total": (
+        "counter", "Compile-cache entries deleted, by reason "
+                   "(corrupt / version / lru / clear) and fn."),
+    "mxtpu_compile_cache_saved_seconds": (
+        "counter", "Compile wall-clock skipped by cache hits: stored "
+                   "compile time minus deserialize cost, by fn."),
+    "mxtpu_decode_dense_fallbacks_total": (
+        "counter", "flash_decode calls that fell back to the dense "
+                   "(non-Pallas) cache attention because the cache "
+                   "length does not tile into decode blocks, by reason."),
+    "mxtpu_flash_dense_fallbacks_total": (
+        "counter", "Training flash-attention calls that fell back to the "
+                   "dense S×S attention (non-causal sequences that do "
+                   "not tile into blocks — causal remainders are padded "
+                   "into the Pallas path instead), by site and reason."),
+    "mxtpu_embedding_pull_rpcs_total": (
+        "counter", "Row-pull RPCs issued by the sharded embedding "
+                   "service, by path (batched = one multi-table RPC per "
+                   "server, per_key = naive one RPC per table per "
+                   "server)."),
+    "mxtpu_embedding_push_rpcs_total": (
+        "counter", "Row-sparse grad-push RPCs issued by the sharded "
+                   "embedding service, by path (batched / per_key)."),
+    "mxtpu_embedding_rows_pulled_total": (
+        "counter", "Embedding rows fetched over the wire by the sharded "
+                   "embedding service (after dedup, including bucket "
+                   "padding)."),
+    "mxtpu_embedding_dedup_saved_rows_total": (
+        "counter", "Embedding row fetches avoided by per-step id "
+                   "dedup: requested ids minus unique ids, summed over "
+                   "pulls (the zipfian dedup win in rows)."),
+    "mxtpu_embedding_prefetch_hits_total": (
+        "counter", "Embedding pulls served from a completed or in-flight "
+                   "background prefetch, by outcome (ready = zero "
+                   "blocking, wait = blocked on the remainder)."),
+    "mxtpu_serving_queue_depth": (
+        "gauge", "Requests waiting in the serving engine's admission "
+                 "queue (not yet holding a decode slot)."),
+    "mxtpu_serving_slots_in_use": (
+        "gauge", "Decode slots currently running a request, out of "
+                 "MXTPU_DECODE_SLOTS."),
+    "mxtpu_serving_pages_in_use": (
+        "gauge", "KV-cache pages currently owned by live requests "
+                 "(excludes the reserved null page)."),
+    "mxtpu_serving_page_utilization": (
+        "gauge", "Fraction of allocatable KV-cache pages in use "
+                 "(pages_in_use / (num_pages - 1))."),
+    "mxtpu_serving_requests_total": (
+        "counter", "Requests finished by the serving engine, by outcome "
+                   "(eos / length / evicted / cancelled)."),
+    "mxtpu_serving_tokens_total": (
+        "counter", "Tokens processed by the serving engine, by kind "
+                   "(prefill = prompt tokens cached, decode = tokens "
+                   "generated, pad = prefill bucket padding rows)."),
+    "mxtpu_serving_request_seconds": (
+        "histogram", "Per-request wall time from submit to finish "
+                     "(queue wait + prefill + all decode steps)."),
+    "mxtpu_serving_queue_wait_seconds": (
+        "histogram", "Per-request wall time from submit to slot "
+                     "admission (backpressure latency)."),
+    "mxtpu_serving_ttft_seconds": (
+        "histogram", "Per-request time to first token: submit until the "
+                     "prefill emits the first sampled token."),
+    "mxtpu_serving_oldest_queued_seconds": (
+        "gauge", "Age of the head-of-queue request (0 when the queue is "
+                 "empty) — a wedged queue is visible BEFORE it drains."),
+    "mxtpu_serving_admission_blocked_total": (
+        "counter", "Scheduler iterations in which admission stalled with "
+                   "requests still queued, by reason (slots = no free "
+                   "decode slot, pages = KV page pool exhausted)."),
+    "mxtpu_serving_wasted_tokens_total": (
+        "counter", "Device token-positions that produced no delivered "
+                   "output, by reason (prefill_pad = bucket padding "
+                   "rows, evicted = prompt+generated tokens of requests "
+                   "evicted mid-stream)."),
+    "mxtpu_serving_goodput": (
+        "gauge", "Fraction of processed serving tokens that were useful "
+                 "(neither padding nor spent on evicted requests)."),
+    "mxtpu_serving_prefix_lookups_total": (
+        "counter", "Prefix-cache lookups at admission, by outcome (hit "
+                   "= at least one cached page mapped, miss = full "
+                   "prefill)."),
+    "mxtpu_serving_prefix_tokens_saved_total": (
+        "counter", "Prompt tokens NOT prefilled because their KV pages "
+                   "came from the prefix cache (table writes instead of "
+                   "device compute)."),
+    "mxtpu_serving_prefix_cached_pages": (
+        "gauge", "KV pages currently held by the prefix cache (each "
+                 "carries one allocator reference until LRU-evicted)."),
+    "mxtpu_serving_cow_copies_total": (
+        "counter", "Copy-on-write page copies, by site (admit = cached "
+                   "partial page copied before a tail prefill writes "
+                   "into it, decode = first decode token landing in a "
+                   "shared partially-filled page)."),
+    "mxtpu_serving_prefill_chunks_total": (
+        "counter", "Prefill chunks executed by the chunked-prefill "
+                   "path (one wide-query program call covers every "
+                   "mid-prefill slot's next chunk)."),
+    "mxtpu_spec_proposed_tokens_total": (
+        "counter", "Draft tokens proposed by the n-gram prompt-lookup "
+                   "speculator (excludes the one guaranteed token per "
+                   "step)."),
+    "mxtpu_spec_accepted_tokens_total": (
+        "counter", "Proposed draft tokens accepted by wide-query "
+                   "verification (acceptance rate = accepted / "
+                   "proposed)."),
+    "mxtpu_fleet_replicas": (
+        "gauge", "Serving replicas known to the fleet router, by state "
+                 "(healthy / draining / dead / left)."),
+    "mxtpu_fleet_failovers_total": (
+        "counter", "Replicas the fleet router declared dead on "
+                   "heartbeat timeout (each failover resubmits every "
+                   "journaled in-flight request of the corpse to a "
+                   "survivor)."),
+    "mxtpu_fleet_resubmits_total": (
+        "counter", "Requests resubmitted by the fleet router, by reason "
+                   "(failover = original replica declared dead, drain = "
+                   "handed off from a draining replica's admission "
+                   "queue, rpc = dispatch RPC to a replica failed)."),
+    "mxtpu_fleet_drains_total": (
+        "counter", "Serving replicas that completed the drain handshake "
+                   "and left the router (the rolling-restart path: stop "
+                   "admitting, hand off queued work, finish in-slot "
+                   "requests, leave)."),
+    "mxtpu_fleet_dup_tokens_dropped_total": (
+        "counter", "Stale or duplicate token deliveries the request "
+                   "journal discarded (a failed-over replica that was "
+                   "slow rather than dead keeps streaming under its old "
+                   "assignment epoch; clients never see a token "
+                   "twice)."),
+    "mxtpu_fleet_lost_requests_total": (
+        "counter", "Requests the fleet router failed back to the client "
+                   "after exhausting MXTPU_FLEET_MAX_RESUBMITS — the "
+                   "zero-lost-requests chaos gate asserts this stays "
+                   "0."),
+    "mxtpu_fleet_queue_depth": (
+        "gauge", "Requests in the fleet router's front queue (journaled "
+                 "but not yet dispatched to any replica) — the "
+                 "autoscaler's backlog signal."),
+    "mxtpu_fleet_oldest_queued_seconds": (
+        "gauge", "Age of the oldest request still waiting in the fleet "
+                 "router's front queue (0 when the queue is empty)."),
+    "mxtpu_fleet_total_queue_depth": (
+        "gauge", "Fleet-wide queued work: router front queue plus every "
+                 "live replica's engine admission queue."),
+    "mxtpu_fleet_page_occupancy": (
+        "gauge", "Mean KV page-pool occupancy across live (healthy or "
+                 "draining) replicas — the fleet-level capacity rollup "
+                 "the gateway federates at /metrics."),
+    "mxtpu_fleet_replica_health": (
+        "gauge", "One-hot replica health matrix: 1 on the replica's "
+                 "current state series (healthy / draining / dead / "
+                 "left), 0 on the rest, labeled {replica, state}."),
+    "mxtpu_fleet_replica_queue_depth": (
+        "gauge", "Engine admission-queue depth per replica (federated "
+                 "under the replica label at the gateway's /metrics)."),
+    "mxtpu_fleet_replica_slots_in_use": (
+        "gauge", "Decode slots in use per replica (federated under the "
+                 "replica label at the gateway's /metrics)."),
+    "mxtpu_fleet_replica_page_occupancy": (
+        "gauge", "KV page-pool occupancy per replica (federated under "
+                 "the replica label at the gateway's /metrics)."),
+    "mxtpu_gateway_requests_total": (
+        "counter", "HTTP requests answered by the serving gateway, by "
+                   "outcome (ok / error = 4xx or journal failure, "
+                   "rejected = 429 backpressure, draining = 503 during "
+                   "shutdown, injected = gateway.accept fault)."),
+    "mxtpu_gateway_inflight": (
+        "gauge", "Generation requests currently open on the serving "
+                 "gateway (accepted, not yet finished streaming)."),
+    "mxtpu_gateway_access_log_lines_total": (
+        "counter", "Lines written to the gateway's structured NDJSON "
+                   "access log (MXTPU_GATEWAY_ACCESS_LOG)."),
+    "mxtpu_slo_burn_rate": (
+        "gauge", "SLO error-budget burn rate (bad_fraction / budget), "
+                 "by objective and window (short / long)."),
+    "mxtpu_slo_state": (
+        "gauge", "SLO state machine position per objective "
+                 "(0 = ok, 1 = warning, 2 = breach)."),
+    "mxtpu_slo_breaches_total": (
+        "counter", "SLO breach transitions (each also logs a "
+                   "flight-recorder event and writes one post-mortem "
+                   "dump), by objective."),
+    "mxtpu_sanitizer_findings_total": (
+        "counter", "Deduplicated findings from the runtime sanitizers "
+                   "(MXTPU_SANITIZERS), labeled by sanitizer "
+                   "(locks/pages) and MXS code; each also logs a "
+                   "sanitizer_finding flight-recorder event."),
+}
+
+# span() names (tracing regions). Dots namespace by subsystem.
+SPAN_NAMES = frozenset({
+    "executor.forward",
+    "executor.backward",
+    "trainer.step",
+    "trainer.allreduce_grads",
+    "trainer.phase",
+    "ps.client.rpc",
+    "ps.server.handle",
+    "ps.server.merge",
+    "ps.server.barrier",
+    "embedding.pull",
+    "embedding.push",
+    "serving.step",
+    "serving.prefill",
+    "serving.prefill_chunk",
+    # per-request lifecycle records (trace-only; emitted straight
+    # through distributed.record_span, one lane per request in the
+    # trace_merge --requests view)
+    "serving.request",
+    "serving.request.queued",
+    "serving.request.prefill",
+    "serving.request.decode",
+    # fleet observatory (trace-only): the causal chain of one request
+    # across the serving fleet — gateway root, router dispatch, and the
+    # failover/resubmit records that explain a mid-stream replica death
+    "gateway.request",
+    "fleet.dispatch",
+    "fleet.failover",
+    "fleet.resubmit",
+})
+
+
+def is_registered_metric(name):
+    return name in METRIC_NAMES
+
+
+def is_registered_span(name):
+    return name in SPAN_NAMES

@@ -59,6 +59,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
             "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision; "
             "from incubator_mxnet_tpu_torch.ops import epilogue, nn; "
             "from incubator_mxnet_tpu_torch.ops.kernels import epilogue; "
+            "from incubator_mxnet_tpu_torch import graphs, profiler; "
+            "from incubator_mxnet_tpu_torch.telemetry import compilereg, "
+            "distributed, exporters, names, recorder, slo, spans; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -71,7 +74,7 @@ def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
     from incubator_mxnet_tpu_torch.models import transformer as ttfm
-    from incubator_mxnet_tpu_torch.serving import ServingEngine
+    from incubator_mxnet_tpu_torch.serving import ServingEngine, trace
 
     cfg = ttfm.TransformerConfig(vocab=16, d_model=8, n_heads=2, n_layers=1,
                                  d_ff=16, max_len=16)
@@ -81,6 +84,10 @@ def test_default_device_without_cuda_raises():
     for call in (lambda: ttfm.generate(params, [[1, 2]], 2, cfg),
                  lambda: ttfm.init_kv_cache(cfg, 1),
                  lambda: ServingEngine(params, cfg),
+                 lambda: trace.run_trace(params, cfg),
+                 lambda: trace.main(["--d-model", "8", "--n-heads", "2",
+                                     "--n-layers", "1", "--d-ff", "16",
+                                     "--vocab", "16", "--seq", "16"]),
                  lambda: ttfm.make_train_step(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -9,6 +9,8 @@ JAX engine, so the port is pinned to the JAX engine without running it.
 import itertools
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -148,10 +150,9 @@ LEG_COUNTERS = {
 def test_trace_lever_leg_reproduces_ci_counters(leg):
     """The seeded trace at the CI configuration with one lever on
     reproduces every zero-tolerance, non-report-only counter of the
-    `serving_<leg>.` family that the port reports, token_identity 1.0
-    included. `steady_compiles`, `steady_retraces` and `dense_fallbacks`
-    are not reported: they need the compile registry, which the port has
-    not got yet."""
+    `serving_<leg>.` family, token_identity 1.0 included, and
+    `steady_compiles`, `steady_retraces` and `dense_fallbacks` (from the
+    capture registry) at 0: none is missing."""
     with open(BASELINE) as f:
         family = f"serving_{leg}."
         pinned = {k[len(family):]: v
@@ -164,12 +165,53 @@ def test_trace_lever_leg_reproduces_ci_counters(leg):
     exact = {k: v["value"] for k, v in pinned.items()
              if v.get("tolerance_pct") == 0 and not v.get("report_only")}
     unreported = {k for k in exact if k not in out}
-    assert unreported == {"steady_compiles", "steady_retraces",
-                          "dense_fallbacks"}
+    assert unreported == set()
     assert LEG_COUNTERS[leg] | {"token_identity", "engine_steps",
-                                "max_step_prefill_tokens"} <= set(out)
-    assert {k: float(out[k]) for k in exact if k in out} == {
-        k: v for k, v in exact.items() if k not in unreported}
+                                "max_step_prefill_tokens", "steady_compiles",
+                                "steady_retraces", "dense_fallbacks"} <= set(
+        exact)
+    assert {k: float(out[k]) for k in exact} == exact
     for r in out["trace"]:
         assert len(out["results"][r["rid"]].tokens) == r["max_new"]
     assert out["wide_calls"] > 0
+
+
+# the CI's bench legs (ci/run_tests.sh): trace CLI arguments per tag
+CLI_LEGS = {
+    "": [],
+    "prefix": ["--prefix-cache", "1", "--shared-prefix-frac", "0.5",
+               "--prefix-len", "32", "--verify-tokens"],
+    "chunked": ["--prefill-chunk", "8", "--verify-tokens"],
+    "spec": ["--spec-ngram", "2", "--spec-lookahead", "4",
+             "--verify-tokens"],
+}
+
+
+@pytest.mark.parametrize("tag", sorted(CLI_LEGS))
+def test_trace_cli_line_passes_perf_gate(tag, capsys):
+    """`python -m incubator_mxnet_tpu_torch.serving.trace` at the CI's
+    configuration prints the JSON line that tools/perf_gate.py gates
+    against the committed baseline, unchanged: it passes the leg's
+    `--subset`, and fails the CI's seeded lost-request regression."""
+    from incubator_mxnet_tpu_torch.serving import trace
+
+    assert trace.main(
+        ["--d-model", "32", "--n-layers", "2", "--n-heads", "2", "--d-ff",
+         "64", "--vocab", "64", "--seq", "64", "--serving-requests", "12",
+         "--slots", "3", "--page-size", "8", "--device", "cpu"]
+        + (["--serving-tag", tag] if tag else []) + CLI_LEGS[tag]) == 0
+    line = capsys.readouterr().out
+    family = f"serving_{tag}." if tag else "serving."
+    assert json.loads(line)["metric"] == family[:-1]
+    gate = [sys.executable, os.path.join(os.path.dirname(BASELINE),
+                                         "..", "tools", "perf_gate.py"),
+            "-", "--baseline", BASELINE, "--subset", family]
+    ok = subprocess.run(gate, input=line, capture_output=True, text=True,
+                        timeout=60)
+    assert ok.returncode == 0, ok.stdout + ok.stderr
+    assert "missing" not in ok.stdout
+    bad = subprocess.run(gate + ["--inject",
+                                 f"{family}requests_completed=0.5"],
+                         input=line, capture_output=True, text=True,
+                         timeout=60)
+    assert bad.returncode == 1, bad.stdout + bad.stderr

@@ -317,7 +317,9 @@ def test_engine_rejects_unported_levers(model, monkeypatch, lever, via):
 
 def test_trace_reproduces_ci_serving_counters():
     """The seeded trace at the CI configuration reproduces every
-    zero-tolerance serving.* counter the JAX engine is pinned to."""
+    zero-tolerance serving.* counter the JAX engine is pinned to; a
+    pinned counter missing from the port's output fails, as perf_gate
+    fails it."""
     with open(BASELINE) as f:
         pinned = {k[len("serving."):]: v
                   for k, v in json.load(f)["metrics"].items()
@@ -327,11 +329,12 @@ def test_trace_reproduces_ci_serving_counters():
     out = run_trace(params, cfg, n_requests=12, slots=3, page_size=8,
                     seed=0, device="cpu")
     exact = {k: v["value"] for k, v in pinned.items()
-             if v.get("tolerance_pct") == 0 and not v.get("report_only")
-             and k in out}
+             if v.get("tolerance_pct") == 0 and not v.get("report_only")}
     assert {"engine_steps", "requests_completed", "max_step_prefill_tokens",
             "goodput", "mean_slot_occupancy", "mean_page_utilization",
-            "warmup_requests"} <= set(exact)
+            "warmup_requests", "steady_compiles", "steady_retraces",
+            "dense_fallbacks"} <= set(exact)
+    assert set(exact) <= set(out), set(exact) - set(out)
     assert {k: float(out[k]) for k in exact} == exact
     # every request of the trace finished with its full token budget
     for r in out["trace"]:
