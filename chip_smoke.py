@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path (through CUDA graphs), its
-transformer train step and its ResNet-50 train step on one CUDA card and
-hold its hand-written kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving path (through CUDA graphs, and behind
+the fault-tolerant fleet and its HTTP gateway), its transformer train
+step and its ResNet-50 train step on one CUDA card and hold its
+hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -63,6 +64,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    kernel. The levers-off leg serves the trace once more with
    MXTPU_TRACE_DIR set: its MXTRACE1 file must parse with the port's
    reader, with one complete causal chain per request;
+3b. the fleet: first, an engine's warm() with the collector set to run
+   at every allocation must start no collection inside a capture; then
+   the same model behind `serving.FleetRouter`, every engine warm()ed
+   before it joins, the 16 requests over two tenants, held to
+   phase 3's generate(use_flash=True) tokens. Three legs: failover
+   (manual ticks on a fake clock, two replicas; the one serving request 0
+   dies silently once it has streamed, the heartbeat finds it, a
+   replacement joins), rolling (manual ticks, prefix cache, chunked
+   prefill of 64 and n-gram speculation on, under
+   MXTPU_SANITIZERS=locks,pages: every replica drains in turn after its
+   replacement joined, and leaves quiescent) and wire (start() behind a
+   `ServingGateway` on 127.0.0.1, 16 concurrent streaming clients, one
+   replica silently killed mid-stream and found by a 1 s real-clock
+   heartbeat, a replacement warmed while the fleet serves joins it, a
+   queue_limit=0 gateway answers 429 with Retry-After; traced, its
+   gateway.request -> fleet.dispatch -> serving.request chains, failover
+   spans and journal deliveries checked as `tools/trace_merge.py --fleet
+   --check` checks them). Every leg: every request done with the
+   oracle's tokens, each stream's indexes sequential, nothing lost or
+   deduplicated, the expected failovers, no capture after warm(), the
+   paged and wide kernels' launches all graph replays equal to layers x
+   the replicas' steps; no sanitizer finding in the rolling leg;
 4. training: the same full-width model with use_flash (batch 8, seq 512,
    lr 0.1, aux_weight 0.01, tokens and targets from RandomState(0) as
    tools/bench_transformer.py draws them) takes 10 steps of
@@ -102,7 +125,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bfloat16 too, and the flash kernels at D 256 (B 8, H 2, T 512);
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
-   ResNet-50 leg's step, host time and images/s; then
+   ResNet-50 leg's step, host time and images/s; the fleet's wire leg
+   (tokens/s, TTFT and request latency p50 and largest, the failover
+   pause from the kill to the survivor's first token of a resubmitted
+   request, and the device's busy share over a threaded round); then
    traced windows (torch.profiler) over decode steps (eager and
    graphed), over each trace (through graphs, where the serving.step
    span must show up by name) and over train steps (both models) give
@@ -115,6 +141,9 @@ JSON.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
+import gc
+import http.client
 import json
 import math
 import os
@@ -122,6 +151,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -129,6 +159,7 @@ import torch
 import torch.nn.functional as F
 
 import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu_torch.analysis import sanitizers
 from incubator_mxnet_tpu_torch.fused import GluonTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.models import transformer as tfm
@@ -140,8 +171,8 @@ from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
 from incubator_mxnet_tpu_torch.parallel import moe
 from incubator_mxnet_tpu_torch import profiler, telemetry
-from incubator_mxnet_tpu_torch.serving import (PageAllocator, ServingEngine,
-                                               run_trace)
+from incubator_mxnet_tpu_torch.serving import (
+    FleetRouter, PageAllocator, ServingEngine, ServingGateway, run_trace)
 from incubator_mxnet_tpu_torch.telemetry import distributed as tdist
 
 FULL = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6, d_ff=2048,
@@ -963,35 +994,602 @@ def top2_margin(params, cfg, seq):
     return float(top[0] - top[1])
 
 
+def near_tie(cfg, params, label, prompt, got, ref, device):
+    """0 when `got` equals the reference tokens `ref`; 1 when they part at
+    a near tie (top-2 margin below NEAR_TIE at the first difference, the
+    rest not compared); raises otherwise."""
+    if got == ref:
+        return 0
+    i = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+             min(len(got), len(ref)))
+    if i >= min(len(got), len(ref)):
+        raise AssertionError(f"{label}: {len(got)} tokens, the reference "
+                             f"has {len(ref)}")
+    seq = torch.as_tensor(np.concatenate([prompt, ref[:i]]), device=device)
+    margin = top2_margin(params, cfg, seq)
+    if margin >= NEAR_TIE:
+        raise AssertionError(
+            f"{label}: token {i} is {got[i]}, generate() gives {ref[i]} "
+            f"(top-2 margin {margin:.3e})")
+    print(f"  {label}: near tie at token {i} (top-2 margin {margin:.3e} < "
+          f"{NEAR_TIE:g}); rest of it not compared")
+    return 1
+
+
 def match_generate(cfg, params, served, device):
     """Every request's tokens against generate(use_flash=True), counting
-    the flash_decode kernel's launches from zero over these calls."""
+    the flash_decode kernel's launches from zero over these calls.
+    Returns the launches, the near ties and the oracle: each request's
+    prompt, budget and generate() tokens, in trace order."""
     flash_cfg = dataclasses.replace(cfg, use_flash=True)
     dk.flash_decode.launches = 0
-    expected, ties = 0, 0
+    expected, ties, oracle = 0, 0, []
     for r in served["trace"]:
         got = served["results"][r["rid"]].tokens
         ref = tfm.generate(params, r["prompt"][None], len(got), flash_cfg,
                            device=device)[0].tolist()
         expected += (len(got) - 1) * cfg.n_layers
-        if got == ref:
-            continue
-        i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
-        seq = torch.as_tensor(np.concatenate([r["prompt"], ref[:i]]),
-                              device=device)
-        margin = top2_margin(params, cfg, seq)
-        if margin >= NEAR_TIE:
-            raise AssertionError(
-                f"request {r['rid']}: token {i} is {got[i]}, generate() "
-                f"gives {ref[i]} (top-2 margin {margin:.3e})")
-        ties += 1
-        print(f"  request {r['rid']}: near tie at token {i} (top-2 margin "
-              f"{margin:.3e} < {NEAR_TIE:g}); rest of it not compared")
+        oracle.append({"prompt": r["prompt"], "max_new": r["max_new"],
+                       "ref": ref})
+        ties += near_tie(cfg, params, f"request {r['rid']}", r["prompt"],
+                         got, ref, device)
     if dk.flash_decode.launches != expected:
         raise AssertionError(f"flash_decode launched "
                              f"{dk.flash_decode.launches} times, expected "
                              f"{expected}")
-    return dk.flash_decode.launches, ties
+    return dk.flash_decode.launches, ties, oracle
+
+
+# -- phase 3b: the fleet at full width ---------------------------------------
+
+FLEET_HEARTBEAT = 0.4  # heartbeat timeout of the manual legs, fake seconds
+FLEET_TICK = 0.05      # fake seconds per manual tick
+WIRE_HEARTBEAT = 1.0   # heartbeat timeout of the wire leg, real seconds
+# seconds phase 3b may run before every thread's stack is printed and the
+# process exits: a hung fleet fails the call instead of holding the card
+FLEET_WATCHDOG = 300
+ROLLING_LEVERS = dict(prefix_cache=1, prefill_chunk=64, spec_ngram=2,
+                      spec_lookahead=4)
+FLEET_KERNELS = {"paged": dk.paged_decode_attention,
+                 "wide": dk.paged_decode_attention_wide}
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def site_signatures(eng):
+    """{(site, signature)} an engine has captured (on the CPU: run)."""
+    return {(name, sig) for name, site in eng.sites().items()
+            for sig in (*site._graphs, *site._eager)}
+
+
+class FleetLeg:
+    """One fleet leg: its engines, every one `warm()`ed before it joins,
+    and the gates every leg holds."""
+
+    def __init__(self, label, cfg, params, device, clock=None, levers=None):
+        self.label, self.cfg, self.params = label, cfg, params
+        self.device, self.clock = device, clock
+        self.levers = levers or {}
+        self.engines, self.warmed = [], {}
+        self.counting = False
+        # eager launches of the captures' warm-up runs of engines warmed
+        # after the counts were zeroed: real launches, not replays
+        self.warmup = {key: 0 for key in FLEET_KERNELS}
+        self.t0 = time.perf_counter()
+
+    def engine(self):
+        kw = {} if self.clock is None else {"clock": self.clock}
+        eng = ServingEngine(self.params, self.cfg, slots=SLOTS,
+                            page_size=PAGE, device=self.device, **kw,
+                            **self.levers)
+        warm = eng.warm()
+        want = "captured" if self.device.type == "cuda" else "eager"
+        if set(warm.values()) != {want}:
+            raise AssertionError(f"{self.label}: warm() left sites "
+                                 f"uncaptured: {warm}")
+        self.warmed[id(eng)] = site_signatures(eng)
+        self.engines.append(eng)
+        if self.counting:
+            for key, kernel in FLEET_KERNELS.items():
+                self.warmup[key] += sum(
+                    n.get(kernel.__name__, 0)
+                    for site in eng.sites().values()
+                    for n in site.warmup_launches.values())
+        return eng
+
+    def start_counting(self):
+        for kernel in FLEET_KERNELS.values():
+            kernel.launches = 0
+        self.counting = True
+
+    def check(self, router, ids, oracle, streams, failovers):
+        """Every request done with the oracle's tokens (or a near tie),
+        each client stream's indexes sequential, nothing lost or deduped,
+        the failovers expected, no capture after warm(), and the paged and
+        wide kernels' launches all graph replays, equal to layers x the
+        replicas' steps (the dead replica's included), but for the eager
+        warm-up runs of the captures of replacements warmed in the leg."""
+        if not router.idle():
+            raise AssertionError(f"{self.label}: fleet never went idle; "
+                                 f"journal {router.journal.snapshot()}")
+        ties = 0
+        for i, (eid, r) in enumerate(zip(ids, oracle)):
+            res = router.result(eid)
+            if res["state"] != "done":
+                raise AssertionError(f"{self.label}: request {i} ended "
+                                     f"{res['state']} ({res['error']})")
+            ties += near_tie(self.cfg, self.params,
+                             f"{self.label} request {i}", r["prompt"],
+                             res["tokens"], r["ref"], self.device)
+            toks = [ev for ev in streams[i] if ev.get("event") == "token"]
+            if ([ev["index"] for ev in toks] != list(range(len(toks)))
+                    or [ev["token"] for ev in toks] != res["tokens"]):
+                raise AssertionError(f"{self.label}: request {i}'s stream "
+                                     f"is not its tokens in order")
+        snap = router.journal.snapshot()
+        if snap["lost"] or snap["dup_tokens_dropped"]:
+            raise AssertionError(f"{self.label}: journal {snap}")
+        if router.failovers != failovers:
+            raise AssertionError(f"{self.label}: {router.failovers} "
+                                 f"failovers, expected {failovers}")
+        steady = sum(len(site_signatures(eng) - self.warmed[id(eng)])
+                     for eng in self.engines)
+        if steady:
+            raise AssertionError(f"{self.label}: {steady} captures after "
+                                 f"warm()")
+        steps = {"paged": sum(e.decode_steps for e in self.engines),
+                 "wide": sum(e.wide_calls for e in self.engines)}
+        launches = {}
+        for key, kernel in FLEET_KERNELS.items():
+            replayed = sum(site.replayed_launches().get(kernel.__name__, 0)
+                           for eng in self.engines
+                           for site in eng.sites().values())
+            want = steps[key] * self.cfg.n_layers
+            if self.device.type == "cuda" and not (
+                    kernel.launches - self.warmup[key] == replayed == want):
+                raise AssertionError(
+                    f"{self.label}: {key} kernel launched {kernel.launches} "
+                    f"times, {self.warmup[key]} in the warm-up runs of "
+                    f"captures, {replayed} in graph replays; expected "
+                    f"{want} (steps x layers) replayed")
+            launches[key] = replayed
+        used = "wide" if self.levers.get("spec_ngram") else "paged"
+        if self.device.type == "cuda" and not launches[used]:
+            raise AssertionError(f"{self.label}: the {used} kernel never "
+                                 f"ran")
+        return {"ties": ties, "launches": launches, "steps": steps,
+                "warmup": dict(self.warmup),
+                "capture_ms": 1e3 * max(
+                    (sec for eng in self.engines
+                     for site in eng.sites().values()
+                     for sec in site.capture_seconds.values()), default=0.0),
+                "engines": len(self.engines), "resubmits": router.resubmits,
+                "failovers": router.failovers, "drains": router.drains,
+                "journal": snap, "seconds": time.perf_counter() - self.t0}
+
+
+def fleet_report(label, out):
+    print(f"  {label}: {len(out['ids'])} requests done, tokens equal to "
+          f"generate(use_flash=True) ({out['ties']} near ties), every "
+          f"stream sequential; failovers {out['failovers']}, resubmits "
+          f"{out['resubmits']}, drains {out['drains']}, lost "
+          f"{out['journal']['lost']}, dup_tokens_dropped "
+          f"{out['journal']['dup_tokens_dropped']}; {out['engines']} "
+          f"engines, decode / wide steps {out['steps']['paged']} / "
+          f"{out['steps']['wide']}, paged / wide launches "
+          f"{out['launches']['paged']} / {out['launches']['wide']} in "
+          f"graph replays, layers x steps (and {out['warmup']['paged']} / "
+          f"{out['warmup']['wide']} eager in the warm-up runs of "
+          f"replacements' captures); steady captures 0, the slowest "
+          f"capture {out['capture_ms']:.1f} ms; "
+          f"{out['seconds']:.1f} s")
+
+
+def submit_all(router, oracle, streams, first=0, count=None):
+    stop = len(oracle) if count is None else first + count
+    return [router.submit(r["prompt"], r["max_new"], tenant=f"t{i % 2}",
+                          sink=streams[i].append)
+            for i, r in enumerate(oracle[first:stop], start=first)]
+
+
+def fleet_failover(cfg, params, oracle, device):
+    """Manual ticks on a fake clock, two replicas: the one serving request
+    0 dies silently once it has streamed some tokens, the heartbeat
+    timeout finds it, its requests resume on the survivor, and a
+    replacement joins."""
+    clk = FakeClock()
+    leg = FleetLeg("failover", cfg, params, device, clock=clk)
+    router = FleetRouter(clock=clk, heartbeat_timeout=FLEET_HEARTBEAT)
+    for _ in range(2):
+        router.add_replica(leg.engine())
+    leg.start_counting()
+    streams = [[] for _ in oracle]
+    ids = submit_all(router, oracle, streams)
+    entry = router.journal.get(ids[0])
+    for _ in range(100):
+        router.tick()
+        clk.t += FLEET_TICK
+        if 0 < len(entry.tokens) < entry.max_new_tokens:
+            break
+    else:
+        raise AssertionError("failover: request 0 never streamed mid-way")
+    victim, streamed = entry.replica_id, len(entry.tokens)
+    router.kill(victim)
+    replaced = False
+    for _ in range(5000):
+        if router.idle():
+            break
+        router.tick()
+        clk.t += FLEET_TICK
+        if not replaced and router.healthy_count() < 2:
+            router.add_replica(leg.engine())
+            replaced = True
+    out = leg.check(router, ids, oracle, streams, failovers=1)
+    if not replaced or entry.resubmits != 1:
+        raise AssertionError("failover: no replacement joined, or request "
+                             "0 was not resubmitted once")
+    out.update(ids=ids, victim=victim, streamed=streamed)
+    return out
+
+
+def fleet_rolling(cfg, params, oracle, device):
+    """Manual ticks, every lever on, under MXTPU_SANITIZERS=locks,pages
+    (armed for this leg only: its patches are process-wide): every
+    replica drains in turn after its replacement joined, requests keep
+    arriving, and each replica that leaves proves its pages quiescent."""
+    os.environ["MXTPU_SANITIZERS"] = "locks,pages"
+    sanitizers.refresh_from_env()
+    try:
+        clk = FakeClock()
+        leg = FleetLeg("rolling", cfg, params, device, clock=clk,
+                       levers=ROLLING_LEVERS)
+        router = FleetRouter(clock=clk, heartbeat_timeout=30.0)
+        old = [router.add_replica(leg.engine()) for _ in range(2)]
+        for rep in old:
+            if (type(rep.engine._lock).__name__ != "_SanRLock"
+                    or rep.engine._page_san is None):
+                raise AssertionError("rolling: the engine is not sanitized")
+        leg.start_counting()
+        streams = [[] for _ in oracle]
+        n0 = len(oracle) // 2
+        ids = submit_all(router, oracle, streams, 0, n0)
+        for _ in range(3):
+            router.tick()
+            clk.t += 0.01
+        per_roll = -(-(len(oracle) - n0) // len(old))
+        for rep in old:
+            router.add_replica(leg.engine())
+            router.drain(rep.replica_id)
+            ids += submit_all(router, oracle, streams, len(ids), per_roll)
+            for _ in range(5000):
+                if rep.state == "left":
+                    break
+                router.tick()
+                clk.t += 0.01
+            else:
+                raise AssertionError(f"rolling: {rep.replica_id} never "
+                                     f"finished draining")
+        for _ in range(5000):
+            if router.idle():
+                break
+            router.tick()
+            clk.t += 0.01
+        out = leg.check(router, ids, oracle, streams, failovers=0)
+        findings = sanitizers.report()
+    finally:
+        del os.environ["MXTPU_SANITIZERS"]
+        sanitizers.refresh_from_env()
+    if router.drains != len(old) or len(ids) != len(oracle):
+        raise AssertionError(f"rolling: {router.drains} drains, {len(ids)} "
+                             f"requests")
+    if findings:
+        raise AssertionError(f"rolling: sanitizer findings:\n{findings}")
+    out.update(ids=ids, findings=len(findings))
+    return out
+
+
+def wire_client(port, i, r, out):
+    """One streaming HTTP client: each NDJSON event stamped with the host
+    clock as it arrives."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t_send = time.monotonic()
+        conn.request("POST", "/v1/generate", json.dumps(
+            {"prompt": [int(t) for t in r["prompt"]],
+             "max_new_tokens": r["max_new"], "tenant": f"t{i % 2}"}))
+        resp = conn.getresponse()
+        events = []
+        for line in iter(resp.readline, b""):
+            if line.strip():
+                events.append(dict(json.loads(line), t=time.monotonic()))
+        out[i] = (resp.status, events, t_send)
+    finally:
+        conn.close()
+
+
+def wire_round(port, oracle, during=None):
+    """16 concurrent streaming clients; `during()` runs on this thread
+    while they stream. Returns {i: (status, events, send time)}."""
+    out = {}
+    threads = [threading.Thread(target=wire_client, args=(port, i, r, out),
+                                daemon=True, name=f"smoke-client-{i}")
+               for i, r in enumerate(oracle)]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError(f"wire: {t.name} never finished")
+    for i in range(len(oracle)):
+        status, events, _ = out[i]
+        if status != 200 or [e["event"] for e in events][-1] != "done":
+            raise AssertionError(f"wire: client {i}: HTTP {status}, "
+                                 f"{events[-2:]}")
+    return out
+
+
+def fleet_chains(records, ids, router):
+    """The wire leg's MXTRACE1 records, checked as `tools/trace_merge.py
+    --fleet --check` checks them (that tool imports the JAX package):
+    every request has its gateway.request root, every fleet.dispatch
+    parents under its request's root and every serving.request under a
+    fleet.dispatch of the same trace; each failed-over request has one
+    fleet.failover span per failover fleet.resubmit, with spans of its
+    trace on the survivor's lane, and on the victim's when it streamed
+    there before the kill; the journal's
+    deliveries tile each request's positions once, in order."""
+    spans = [r for r in records if r.get("kind") is None]
+    deliveries = [r for r in records if r.get("kind") == "fleet_delivery"]
+
+    def named(name):
+        return [r for r in spans if r["name"] == name]
+
+    roots = {r["extra"]["entry"]: r for r in named("gateway.request")
+             if r["extra"]["entry"] is not None}  # not the 429's
+    if set(roots) != set(ids):
+        raise AssertionError(f"trace: gateway roots for {sorted(roots)}, "
+                             f"requests {sorted(ids)}")
+    dispatch = {r["sid"]: r for r in named("fleet.dispatch")}
+    for r in dispatch.values():
+        root = roots[r["extra"]["entry"]]
+        if r["tid"] != root["tid"] or r.get("pid") != root["sid"]:
+            raise AssertionError(f"trace: dispatch of entry "
+                                 f"{r['extra']['entry']} not under its root")
+    served = named("serving.request")
+    for r in served:
+        parent = dispatch.get(r.get("pid"))
+        if parent is None or parent["tid"] != r["tid"]:
+            raise AssertionError(f"trace: serving.request on {r['lane']} "
+                                 f"orphaned (broken causal chain)")
+    if {r["tid"] for r in served} != {r["tid"] for r in roots.values()}:
+        raise AssertionError("trace: a request has no finished "
+                             "serving.request")
+    lanes = {}
+    for r in records:
+        lanes.setdefault(r.get("tid"), set()).add(r.get("lane"))
+    failovers = named("fleet.failover")
+    resubs = [r for r in named("fleet.resubmit")
+              if r["extra"]["reason"] == "failover"]
+    if not failovers or sorted(r["extra"]["entry"] for r in failovers) \
+            != sorted(r["extra"]["entry"] for r in resubs):
+        raise AssertionError(f"trace: {len(failovers)} failover spans for "
+                             f"{len(resubs)} failover resubmissions")
+    for r in failovers:
+        # the victim's lane holds the request's spans once it streamed
+        # there; one dispatched to it just before the kill never ran
+        sides = ("victim", "survivor") if r["extra"]["resume_pos"] \
+            else ("survivor",)
+        for side in sides:
+            if r["extra"][side] not in lanes[r["tid"]]:
+                raise AssertionError(f"trace: entry {r['extra']['entry']} "
+                                     f"has no span on its {side}'s lane")
+    for eid in ids:
+        pos = 0
+        for d in sorted((d for d in deliveries if d["entry"] == eid),
+                        key=lambda d: d["start"]):
+            if d["start"] != pos:
+                raise AssertionError(f"trace: entry {eid} delivered position "
+                                     f"{d['start']} at {pos}")
+            pos += d["n"]
+        if pos != len(router.result(eid)["tokens"]):
+            raise AssertionError(f"trace: entry {eid}: {pos} positions "
+                                 f"delivered")
+    return {"records": len(records), "failover_spans": len(failovers),
+            "deliveries": len(deliveries)}
+
+
+def fleet_wire(cfg, params, oracle, device, gpu, trace_dir):
+    """start() plus a ServingGateway on 127.0.0.1, tracing on: 16
+    concurrent streaming clients over two tenants; one replica silently
+    killed mid-stream and found by the real-clock heartbeat; a replacement
+    warmed while the fleet serves (its captures beside the survivor's
+    replays) joins the running fleet; a queue_limit=0 gateway answers 429
+    with Retry-After. Then one more round on the healed fleet, untraced,
+    under the profiler: the device's busy share."""
+    leg = FleetLeg("wire", cfg, params, device)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.environ["MXTPU_TRACE_DIR"] = trace_dir
+    tdist.refresh_from_env()
+    router = FleetRouter(heartbeat_timeout=WIRE_HEARTBEAT)
+    gw = None
+    try:
+        reps = [router.add_replica(leg.engine()) for _ in range(2)]
+        leg.start_counting()
+        router.start()
+        gw = ServingGateway(router, port=0, queue_limit=64,
+                            max_occupancy=0.99)
+        kill = {}
+
+        def kill_and_replace():
+            victim = reps[0].replica_id
+            deadline = time.monotonic() + 60
+            while not any(0 < len(e.tokens) < e.max_new_tokens
+                          for e in router.journal.assigned_to(victim)):
+                if time.monotonic() > deadline:
+                    raise AssertionError("wire: nothing streamed mid-way "
+                                         "on the victim")
+                time.sleep(0.001)
+            kill["t"] = time.monotonic()
+            router.kill(victim)
+            # positions the survivors resume from: nothing more arrives
+            # from the victim once kill() returned
+            kill["resume"] = {e.entry_id: len(e.tokens)
+                              for e in router.journal.assigned_to(victim)}
+            t0 = time.perf_counter()
+            kill["replacement"] = router.add_replica(leg.engine())
+            kill["warm_s"] = time.perf_counter() - t0
+
+        t_start = time.monotonic()
+        got = wire_round(gw.port, oracle, during=kill_and_replace)
+        t_end = time.monotonic()
+        ids = [events[-1]["entry_id"] for _, events, _ in
+               (got[i] for i in range(len(oracle)))]
+        streams = [got[i][1] for i in range(len(oracle))]
+        out = leg.check(router, ids, oracle, streams, failovers=1)
+        gw2 = ServingGateway(router, port=0, queue_limit=0,
+                             max_occupancy=0.99)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", gw2.port,
+                                              timeout=30)
+            conn.request("POST", "/v1/generate", json.dumps(
+                {"prompt": [1, 2, 3], "max_new_tokens": 4}))
+            resp = conn.getresponse()
+            retry_after = resp.getheader("Retry-After")
+            resp.read()
+            conn.close()
+        finally:
+            gw2.close()
+        if resp.status != 429 or not retry_after:
+            raise AssertionError(f"wire: a queue_limit=0 gateway answered "
+                                 f"{resp.status} (Retry-After "
+                                 f"{retry_after})")
+        del os.environ["MXTPU_TRACE_DIR"]
+        tdist.refresh_from_env()  # flushes and closes the trace file
+        records = [rec for f in sorted(os.listdir(trace_dir))
+                   if f.endswith(".mxtrace")
+                   for rec in tdist.read_trace_file(
+                       os.path.join(trace_dir, f))]
+        out["trace"] = fleet_chains(records, ids, router)
+        entries = [router.journal.get(eid) for eid in ids]
+        pauses = [ev["t"] - kill["t"] for i, eid in enumerate(ids)
+                  if eid in kill["resume"] for ev in got[i][1]
+                  if ev["event"] == "token"
+                  and ev["index"] == kill["resume"][eid]]
+        if not pauses:
+            raise AssertionError("wire: no resubmitted request streamed "
+                                 "after the kill")
+        ttft = [e.first_token_at - e.submitted_at for e in entries]
+        latency = [e.finished_at - e.submitted_at for e in entries]
+        tokens = sum(len(e.tokens) for e in entries)
+        out.update(
+            ids=ids, tokens=tokens, wall_s=t_end - t_start,
+            tokens_per_s=tokens / (t_end - t_start),
+            ttft_p50=float(np.median(ttft)), ttft_max=max(ttft),
+            latency_p50=float(np.median(latency)), latency_max=max(latency),
+            pause_s=min(pauses), resubmitted=len(pauses),
+            replacement_warm_s=kill["warm_s"], status_429=resp.status)
+        # the healed fleet (the survivor and the replacement), untraced,
+        # under the profiler, whose start may stall the pump threads: a
+        # longer heartbeat keeps that from reading as a death
+        router.heartbeat_timeout = 30.0
+        t0 = time.perf_counter()
+        wire_round(gw.port, oracle)
+        out["round_s"] = time.perf_counter() - t0
+        busy = {}
+        busy_share(lambda: wire_round(gw.port, oracle),
+                   "threaded fleet, 2 replicas behind the gateway, 16 "
+                   "streams", gpu, steps=1, warm=False, stats=busy)
+        if router.failovers != 1 or router.journal.snapshot()["lost"]:
+            raise AssertionError(f"wire: the profiled round: failovers "
+                                 f"{router.failovers}, journal "
+                                 f"{router.journal.snapshot()}")
+        out["busy"], out["profiled_s"] = busy.get("busy"), busy.get("wall_s")
+    finally:
+        if os.environ.pop("MXTPU_TRACE_DIR", None) is not None:
+            tdist.refresh_from_env()  # a failed leg: close the trace
+        if gw is not None:
+            gw.close()
+        router.stop()
+    return out
+
+
+def warm_without_collections(cfg, params, device):
+    """warm() a full-width engine with the collector set to run at almost
+    every allocation, and count the collections that started on a thread
+    inside a capture: there must be none. One there can free a dead
+    engine's graphs, which invalidates the capture (ROADMAP Queue C 4);
+    `graphs` pauses the collector for the capture proper. Collections
+    outside the captures must have run, or the check saw nothing."""
+    inside, outside = [], []
+
+    def watch(phase, info):
+        if phase == "start":
+            (inside if torch.cuda.is_current_stream_capturing()
+             else outside).append(info["generation"])
+
+    eng = ServingEngine(params, cfg, slots=SLOTS, page_size=PAGE,
+                        device=device)
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 10**9, 10**9)  # the youngest generation only
+    try:
+        warm = eng.warm()
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(watch)
+    if inside or not outside or set(warm.values()) != {"captured"}:
+        raise AssertionError(f"warm() with a busy collector: {len(inside)} "
+                             f"collections inside captures, "
+                             f"{len(outside)} outside; {warm}")
+    print(f"  warm() with the collector run at every allocation: "
+          f"{len(warm)} captures, {len(outside)} collections outside "
+          f"them, none inside")
+
+
+def fleet_legs(cfg, params, oracle, device, gpu, trace_dir):
+    """Phase 3b: the three fleet legs over phase 3's model, each held to
+    phase 3's generate(use_flash=True) tokens."""
+    faulthandler.dump_traceback_later(FLEET_WATCHDOG, exit=True)
+    try:
+        return _fleet_legs(cfg, params, oracle, device, gpu, trace_dir)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _fleet_legs(cfg, params, oracle, device, gpu, trace_dir):
+    t0 = time.perf_counter()
+    warm_without_collections(cfg, params, device)
+    legs = {"failover": fleet_failover(cfg, params, oracle, device)}
+    fleet_report("failover (manual ticks, fake clock, 2 replicas + 1)",
+                 legs["failover"])
+    print(f"    victim {legs['failover']['victim']} killed after request 0 "
+          f"streamed {legs['failover']['streamed']} token(s)")
+    legs["rolling"] = fleet_rolling(cfg, params, oracle, device)
+    fleet_report(f"rolling (manual ticks, {ROLLING_LEVERS}, "
+                 f"MXTPU_SANITIZERS=locks,pages)", legs["rolling"])
+    print(f"    sanitizer findings {legs['rolling']['findings']}; every "
+          f"replica left quiescent")
+    legs["wire"] = fleet_wire(cfg, params, oracle, device, gpu, trace_dir)
+    fleet_report("wire (start(), gateway, 16 streaming clients, real-clock "
+                 "heartbeat 1 s)", legs["wire"])
+    w = legs["wire"]
+    print(f"    replacement warmed beside the serving fleet in "
+          f"{w['replacement_warm_s']:.2f} s and joined it; queue_limit=0 "
+          f"gateway: HTTP {w['status_429']} with Retry-After; traced: "
+          f"{w['trace']['records']} records, chains complete, "
+          f"{w['trace']['failover_spans']} fleet.failover span(s), "
+          f"{w['trace']['deliveries']} deliveries, no position twice")
+    legs["seconds"] = time.perf_counter() - t0
+    print(f"  phase 3b: {legs['seconds']:.1f} s")
+    return legs
 
 
 # -- phase 4: training at full width ----------------------------------------
@@ -2157,7 +2755,7 @@ KINDS = (("epilogue_", "epilogue kernels"),
 
 
 def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
-               spans=()):
+               spans=(), stats=None):
     """Traced window (torch.profiler) over `steps` calls: the share of
     wall time with a kernel running, and the `top_n` kernels taking the
     most device time (with `kinds`, the device time by kind of kernel
@@ -2165,7 +2763,9 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
     an untraced run. Each name in `spans` must appear among the window's
     host ranges (a telemetry span's record_function); the spans' counts
     are printed, and their ranges are no kernel time. Returns the last
-    call's result and {device event name: events in the window}."""
+    call's result and {device event name: events in the window}; `stats`
+    (a dict) gets the busy share as "busy" and the window's wall seconds
+    as "wall_s"."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -2199,6 +2799,8 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
               f"not measured [{gpu}]")
         return result, events
     busy = sum(kernels.values())
+    if stats is not None:
+        stats.update(busy=busy / wall_us, wall_s=wall_us / 1e6)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"  {label}, traced over {steps} calls: wall "
           f"{wall_us / steps / 1e3:.3f} ms per call, device busy "
@@ -2251,7 +2853,7 @@ def main():
     cfg = tfm.TransformerConfig(**FULL)
     params = tfm.init_params(cfg, seed=0, device=device)
     legs = {"off": {}, **LEVER_LEGS}
-    served, flash_launches = {}, {}
+    served, flash_launches, oracles = {}, {}, {}
     telemetry.enable()  # the capture registry counts only while it is on
     for leg, levers in legs.items():
         out = served[leg] = serve(cfg, params, 16, device, **levers)
@@ -2273,7 +2875,9 @@ def main():
                   "prefill_tokens_saved", "cow_copies", "prefix_hit_rate",
                   "prefill_chunks", "spec_accepted_tokens",
                   "spec_proposed_tokens") if k in out))
-        flash_launches[leg], ties = match_generate(cfg, params, out, device)
+        flash_launches[leg], ties, oracle = match_generate(cfg, params, out,
+                                                           device)
+        oracles[leg] = oracle
         print(f"    tokens equal generate(use_flash=True) for every request "
               f"({ties} near ties); flash_decode launches "
               f"{flash_launches[leg]}")
@@ -2292,6 +2896,12 @@ def main():
             < served["off"]["max_step_prefill_tokens"]):
         raise AssertionError("chunked prefill did not lower the most "
                              "prefill tokens of any step")
+
+    print("phase 3b: the fleet at full width")
+    fleet = fleet_legs(
+        cfg, params, oracles["off"], device, gpu,
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_fleet_trace"))
 
     print("phase 4: training at full width")
     print(" leg flash (dense xent)")
@@ -2319,6 +2929,22 @@ def main():
               f"{out['ttft_p99_s'] * 1e3:.3f} ms; request latency p50 "
               f"{out['p50_latency_s'] * 1e3:.3f} ms, p99 "
               f"{out['p99_latency_s'] * 1e3:.3f} ms (host clock) [{gpu}]")
+    w = fleet["wire"]
+    print(f"  fleet, wire leg (2 replicas, one killed, a replacement; 16 "
+          f"streams through the gateway, host clock): {w['tokens']} tokens "
+          f"in {w['wall_s']:.3f} s, {w['tokens_per_s']:.1f} tokens/s; TTFT "
+          f"p50 {w['ttft_p50'] * 1e3:.3f} ms, largest "
+          f"{w['ttft_max'] * 1e3:.3f} ms; request latency p50 "
+          f"{w['latency_p50'] * 1e3:.3f} ms, largest "
+          f"{w['latency_max'] * 1e3:.3f} ms; failover pause (kill to the "
+          f"survivor's first token of a resubmitted request, heartbeat "
+          f"timeout {WIRE_HEARTBEAT:g} s) {w['pause_s'] * 1e3:.1f} ms over "
+          f"{w['resubmitted']} resubmitted request(s); a round on the "
+          f"healed fleet {w['round_s'] * 1e3:.1f} ms untraced; device busy "
+          + (f"{w['busy']:.1%} of a profiled round "
+             f"({w['profiled_s'] * 1e3:.1f} ms)" if w["busy"] is not None
+             else "not measured")
+          + f"; phase 3b {fleet['seconds']:.1f} s [{gpu}]")
     path_times(cfg, params, device, gpu)
     graph_vs_eager(cfg, params, device, gpu)
     profiler.set_state("run")  # spans annotate the windows below

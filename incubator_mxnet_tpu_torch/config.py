@@ -6,7 +6,9 @@ path's, including the serving levers' (`MXTPU_PREFIX_CACHE`,
 `MXTPU_PREFILL_CHUNK`, `MXTPU_SPEC_NGRAM`, `MXTPU_SPEC_LOOKAHEAD`; an
 engine's constructor argument wins over its knob), telemetry's (tracing,
 the flight recorder, the /metrics port, the serving SLOs and the /debug/*
-endpoints), and the ResNet train step's `MXTPU_FUSED_EPILOGUE`.
+endpoints), the runtime sanitizers', resilience's (retry, fault
+injection), the serving fleet's and gateway's, and the ResNet train
+step's `MXTPU_FUSED_EPILOGUE`.
 """
 from __future__ import annotations
 
@@ -193,3 +195,95 @@ _register("MXTPU_FUSED_EPILOGUE", False, bool,
           "(ops/kernels/epilogue.py:bn_act_epilogue): one pass applies the "
           "BN affine folded to per-channel scale/shift, the residual add "
           "and the activation. Off (default) runs every op unfused.")
+
+# runtime sanitizers (analysis/sanitizers.py)
+_register("MXTPU_SANITIZERS", "", str,
+          "Comma-separated runtime sanitizers from "
+          "analysis/sanitizers.py: 'locks' (san_lock primitives "
+          "become instrumented — global lock-order graph with "
+          "MXS001 deadlock-cycle reports, MXS002 "
+          "blocking-op-under-lock, MXS003 long holds), 'pages' "
+          "(shadow refcount/generation checking of every "
+          "PageAllocator transition — MXS010 double free, MXS011 "
+          "use-after-free, MXS012 COW violation, MXS013 leak at "
+          "drain, MXS014 shadow divergence), and 'threads' (a token "
+          "with no runtime hook). Empty (default) = all off: san_lock "
+          "returns plain threading primitives, resolved once at lock "
+          "creation — no per-acquire indirection. Findings feed "
+          "mxtpu_sanitizer_findings_total and sanitizer_finding "
+          "flight events.")
+_register("MXTPU_SANITIZER_HOLD_MS", 250.0, float,
+          "Lock-hold-time threshold in milliseconds for the locks "
+          "sanitizer: releasing a sanitized lock held longer than "
+          "this emits an MXS003 long-hold finding with the "
+          "acquisition site. Only read while MXTPU_SANITIZERS "
+          "includes 'locks'.")
+
+# resilience / fault tolerance (resilience/)
+_register("MXTPU_RETRY_MAX_ATTEMPTS", 8, int,
+          "Max calls (first try + retries) a resilience.RetryPolicy "
+          "makes before re-raising.")
+_register("MXTPU_RETRY_BASE_DELAY", 0.05, float,
+          "Seconds slept before the first retry; attempt k sleeps "
+          "base * 2**k, capped by MXTPU_RETRY_MAX_DELAY.")
+_register("MXTPU_RETRY_MAX_DELAY", 2.0, float,
+          "Upper bound (seconds) on one exponential-backoff sleep.")
+_register("MXTPU_RETRY_DEADLINE", 120.0, float,
+          "Overall wall-clock budget (seconds) across all retries of "
+          "one operation; the policy re-raises rather than sleep past "
+          "it.")
+_register("MXTPU_RETRY_JITTER", 0.1, float,
+          "Backoff jitter fraction: each sleep is scaled by "
+          "1 + U(-j, +j) from a seeded PRNG (deterministic across "
+          "runs; 0 disables).")
+_register("MXTPU_FAULT_SPEC", "", str,
+          "Deterministic fault-injection spec, `site:mode@arg` rules "
+          "joined by ';' (e.g. 'replica.kill:fail@8;ckpt.write:fail@2'). "
+          "Modes: drop (connection), fail (IO error), torn "
+          "(corrupt checkpoint), sigterm (deliver SIGTERM to self — "
+          "a deterministic preemption), delay; arg is a probability or "
+          "1-based call indices. Empty (default) disables injection.")
+_register("MXTPU_FAULT_SEED", 0, int,
+          "Seed for the fault injector's per-(site, instance) PRNG "
+          "streams; same seed + same spec fires the same faults at "
+          "the same calls.")
+
+# serving fleet (serving/fleet.py + serving/gateway.py — health-checked
+# routing, journaled mid-stream failover, draining rolling restarts)
+_register("MXTPU_FLEET_HEARTBEAT_TIMEOUT", 10.0, float,
+          "Seconds without a scheduler-pump heartbeat before the "
+          "fleet router declares a serving replica dead and "
+          "resubmits its journaled in-flight requests to the "
+          "survivors. Must exceed the replica's worst-case single "
+          "step (lazy CUDA-graph captures included) or a merely-slow "
+          "replica fails over spuriously — harmless for clients "
+          "(the journal dedups the zombie's late tokens) but "
+          "wasteful.")
+_register("MXTPU_FLEET_MAX_RESUBMITS", 3, int,
+          "Failover resubmissions a single request may consume "
+          "before the router gives up and fails it back to the "
+          "client (guards against a poison request that kills "
+          "every replica it lands on).")
+_register("MXTPU_GATEWAY_PORT", 0, int,
+          "TCP port for the serving HTTP gateway "
+          "(serving/gateway.py). 0 (default) binds an ephemeral "
+          "port — read it back from ServingGateway.port.")
+_register("MXTPU_GATEWAY_QUEUE_LIMIT", 64, int,
+          "Per-tenant router queue depth at which the gateway "
+          "stops admitting that tenant's requests and answers 429 "
+          "with Retry-After (bounded queueing instead of unbounded "
+          "latency collapse).")
+_register("MXTPU_GATEWAY_MAX_OCCUPANCY", 0.95, float,
+          "KV page-pool occupancy (on the LEAST loaded healthy "
+          "replica) above which the gateway sheds new requests "
+          "with 429 — admission control backpressured by the same "
+          "PageAllocator that backpressures slot admission.")
+_register("MXTPU_GATEWAY_RETRY_AFTER", 1.0, float,
+          "Retry-After seconds the gateway attaches to 429/503 "
+          "responses.")
+_register("MXTPU_GATEWAY_ACCESS_LOG", "", str,
+          "Structured NDJSON access log for the serving gateway: "
+          "a file path to append one JSON line per request "
+          "(tenant, status, token counts, queue-wait/TTFT/latency, "
+          "trace id, serving replica, failover count), '-' for "
+          "stderr, empty (default) for off.")

@@ -33,19 +33,42 @@ place. On the CPU, where there is no graph, `fn` runs eagerly on the
 inputs and the site registers a signature on its first call.
 
 Kernel launches: a capture records launches without running them, so the
-kernel wrappers' `.launches` counts taken during a capture are handed
-back and kept with that signature's graph (`.captured_launches`); each
-replay of the graph adds them to the wrappers' counts, since it launches
-those kernels.
+kernel wrappers' counts made during a capture go to the capture's tally
+(`ops/kernels/launches.py`) and are kept with that signature's graph
+(`.captured_launches`); each replay of the graph adds them to the
+wrappers' counts, since it launches those kernels. The eager warm-up
+runs before a capture do launch, and count; a site keeps them per
+signature (`.warmup_launches`).
+
+Threads: sites of different engines may run on different threads (the
+serving fleet pumps each replica from its own). Replays need no lock
+across engines; the sites of one pool replay from one thread at a time
+(an engine's steps, under its lock). A capture runs in CUDA's
+thread-local mode, so another thread's replays, copies and read-backs
+neither fail nor spoil it, and it holds one process-wide capture lock
+(`graphs.capture` to the lock sanitizer; after `serving.engine` when a
+step captures), so two captures, each of which synchronizes the device
+and empties the allocator's cache first, never overlap; a capture that
+finds its signature captured meanwhile takes that graph. No garbage
+collection runs during a capture: one could free a dead site's graph on
+the capturing thread, which invalidates the capture. A capture
+replays nothing, so it may run beside replays of its own pool. A
+signature's first call on the CPU, its registration, takes the same
+lock, so the CPU runs the card's lock order.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 
 import numpy as np
 import torch
 
+from .analysis import sanitizers as _sanitizers
 from .ops import kernels as _kernels
+from .ops.kernels import launches as _launches
 from .telemetry import compilereg
 
 __all__ = ["Pool", "Site", "wrap", "WARMUP_RUNS"]
@@ -53,6 +76,28 @@ __all__ = ["Pool", "Site", "wrap", "WARMUP_RUNS"]
 # eager runs on a side stream before each capture (PyTorch's rule: lazy
 # initialisation, e.g. a cuBLAS workspace, must not happen in a capture)
 WARMUP_RUNS = 2
+
+# the process-wide capture lock's mutex; `_capture_lock()` hands it to
+# the lock sanitizer as the lock class "graphs.capture" while it is on
+_CAPTURE_MUTEX = threading.Lock()
+
+
+def _capture_lock():
+    return _sanitizers.san_lock("graphs.capture", _CAPTURE_MUTEX)
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Pause Python's cyclic collector (process-wide) for a capture: a
+    collection there may free a dead engine's graphs, and destroying a
+    graph on the capturing thread invalidates its capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class Pool:
@@ -84,15 +129,13 @@ class _Graph:
         self.replays = 0
 
 
-def _counts():
-    return [k.launches for k in _kernels.COUNTED]
-
-
 class Site:
     """One named device call; see the module docstring. Attributes:
     `replays` (replays of any of its graphs), `capture_seconds`
-    ({signature: seconds}) and `pool_bytes` (device memory reserved
-    during its captures: the pool's growth)."""
+    ({signature: seconds}), `warmup_launches` ({signature: {kernel
+    wrapper name: launches of its capture's eager warm-up runs}}) and
+    `pool_bytes` (device memory reserved during its captures: the
+    pool's growth)."""
 
     def __init__(self, name, fn, *, device, pool=None):
         self.name = name
@@ -101,6 +144,7 @@ class Site:
         self.pool = pool if pool is not None else Pool()
         self.replays = 0
         self.capture_seconds = {}
+        self.warmup_launches = {}
         self.pool_bytes = 0
         self._graphs = {}
         self._eager = set()  # signatures run eagerly (CPU)
@@ -136,7 +180,7 @@ class Site:
         self.replays += 1
         g.replays += 1
         for kernel, n in g.launches:
-            kernel.launches += n
+            _launches.count(kernel, n)
         return g.output
 
     def warm(self, *shapes):
@@ -155,15 +199,23 @@ class Site:
         return "captured"
 
     def _eager_call(self, sig, arrays):
-        t0 = time.perf_counter()
-        out = self.fn(*(torch.from_numpy(a).to(self.device) for a in arrays))
+        inputs = [torch.from_numpy(a).to(self.device) for a in arrays]
         if sig not in self._eager:
-            self._eager.add(sig)
-            compilereg.register(self.name, sig,
-                                compile_s=time.perf_counter() - t0)
-        return out
+            with _capture_lock():
+                if sig not in self._eager:  # not registered meanwhile
+                    t0 = time.perf_counter()
+                    out = self.fn(*inputs)
+                    self._eager.add(sig)
+                    compilereg.register(self.name, sig,
+                                        compile_s=time.perf_counter() - t0)
+                    return out
+        return self.fn(*inputs)
 
     def _capture(self, sig, arrays):
+        """Warm up, then capture under the capture lock. The warm-up runs
+        and the release of the allocator's cached blocks (which can take
+        a tenth of a second after other engines were freed) come first,
+        outside the lock, so it is held for the capture itself."""
         dev = self.device
         t0 = time.perf_counter()
         try:
@@ -171,35 +223,43 @@ class Site:
                                   device=dev) for a in arrays]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), _launches.observing() as warmup:
                 for _ in range(WARMUP_RUNS):
                     self.fn(*inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
-            # a capture starts by emptying the allocator's cache; do it
-            # first, so the reserved bytes' growth is the pool's
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            before = _counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool.handle()):
-                output = self.fn(*inputs)
+            with _capture_lock():
+                g = self._graphs.get(sig)
+                if g is not None:  # another thread captured it meanwhile
+                    return g
+                # a capture starts by emptying the allocator's cache;
+                # do it first, so the reserved bytes' growth is the pool's
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                graph = torch.cuda.CUDAGraph()
+                # the capture launches nothing: its counts go to the
+                # tally, credited at each replay instead
+                with _launches.capturing() as tally, _no_collection(), \
+                        torch.cuda.graph(graph, pool=self.pool.handle(),
+                                         capture_error_mode="thread_local"):
+                    output = self.fn(*inputs)
+                launches = [(kernel, tally[kernel])
+                            for kernel in _kernels.COUNTED
+                            if tally.get(kernel)]
+                seconds = time.perf_counter() - t0
+                self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+                self.capture_seconds[sig] = seconds
+                self.warmup_launches[sig] = {kernel.__name__: n
+                                             for kernel, n in warmup.items()}
+                g = self._graphs[sig] = _Graph(graph, inputs, output,
+                                               launches)
+                compilereg.register(self.name, sig, compile_s=seconds)
+                return g
         except Exception as e:
             raise RuntimeError(f"CUDA-graph capture of site {self.name!r} "
                                f"failed: {e}") from e
-        # the capture launched nothing: hand its counts back, and credit
-        # them at each replay instead
-        launches = []
-        for kernel, b, a in zip(_kernels.COUNTED, before, _counts()):
-            kernel.launches = b
-            if a > b:
-                launches.append((kernel, a - b))
-        seconds = time.perf_counter() - t0
-        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
-        self.capture_seconds[sig] = seconds
-        g = self._graphs[sig] = _Graph(graph, inputs, output, launches)
-        compilereg.register(self.name, sig, compile_s=seconds)
-        return g
 
 
 def wrap(name, fn, *, device, pool=None):

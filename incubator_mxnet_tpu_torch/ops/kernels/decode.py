@@ -44,6 +44,7 @@ import math
 import torch
 
 from .. import _build
+from . import launches as _launches
 
 __all__ = ["DECODE_BLOCK", "DECODE_KEYS_PER_SPLIT", "dense_decode_attention",
            "flash_decode", "flash_decode_ref", "flash_decode_split_ref",
@@ -379,7 +380,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, n_valid):
             out.data_ptr(), S, H, D, ps, P, W, n_split, 1.0 / math.sqrt(D),
             stream)
     _raise_on(lib, err, name)
-    paged_decode_attention.launches += 1
+    _launches.count(paged_decode_attention)
     return out
 
 
@@ -438,7 +439,7 @@ def paged_decode_attention_wide(q, k_pages, v_pages, page_table, n_base):
             work.data_ptr(), out.data_ptr(), S, Q, H, D, ps, P, W, n_split,
             1.0 / math.sqrt(D), stream)
     _raise_on(lib, err, name)
-    paged_decode_attention_wide.launches += 1
+    _launches.count(paged_decode_attention_wide)
     return out.to(q.dtype)
 
 
@@ -484,7 +485,7 @@ def flash_decode(q, k_cache, v_cache, n_valid):
             counters.data_ptr(), out.data_ptr(), B, T, H, D, n_split,
             1.0 / math.sqrt(D), stream)
     _raise_on(lib, err, name)
-    flash_decode.launches += 1
+    _launches.count(flash_decode)
     return out
 
 

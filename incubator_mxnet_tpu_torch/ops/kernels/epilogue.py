@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import launches as _launches
 from .decode import _raise_on, _route
 from .flash import _stream
 
@@ -142,7 +143,7 @@ def bn_act_epilogue_fwd(x, scale, shift, residual=None):
             shift.data_ptr(), None if res is None else res.data_ptr(),
             y.data_ptr(), x.shape[0], x.shape[1], _stream(x.device))
     _raise_on(lib, err, name)
-    bn_act_epilogue_fwd.launches += 1
+    _launches.count(bn_act_epilogue_fwd)
     return y
 
 
@@ -180,7 +181,7 @@ def bn_act_epilogue_bwd(x, scale, y, dy, with_residual=False):
             None if dres is None else dres.data_ptr(), workspace.data_ptr(),
             sums.data_ptr(), R, C, _stream(x.device))
     _raise_on(lib, err, name)
-    bn_act_epilogue_bwd.launches += 1
+    _launches.count(bn_act_epilogue_bwd)
     if with_residual:
         return dx, sums[:C], sums[C:], dres
     return dx, sums[:C], sums[C:]

@@ -46,6 +46,7 @@ import math
 import torch
 
 from .. import _build
+from . import launches as _launches
 from .decode import _raise_on, _route
 
 __all__ = ["FLASH_MAX_HEAD_DIM", "padded_head_dim", "flash_attention",
@@ -236,7 +237,7 @@ def flash_attention_fwd(q, k, v, causal=False):
             o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), B, H, T, D,
             int(causal), 1.0 / math.sqrt(D), _stream(q.device))
     _raise_on(lib, err, name)
-    flash_attention_fwd.launches += 1
+    _launches.count(flash_attention_fwd)
     return o, lse
 
 
@@ -266,7 +267,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False):
             _strides(q, k, v, do, dq), B, H, T, D, int(causal),
             1.0 / math.sqrt(D), _stream(q.device))
     _raise_on(lib, err, name)
-    flash_attention_dq.launches += 1
+    _launches.count(flash_attention_dq)
     return dq
 
 
@@ -297,7 +298,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False):
             dv.data_ptr(), _strides(q, k, v, do, dk, dv), B, H, T, D,
             int(causal), 1.0 / math.sqrt(D), _stream(q.device))
     _raise_on(lib, err, name)
-    flash_attention_dkv.launches += 1
+    _launches.count(flash_attention_dkv)
     return dk, dv
 
 

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import launches as _launches
 from .decode import _raise_on, _route
 from .flash import _stream
 
@@ -140,7 +141,7 @@ def softmax_xent_fwd(logits, labels):
             labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), N, V,
             _stream(logits.device))
     _raise_on(lib, err, name)
-    softmax_xent_fwd.launches += 1
+    _launches.count(softmax_xent_fwd)
     return loss, lse
 
 
@@ -168,7 +169,7 @@ def softmax_xent_bwd(logits, labels, lse, dloss):
             labels.data_ptr(), lse.data_ptr(), dloss.data_ptr(),
             dlogits.data_ptr(), N, V, _stream(logits.device))
     _raise_on(lib, err, name)
-    softmax_xent_bwd.launches += 1
+    _launches.count(softmax_xent_bwd)
     return dlogits
 
 

@@ -60,13 +60,20 @@ born in `submit` or adopted from its `trace_ctx`) and one batched
 `req_step` record per decode step; an SLO monitor fed by every finished
 request (`slo`, or the `MXTPU_SLO_*` knobs); and `debug_snapshot`, served
 at `/debug/engine` by the telemetry HTTP server under
-`MXTPU_DEBUG_ENDPOINTS`. The page-sanitizer hooks are not ported yet.
+`MXTPU_DEBUG_ENDPOINTS`.
+
+Runtime sanitizers (`analysis/sanitizers.py`, `MXTPU_SANITIZERS`), as in
+the JAX engine: the engine lock is a `san_rlock("serving.engine")`, so
+the lock sanitizer sees its order against the fleet's locks and the
+capture lock (`graphs`); with `pages` on, a page sanitizer shadows the
+allocator, every device write into the pool is announced first
+(`note_write`: chunked and prefix-tail prefill, speculative
+verification, the decode step) and `run()` proves quiescence at drain.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-import threading
 import time
 from collections import deque
 
@@ -74,6 +81,7 @@ import numpy as np
 import torch
 
 from .. import config, graphs, telemetry
+from ..analysis import sanitizers as _sanitizers
 from ..config import resolve_device
 from ..models import transformer as _tfm
 from ..telemetry import compilereg
@@ -205,6 +213,17 @@ class ServingEngine:
         if not num_pages:  # auto: every slot can hold a full sequence
             num_pages = self.slots * self.table_width + 1
         self.allocator = PageAllocator(num_pages, self.page_size)
+        # shadow-state refcount checker (None unless MXTPU_SANITIZERS
+        # lists "pages"); run() proves quiescence at drain through it.
+        # Writes the sanitizer is told of (`_note_writes`): every wide
+        # call's real rows (chunked prefill, the prefix cache's tail
+        # prefill, speculative verification) and the decode step's one
+        # row a slot, as the JAX engine tells it. Not told, as in JAX:
+        # the bucketed prefill and a copy-on-write's page copy, which
+        # write fresh pages the slot alone holds, and the masked rows of
+        # idle slots and `warm()`'s all-zero calls, which write only the
+        # null page, a page no allocator transition covers
+        self._page_san = _sanitizers.attach_page_sanitizer(self.allocator)
         self.paged = _tfm.init_paged_kv_cache(cfg, num_pages, self.page_size,
                                               device=self.device)
         self.prefill_buckets = _default_buckets(self.max_len)
@@ -212,8 +231,12 @@ class ServingEngine:
         # explicit timeline lane for this engine's trace records (None: the
         # process lane)
         self.trace_lane = None
-        # submit/cancel may arrive from other threads while step() runs
-        self._lock = threading.RLock()
+        # submit/cancel arrive from gateway and fleet threads while the
+        # pump thread sits inside step(). Reentrant because step()
+        # finishing a request may call back through the public surface;
+        # a san_rlock so lockdep sees the ordering against the fleet and
+        # journal locks and the capture lock
+        self._lock = _sanitizers.san_rlock("serving.engine")
 
         if prefix_cache is None:
             prefix_cache = int(config.get("MXTPU_PREFIX_CACHE"))
@@ -421,6 +444,10 @@ class ServingEngine:
         for _ in range(max_steps):
             with self._lock:
                 if not self._queue and not any(self._slot_req):
+                    if self._page_san is not None:
+                        # every live reference must now be owned by the
+                        # prefix cache; anything else leaked (MXS013)
+                        self._page_san.assert_quiescent()
                     return dict(self._results)
             self.step()
         raise RuntimeError(f"serving engine did not drain within "
@@ -459,13 +486,19 @@ class ServingEngine:
         prefix cache's tail, and lookahead + 1 for speculation) and the
         page copy, each on all-zero inputs, which write only the KV pool's
         null page. Returns {site: status} with `graphs.Site.warm`'s
-        statuses."""
+        statuses.
+
+        Takes the engine lock only to list the sites, not across the
+        captures, as the JAX `warm()` takes none across its compiles; it
+        is safe beside a concurrent `step()` all the same: a capture
+        replays nothing, captures serialize on the process-wide capture
+        lock (`graphs`), and the sites' replays run only in `step()`,
+        under the engine lock."""
         S, W = self.slots, self.table_width
         with self._lock:
-            out = {"serving_decode_step": self._decode.warm((S,), (S,),
-                                                            (S, W))}
-            for T_b, site in self._prefills.items():
-                out[site.name] = site.warm((1, T_b), (1,), (1, W))
+            calls = [(self._decode, ((S,), (S,), (S, W)))]
+            calls += [(site, ((1, T_b), (1,), (1, W)))
+                      for T_b, site in self._prefills.items()]
             wide_qs = set()
             if self.prefill_chunk:
                 wide_qs.add(self.prefill_chunk)
@@ -473,12 +506,11 @@ class ServingEngine:
                 wide_qs.add(min(_SYNC_TAIL_CHUNK, self.max_len))
             if self.spec_ngram:
                 wide_qs.add(self.spec_lookahead + 1)
-            for q in sorted(wide_qs):
-                site = self._wide(q)
-                out[site.name] = site.warm((S, q), (S,), (S,), (S, W))
+            calls += [(self._wide(q), ((S, q), (S,), (S,), (S, W)))
+                      for q in sorted(wide_qs)]
             if self._page_copy is not None:
-                out["serving_page_copy"] = self._page_copy.warm((), ())
-            return out
+                calls.append((self._page_copy, ((), ())))
+        return {site.name: site.warm(*shapes) for site, shapes in calls}
 
     def sites(self):
         """{name: graphs.Site} of every site built so far."""
@@ -686,6 +718,7 @@ class ServingEngine:
             start[s] = pos
             n_real[s] = n
             tables[s] = st["row"]
+        self._note_writes(pend, start, n_real)
         with telemetry.span("serving.prefill_chunk", slots=len(pend)):
             out = self._run_wide(toks, start, n_real, tables)
         for s in pend:
@@ -833,6 +866,8 @@ class ServingEngine:
             toks[s, 1:1 + prop.size] = prop
             start[s] = self._positions[s]
             n_real[s] = 1 + prop.size
+        # rows [start, start+n_real) of each slot land in its table
+        self._note_writes(live_slots, start, n_real)
         tok = self._run_wide(toks, start, n_real, self._tables)
         for s in live_slots:
             req = self._slot_req[s]
@@ -886,6 +921,9 @@ class ServingEngine:
         live_slots = self._decoding_slots()
         if not live_slots:
             return self.slots_in_use
+        # the step writes one K/V entry per live slot at _positions[s]
+        self._note_writes(live_slots, self._positions,
+                          np.ones_like(self._positions))
         tok = self._decode(self._next_tok, self._positions,
                            self._tables).cpu().numpy()
         self.decode_steps += 1
@@ -901,6 +939,18 @@ class ServingEngine:
             if self._is_done(req, self._slot_out[s]):
                 self._finish(s)
         return self.slots_in_use
+
+    def _note_writes(self, slots, start, n_real):
+        """Tell the page sanitizer (if armed) which pages the coming
+        device call writes: rows [start[s], start[s] + n_real[s]) of each
+        slot in `slots`, through the slot's pages."""
+        if self._page_san is None:
+            return
+        for s in slots:
+            lo = int(start[s]) // self.page_size
+            hi = (int(start[s]) + int(n_real[s]) - 1) // self.page_size
+            self._page_san.note_write(self._slot_req[s].request_id,
+                                      self._slot_pages[s][lo:hi + 1])
 
     def _is_done(self, req, out):
         if req.eos_id is not None and out and out[-1] == req.eos_id:

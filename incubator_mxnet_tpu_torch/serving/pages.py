@@ -30,10 +30,10 @@ touches pages no live request references (refcount == the cache's own
 single reference).
 
 Pure host bookkeeping in numpy, safe to use from schedulers and tests
-without a device. A copy of the JAX package's `serving/pages.py`: the
-`sanitizer` seam stays (an object with `on_alloc` / `on_share` /
-`on_cow` / `on_free` may be attached), the flight-recorder events that
-the JAX package emits beside it are not ported yet.
+without a device. A copy of the JAX package's `serving/pages.py`: a page
+sanitizer (`analysis.sanitizers.attach_page_sanitizer`) sees every
+transition, and while one is attached each transition also logs a
+`page_lifecycle` flight-recorder event.
 """
 from __future__ import annotations
 
@@ -41,9 +41,21 @@ from collections import deque
 
 import numpy as np
 
+from ..telemetry import recorder as _recorder
+
 __all__ = ["PageAllocator", "PrefixCache", "NULL_PAGE"]
 
 NULL_PAGE = 0
+
+
+def _log_page_event(op, pages, owner, free):
+    """`page_lifecycle` flight-recorder events (alloc/share/cow/free
+    with owner provenance) so a post-mortem dump can reconstruct who
+    leaked a page. Emitted only while a page sanitizer is attached
+    (MXTPU_SANITIZERS=pages) — the default path does not spend ring
+    capacity or event-encoding time on per-page bookkeeping."""
+    _recorder.log_event("page_lifecycle", op=op, pages=list(pages),
+                        owner=owner, free=free)
 
 
 class PageAllocator:
@@ -62,8 +74,8 @@ class PageAllocator:
         # reuse-after-free bugs show up deterministically in tests
         self._free = deque(range(1, self.num_pages))
         self._refs: dict[int, int] = {}
-        # seam for a page sanitizer (shadow refcounts); every transition
-        # below feeds it when one is attached
+        # armed by analysis.sanitizers.attach_page_sanitizer when the
+        # pages sanitizer is on; every transition below feeds it
         self.sanitizer = None
 
     @property
@@ -111,8 +123,9 @@ class PageAllocator:
         """Allocate `n_pages` pages at refcount 1; returns the page-id
         list, or None when the pool can't cover it (all-or-nothing —
         the caller keeps the request queued instead of half-admitting
-        it). `owner` is provenance (request id, "prefix_cache") for an
-        attached page sanitizer."""
+        it). `owner` is provenance (request id, "prefix_cache") for the
+        page_lifecycle event stream and the page sanitizer's mapping
+        registry."""
         n_pages = int(n_pages)
         if n_pages < 0:
             raise ValueError(f"cannot alloc {n_pages} pages")
@@ -123,6 +136,8 @@ class PageAllocator:
             self._refs[p] = 1
         if self.sanitizer is not None:
             self.sanitizer.on_alloc(pages, owner=owner)
+            if pages:
+                _log_page_event("alloc", pages, owner, len(self._free))
         return pages
 
     def extend(self, pages, old_tokens: int, new_tokens: int, owner=None):
@@ -152,6 +167,8 @@ class PageAllocator:
             self.sanitizer.on_share(pages, owner=owner)
         for p in pages:
             self._refs[p] += 1
+        if self.sanitizer is not None and pages:
+            _log_page_event("share", pages, owner, len(self._free))
 
     def refcount(self, page: int) -> int:
         """References currently held on `page` (0 = free/null)."""
@@ -188,6 +205,7 @@ class PageAllocator:
         self._refs[page] = count - 1
         if self.sanitizer is not None:
             self.sanitizer.on_cow(page, fresh[0], owner=owner)
+            _log_page_event("cow", [page, fresh[0]], owner, len(self._free))
         return fresh[0]
 
     def free(self, pages, owner=None):
@@ -210,6 +228,8 @@ class PageAllocator:
             else:
                 del self._refs[p]
                 self._free.append(p)
+        if self.sanitizer is not None and pages:
+            _log_page_event("free", pages, owner, len(self._free))
 
     def table_row(self, pages, width: int):
         """Pad a page list to a fixed-width page-table row (null-page

@@ -1,14 +1,15 @@
 """Thread-safe metrics primitives: Counter, Gauge, Histogram + registry.
 
 A copy of the JAX package's registry (`incubator_mxnet_tpu/telemetry/
-metrics.py`) with plain `threading.Lock`s in place of its sanitizer
-locks. Label resolution caches the child series in a dict, so the hot
+metrics.py`), its locks named for the lock sanitizer (`san_lock`) as
+there. Label resolution caches the child series in a dict, so the hot
 path is a dict hit plus a tiny per-child critical section.
 """
 from __future__ import annotations
 
 import bisect
-import threading
+
+from ..analysis.sanitizers import san_lock
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
@@ -35,7 +36,7 @@ class _Metric:
     def __init__(self, name, help=""):
         self.name = name
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = san_lock("telemetry.metric")
         self._children = {}
 
     def labels(self, **labels):
@@ -61,7 +62,7 @@ class _CounterChild:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = san_lock("telemetry.counter_child")
         self.value = 0.0
 
     def inc(self, amount=1.0):
@@ -88,7 +89,7 @@ class _GaugeChild:
     __slots__ = ("_lock", "value")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = san_lock("telemetry.gauge_child")
         self.value = 0.0
 
     def set(self, value):
@@ -137,7 +138,7 @@ class _HistogramChild:
     __slots__ = ("_lock", "_bounds", "buckets", "count", "sum", "min", "max")
 
     def __init__(self, bounds):
-        self._lock = threading.Lock()
+        self._lock = san_lock("telemetry.hist_child")
         self._bounds = bounds
         self.buckets = [0] * (len(bounds) + 1)  # last slot: +Inf
         self.count = 0
@@ -187,7 +188,7 @@ class MetricsRegistry:
     tests may instantiate their own."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = san_lock("telemetry.registry")
         self._metrics = {}
 
     def _get_or_create(self, name, kind, factory):

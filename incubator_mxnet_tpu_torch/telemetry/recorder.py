@@ -17,9 +17,8 @@ occupied slots by seq; a slot being overwritten mid-snapshot yields a
 newer event, never a torn one.
 
 The port's copy of the JAX package's recorder
-(`incubator_mxnet_tpu/telemetry/recorder.py`), with plain
-`threading.Lock`s where the JAX package takes sanitizer locks
-(`analysis.sanitizers.san_lock`): the lock sanitizer is not ported yet.
+(`incubator_mxnet_tpu/telemetry/recorder.py`), its locks named for the
+lock sanitizer (`analysis.sanitizers.san_lock`) as there.
 
 Knobs: `MXTPU_FLIGHT_RECORDER_EVENTS` (capacity; 0 disables),
 `MXTPU_FLIGHT_RECORDER_DIR` (dump destination, falls back to
@@ -36,6 +35,7 @@ import sys
 import threading
 import time
 
+from ..analysis.sanitizers import san_lock
 
 __all__ = [
     "FlightRecorder", "log_event", "snapshot", "dump", "recording",
@@ -75,9 +75,9 @@ class FlightRecorder:
         return max(held) + 1
 
 
-_state_lock = threading.Lock()
+_state_lock = san_lock("telemetry.recorder_state")
 _ring = None          # FlightRecorder, False when capacity == 0, None unresolved
-_dump_lock = threading.Lock()
+_dump_lock = san_lock("telemetry.recorder_dump")
 _dumps_written = 0
 _hooks_installed = False
 
