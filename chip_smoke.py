@@ -109,7 +109,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    must launch each epilogue kernel 49 times per step (the unfused leg
    none), its step-1 loss must equal the unfused leg's at rtol 1e-5, atol
    1e-6 and its gradients at rtol 2e-4, atol 1e-5; every loss finite, the
-   largest relative loss gap printed;
+   largest relative loss gap printed. Then bench.py's headline path from
+   the same seeded weights: bfloat16 nets (`net.cast("bfloat16")`)
+   unfused and fused, 10 steps each (49 launches of each epilogue kernel
+   a step fused, none unfused; step-1 losses within 2e-2 of each other
+   and of the float32 unfused leg's; weights and momenta stay bfloat16);
+   `compute_dtype="bfloat16"` on the float32 net, fused, 5 steps (float32
+   masters and momenta, step 1 within 2e-2); `scan_steps` with K 8,
+   float32 and bfloat16, fused, against 8 eager steps of the same step
+   over the same batches from the same state, cuDNN deterministic (all 8
+   losses at rtol 1e-5 float32, 1e-3 bfloat16; the weights, momenta and
+   running stats after the first call against the eager steps', the gap
+   over the eager steps' movement at most 1e-5 and 1e-3;
+   a planted fault, the warm-up run without its state restore, must fail
+   these gates; the first call captures one CUDA graph, a second
+   captures nothing and launches each epilogue kernel 49 x 8 times, all
+   in its replay); `accum_steps` over 2 micro-batches of 64 (one update,
+   the loss the micro-batches' mean at rtol 1e-5, 2 x 49 launches); and
+   3 steps each plain and under remat_policy "nothing" and "convs",
+   cuDNN deterministic (step 1's loss the unfused leg's at rtol 1e-5,
+   steps 2-3 the plain leg's at 1e-5, the running stats after step 1 a
+   plain step's at rtol 1e-6, step 1's peak allocation printed; "nothing"
+   must peak below plain);
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -125,7 +146,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bfloat16 too, and the flash kernels at D 256 (B 8, H 2, T 512);
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
-   ResNet-50 leg's step, host time and images/s; the fleet's wire leg
+   ResNet-50 leg's step, host time and images/s (the bfloat16 fused leg
+   too), kernels 6-7 in bfloat16 at the stem and stage-1 join, and
+   `python3 -m incubator_mxnet_tpu_torch.bench` with the epilogue on
+   (images/s eager and scan, bfloat16 and float32); the fleet's wire
+   leg
    (tokens/s, TTFT and request latency p50 and largest, the failover
    pause from the kill to the survivor's first token of a resubmitted
    request, and the device's busy share over a threaded round); then
@@ -1431,14 +1456,19 @@ def fleet_wire(cfg, params, oracle, device, gpu, trace_dir):
         def kill_and_replace():
             victim = reps[0].replica_id
             deadline = time.monotonic() + 60
-            while not any(0 < len(e.tokens) < e.max_new_tokens
-                          for e in router.journal.assigned_to(victim)):
+
+            def mid_stream():
+                return any(0 < len(e.tokens) < e.max_new_tokens
+                           for e in router.journal.assigned_to(victim))
+
+            # checked under the victim's lock: it cannot finish the
+            # request between the check and its death
+            while not router.kill(victim, when=mid_stream):
                 if time.monotonic() > deadline:
                     raise AssertionError("wire: nothing streamed mid-way "
                                          "on the victim")
                 time.sleep(0.001)
             kill["t"] = time.monotonic()
-            router.kill(victim)
             # positions the survivors resume from: nothing more arrives
             # from the victim once kill() returned
             kill["resume"] = {e.entry_id: len(e.tokens)
@@ -2032,6 +2062,410 @@ def bn_layer_check(device):
         check(f"{tag} running var", v1, v0, 1e-6)
 
 
+# -- phase 4: bench.py's headline path (bfloat16, scan, accum, remat) --------
+
+SCAN_K = 8        # bench.py's BENCH_SCAN
+ACCUM = (2, 64)   # micro-batches x micro-batch size
+TOL_BF16 = 2e-2
+
+
+def resnet_net(batch, device, cast=None):
+    """`resnet50` at the seeded weights, cast to `cast` if given."""
+    net = resnet50(batch[0], device)
+    if cast is not None:
+        net.cast(cast)
+    return net
+
+
+def resnet_step(net, device, **kw):
+    return GluonTrainStep(net, resnet_loss, tmx.optimizer.SGD(**RESNET_SGD),
+                          device=device, **kw)
+
+
+def running_stats(net):
+    """{name without the net's prefix: a copy of the running stat}."""
+    return {n[len(net.prefix):]: p.data().clone()
+            for n, p in net.collect_params().items() if p.grad_req == "null"}
+
+
+def eager_leg(label, batch, device, fused, steps, cast=None, per_step=None,
+              **kw):
+    """`steps` eager steps of a fresh seeded ResNet-50 (cast to `cast`,
+    GluonTrainStep options `kw`), the knob set by `fused`; each step must
+    launch each epilogue kernel `per_step` times (EPI_PER_STEP fused, 0
+    unfused, by default). Returns the net, step, losses, the running stats
+    after step 1 and the step's peak growth of allocated device memory
+    (step 1, above what was allocated before it)."""
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if fused else "0"
+    want = (EPI_PER_STEP if fused else 0) if per_step is None else per_step
+    x, y = batch
+    net = resnet_net(batch, device, cast)
+    if cast is not None:
+        x = x.to(getattr(torch, cast))
+    step = resnet_step(net, device, **kw)
+    losses, stats1, peak = [], None, None
+    t0 = time.perf_counter()
+    for i in range(steps):
+        before = [k.launches for k in EPI_KERNELS]
+        if i == 0:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        losses.append(step(x, y))
+        if i == 0:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            stats1 = running_stats(net)
+        for k, b in zip(EPI_KERNELS, before):
+            if k.launches - b != want:
+                raise AssertionError(f"{label}: {k.__name__} launched "
+                                     f"{k.launches - b} times in step "
+                                     f"{i + 1}, expected {want}")
+    losses = torch.stack(losses).tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    seconds = time.perf_counter() - t0
+    print(f"  {label}: {steps} steps in {seconds:.1f} s; losses "
+          f"{[round(v, 5) for v in losses]}; {want} launches of each "
+          f"epilogue kernel per step; step 1 allocated "
+          f"{peak / 2**30:.3f} GiB above its start")
+    return dict(net=net, step=step, losses=losses, stats1=stats1, peak=peak,
+                x=x, y=y)
+
+
+def near(label, got, want, rtol):
+    if not np.isclose(got, want, rtol=rtol, atol=0):
+        raise AssertionError(f"{label}: {got} against {want} (rtol {rtol})")
+    print(f"  {label}: {got:.6f} against {want:.6f} (rtol {rtol:g})")
+
+
+def dtypes_of(step, dtype, label):
+    bad = [str(t.dtype) for t in step.weights + [s for s in step.states
+                                                 if s is not None]
+           if t.dtype != dtype]
+    if bad:
+        raise AssertionError(f"{label}: weights or momenta left {dtype}: "
+                             f"{sorted(set(bad))}")
+
+
+def bf16_legs(batch, device, f32_loss1):
+    """bfloat16 nets (`net.cast("bfloat16")`), unfused then fused, 10 eager
+    steps each from the same weights; then `compute_dtype="bfloat16"` on
+    a float32 net, fused, 5 steps. Step-1 losses within 2e-2 of each other
+    and of the float32 unfused leg's; weights and momenta keep their
+    dtypes."""
+    t0 = time.perf_counter()
+    legs = {}
+    for leg, fused in (("bf16 unfused", False), ("bf16 fused", True)):
+        legs[leg] = eager_leg(f"leg resnet50_v1 {leg}", batch, device, fused,
+                              RESNET["steps"], cast="bfloat16")
+        dtypes_of(legs[leg]["step"], torch.bfloat16, leg)
+    near("bf16 step 1 loss, fused against unfused",
+         legs["bf16 fused"]["losses"][0], legs["bf16 unfused"]["losses"][0],
+         TOL_BF16)
+    for leg in ("bf16 unfused", "bf16 fused"):
+        near(f"{leg} step 1 loss against float32 unfused",
+             legs[leg]["losses"][0], f32_loss1, TOL_BF16)
+    legs["compute_dtype"] = eager_leg(
+        "leg resnet50_v1 compute_dtype=bfloat16 fused", batch, device, True,
+        5, compute_dtype="bfloat16")
+    dtypes_of(legs["compute_dtype"]["step"], torch.float32, "compute_dtype")
+    near("compute_dtype step 1 loss against float32 unfused",
+         legs["compute_dtype"]["losses"][0], f32_loss1, TOL_BF16)
+    print(f"  bfloat16 legs {time.perf_counter() - t0:.1f} s")
+    return legs
+
+
+# scan against eager, both under cuDNN's deterministic algorithms (with
+# its default ones float32 trajectories part after step 1, as PERF.md
+# records; bfloat16 ones did not): the losses (step 1, later steps) at
+# these rtols, and the state gaps ||scan - eager|| / ||eager - start||
+# over the weights, the momenta and the running stats, each group whole
+SCAN_LOSS_RTOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 1e-3)}
+SCAN_STATE_GAP = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def state_copies(step):
+    return [t.detach().clone() for t in step._mutable()]
+
+
+def set_state(step, state):
+    with torch.no_grad():
+        for t, v in zip(step._mutable(), state):
+            t.copy_(v)
+
+
+def state_gaps(step, got, want, start):
+    """{group: ||got - want|| / ||want - start||} over the weights, the
+    running stats and the momenta (`step._mutable()`'s order)."""
+    n_w, n_a = len(step.weights), len(step.aux)
+    out = {}
+    for group, sl in (("weights", slice(0, n_w)),
+                      ("running stats", slice(n_w, n_w + n_a)),
+                      ("momenta", slice(n_w + n_a, None))):
+        diff = sum(float((g.double() - w.double()).norm() ** 2)
+                   for g, w in zip(got[sl], want[sl]))
+        moved = sum(float((w.double() - s.double()).norm() ** 2)
+                    for w, s in zip(want[sl], start[sl]))
+        out[group] = (diff / moved) ** 0.5 if moved else float(diff > 0)
+    return out
+
+
+def scan_check(label, dtype, got, want, gaps):
+    """The failures of a scan's losses and state against eager's."""
+    (rtol1, rtol), limit = SCAN_LOSS_RTOL[dtype], SCAN_STATE_GAP[dtype]
+    bad = [f"step {k + 1} loss {a} against {b}"
+           for k, (a, b) in enumerate(zip(got, want))
+           if not np.isclose(a, b, rtol=rtol if k else rtol1, atol=0)]
+    bad += [f"{g} gap {v:.3e}" for g, v in gaps.items() if not v <= limit]
+    return bad
+
+
+def scan_leg(label, device, cast, planted_fault=False):
+    """`scan_steps` with K = SCAN_K, fused, against SCAN_K eager steps of
+    the same step object over the same batches from the same state (one
+    eager step in, so the momenta and running stats are not at their
+    initial values): all K losses at SCAN_LOSS_RTOL, and the weights,
+    momenta and running stats after the scan's first call (its warm-up
+    and capture included) against those after the eager steps at
+    SCAN_STATE_GAP. The first call captures one graph; a second call
+    captures nothing, and each epilogue kernel's launches in it are
+    EPI_PER_STEP * K, all credited to replays. cuDNN runs its
+    deterministic algorithms throughout the leg, so that the scan and the
+    eager steps do the same sums. With `planted_fault` the
+    check is shown able to fail: the state put back at the start, the
+    capture's warm-up run again without its state restore, as a faulty
+    site would leave it, then the scan replayed; the same gates must
+    reject it."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _scan_leg(label, device, cast, planted_fault)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _scan_leg(label, device, cast, planted_fault):
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1"
+    t0 = time.perf_counter()
+    B, S = RESNET["batch"], RESNET["image"]
+    g = torch.Generator(device=device).manual_seed(RESNET["seed"] + 1)
+    dt = torch.float32 if cast is None else getattr(torch, cast)
+    dname = str(dt).split(".")[-1]
+    xs = torch.rand((SCAN_K + 1, B, S, S, 3), generator=g,
+                    device=device).to(dt)
+    ys = torch.randint(0, RESNET["classes"], (SCAN_K + 1, B), generator=g,
+                       device=device).float()
+    x0, y0, xs, ys = xs[0], ys[0], xs[1:].contiguous(), ys[1:].contiguous()
+    net = resnet_net((x0, y0), device, cast)
+    step = resnet_step(net, device)
+    step(x0, y0)
+    n0, start = step._n, state_copies(step)
+    want = torch.stack([step(xs[k], ys[k]) for k in range(SCAN_K)]).tolist()
+    eager = state_copies(step)
+    set_state(step, start)
+    step._n = n0
+    compiles0 = snapshot_signatures()
+    got = step.scan_steps(xs, ys).tolist()
+    gaps = state_gaps(step, state_copies(step), eager, start)
+    site = step._scan
+    after_first = snapshot_signatures()
+    before = [k.launches for k in EPI_KERNELS]
+    replayed = site.replayed_launches()
+    losses2 = step.scan_steps(xs, ys)
+    torch.cuda.synchronize()
+    after_second = snapshot_signatures()
+    launches = [k.launches - b for k, b in zip(EPI_KERNELS, before)]
+    credited = {k: n - replayed.get(k, 0)
+                for k, n in site.replayed_launches().items()}
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"  {label}: scan losses {[round(v, 5) for v in got]}; eager "
+          f"{[round(v, 5) for v in want]}; largest relative gap "
+          f"{max(loss_gaps):.3e} (step {int(np.argmax(loss_gaps)) + 1}; "
+          f"limits {SCAN_LOSS_RTOL[dname]}); state after the first call "
+          f"against eager (gap / movement): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (limit {SCAN_STATE_GAP[dname]:g})")
+    bad = scan_check(label, dname, got, want, gaps)
+    if bad:
+        raise AssertionError(f"{label}: the scan parts from eager: {bad}")
+    new_first = after_first.get("GluonTrainStep.scan", 0) - compiles0.get(
+        "GluonTrainStep.scan", 0)
+    steady = sum(after_second.values()) - sum(after_first.values())
+    if new_first != 1 or steady != 0:
+        raise AssertionError(f"{label}: the first scan call registered "
+                             f"{new_first} captures (want 1), the second "
+                             f"{steady} (want 0)")
+    wanted = EPI_PER_STEP * SCAN_K
+    for k, n in zip(EPI_KERNELS, launches):
+        if n != wanted or credited.get(k.__name__) != wanted:
+            raise AssertionError(f"{label}: {k.__name__} launched {n} times "
+                                 f"in a replayed scan call ({credited}), "
+                                 f"expected {wanted}, all replays")
+    if not torch.isfinite(losses2).all():
+        raise AssertionError(f"{label}: non-finite scan losses {losses2}")
+    dtypes_of(step, dt, label)
+    print(f"  {label}: first call captured 1 graph ({site.capture_seconds}"
+          f" s with its warm-up); the second captured 0; {wanted} launches "
+          f"of each epilogue kernel per call, all replays")
+    if planted_fault:
+        set_state(step, start)
+        step._n = n0
+        site.state, keep = None, site.state
+        try:
+            site._warm_up([torch.zeros_like(xs), torch.zeros_like(ys),
+                           torch.zeros(SCAN_K, device=device),
+                           torch.zeros(SCAN_K, device=device)])
+        finally:
+            site.state = keep
+        bad_got = step.scan_steps(xs, ys).tolist()
+        bad_gaps = state_gaps(step, state_copies(step), eager, start)
+        caught = scan_check(label, dname, bad_got, want, bad_gaps)
+        print(f"  {label}, planted fault (warm-up without its state "
+              f"restore): largest relative loss gap "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(bad_got, want)):.3e}"
+              f"; state gaps " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in bad_gaps.items())
+              + f"; the gates reject it: {caught}")
+        if not caught:
+            raise AssertionError(f"{label}: the planted fault passed the "
+                                 f"scan's gates")
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s")
+    return dict(net=net, step=step, xs=xs, ys=ys)
+
+
+def snapshot_signatures():
+    return {fn: row["signatures"] for fn, row in
+            telemetry.compilereg.snapshot().items()}
+
+
+def train_forward_loss(net, x, y):
+    """mean(loss) of a training-mode forward without gradient and without
+    moving the running stats."""
+    from incubator_mxnet_tpu_torch.ops import nn as opnn
+
+    net.train()
+    try:
+        with torch.no_grad(), opnn.deferred_moving_writes({}):
+            return float(resnet_loss(net, x, y).float().mean())
+    finally:
+        net.train(False)
+
+
+def accum_leg(batch, device):
+    """`accum_steps` over ACCUM[0] micro-batches of ACCUM[1], float32,
+    fused: the update count advances by one, the loss is the mean of the
+    micro-batch losses at the same weights (rtol 1e-5) and each epilogue
+    kernel launches EPI_PER_STEP per micro-batch."""
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1"
+    t0 = time.perf_counter()
+    K, b = ACCUM
+    x, y = batch
+    xs, ys = x[:K * b].reshape(K, b, *x.shape[1:]), y[:K * b].reshape(K, b)
+    net = resnet_net(batch, device)
+    step = resnet_step(net, device)
+    step(xs[0], ys[0])  # builds; the accumulation starts from step 1's weights
+    n0 = step._n
+    want = float(np.mean([train_forward_loss(net, xs[k], ys[k])
+                          for k in range(K)]))
+    before = [k.launches for k in EPI_KERNELS]
+    got = float(step.accum_steps(xs, ys))
+    launches = [k.launches - b for k, b in zip(EPI_KERNELS, before)]
+    if step._n != n0 + 1 or step.opt.num_update != n0 + 1:
+        raise AssertionError(f"accum: update count {n0} -> {step._n}")
+    near("accum loss against the micro-batches' mean", got, want, 1e-5)
+    if launches != [EPI_PER_STEP * K] * 2:
+        raise AssertionError(f"accum: epilogue launches {launches}, "
+                             f"expected {EPI_PER_STEP * K} each")
+    print(f"  accum ({K} x {b}): update count {n0} -> {step._n}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s")
+
+
+def remat_legs(batch, device, unfused):
+    """3 steps each of plain, remat_policy "nothing" and "convs", float32,
+    unfused, from the float32 unfused leg's first weights, under cuDNN's
+    deterministic algorithms: step 1's loss equal to the unfused leg's
+    (rtol 1e-5), steps 2 and 3 equal to the plain leg's (rtol 1e-5; a
+    recompute does the same sums), the running stats after step 1 equal
+    to the plain step's (rtol 1e-6: moved once), and each step 1's peak
+    allocation printed; "nothing" must peak below plain (each unit is
+    checkpointed inside the whole forward's checkpoint, so one unit's
+    activations are alive at a time)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _remat_legs(batch, device, unfused)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _remat_legs(batch, device, unfused):
+    t0 = time.perf_counter()
+    plain = eager_leg("leg remat plain", batch, device, False, 3)
+    near("plain step 1 loss against the unfused leg", plain["losses"][0],
+         unfused["losses"][0], 1e-5)
+    peaks = {"plain": plain["peak"]}
+    stats, want = plain["stats1"], plain["losses"]
+    del plain
+    for policy in ("nothing", "convs"):
+        leg = eager_leg(f"leg remat_policy={policy}", batch, device, False, 3,
+                        remat_policy=policy)
+        near(f"remat {policy} step 1 loss against the unfused leg",
+             leg["losses"][0], unfused["losses"][0], 1e-5)
+        for k in (1, 2):
+            near(f"remat {policy} step {k + 1} loss against the plain leg",
+                 leg["losses"][k], want[k], 1e-5)
+        for name, v in stats.items():
+            if not torch.allclose(leg["stats1"][name], v, rtol=1e-6,
+                                  atol=0):
+                raise AssertionError(f"remat {policy}: running stat {name} "
+                                     f"after step 1 differs from the plain "
+                                     f"step's")
+        peaks[policy] = leg["peak"]
+        del leg
+        torch.cuda.empty_cache()
+    print(f"  running stats after step 1 equal the plain step's (rtol 1e-6, "
+          f"{len(stats)} tensors) under both policies")
+    print("  step 1 peak allocation above its start: " + ", ".join(
+        f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+        + f"; remat legs {time.perf_counter() - t0:.1f} s")
+    if not peaks["nothing"] < peaks["plain"]:
+        raise AssertionError("remat nothing does not peak below plain")
+    return peaks
+
+
+def bench_runs(gpu):
+    """`python3 -m incubator_mxnet_tpu_torch.bench` (bfloat16 then float32,
+    bench.py's defaults) with the epilogue on; each child's final line
+    parsed and printed. (Phase 5 times the unfused legs' eager steps;
+    the module's own run with the epilogue off, which chip_smoke's time
+    limit leaves out, is `MXTPU_FUSED_EPILOGUE=0 python3 -m
+    incubator_mxnet_tpu_torch.bench`.)"""
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    env = dict(os.environ, MXTPU_FUSED_EPILOGUE="1")
+    run = subprocess.run([sys.executable, "-m",
+                          "incubator_mxnet_tpu_torch.bench"], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"bench exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    finals = [json.loads(ln) for ln in run.stdout.splitlines()
+              if ln.startswith("{") and '"final": true' in ln]
+    if [f["dtype"] for f in finals] != ["bfloat16", "float32"] or any(
+            f["platform"] != "gpu" or not f["fused_epilogue"]
+            for f in finals):
+        raise AssertionError(f"bench: final lines {finals}")
+    for f in finals:
+        out[f["dtype"]] = f
+        print(f"  bench {f['dtype']}, epilogue on: {f['ips']} images/s "
+              f"eager, {f['scan_ips']} images/s scan (K {f['scan_k']}); "
+              f"compile_s {f['compile_s']}; loss {f['loss']:.5f} [{gpu}]")
+    print(f"  bench: {time.perf_counter() - t0:.1f} s")
+    return out
+
 # -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
@@ -2532,7 +2966,33 @@ def epilogue_rows(errs, launches, flush, device, gpu):
                     "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None})
         chain_times(label, (B, H, W, C), x, res, dy, flush, device, gpu)
+        epilogue_bf16_times(label, R, C, residual, flush, device, gpu)
     return rows
+
+
+def epilogue_bf16_times(label, R, C, residual, flush, device, gpu):
+    """Kernels 6 and 7 in bfloat16 (the bfloat16 nets' activations) at one
+    of EPI_TIMED's shapes, beside their plain versions and bounds (half
+    of the float32 bytes for the activations)."""
+    x, scale, shift, res, dy = epi_case(device, torch.bfloat16, R, C,
+                                        residual)
+    y = ep.bn_act_epilogue_fwd(x, scale, shift, res)
+    calls = {
+        "bn_act_epilogue_fwd": (
+            lambda: ep.bn_act_epilogue_fwd(x, scale, shift, res),
+            lambda: ep.bn_act_epilogue_fwd_ref(x, scale, shift, res)),
+        "bn_act_epilogue_bwd": (
+            lambda: ep.bn_act_epilogue_bwd(x, scale, y, dy, residual),
+            lambda: ep.bn_act_epilogue_bwd_ref(x, scale, y, dy, residual)),
+    }
+    for kernel_name, (kernel, plain) in calls.items():
+        ms = device_ms(kernel, flush=flush)
+        plain_ms = device_ms(plain, flush=flush)
+        b_ms, b_by = epilogue_bound_ms(R, C, 2, kernel_name, residual)
+        print(f"  {kernel_name} bfloat16 {label} R{R} C{C}"
+              f"{' residual' if residual else ''}: kernel {ms * 1e3:.1f} "
+              f"us, plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
+              f"us ({b_by}) [{gpu}]")
 
 
 def chain_times(label, shape, x, res, dy, flush, device, gpu):
@@ -2566,13 +3026,14 @@ def chain_times(label, shape, x, res, dy, flush, device, gpu):
           f"[{gpu}]")
 
 
-def resnet_times(leg, out, batch, gpu):
+def resnet_times(leg, out, batch, gpu, fused=None, dtype="float32"):
     """Device and host time of one ResNet-50 step of `leg`, images/s over
     10 steps (host clock, one sync at the end), and a traced window; the
     knob is set as the leg trains (each forward reads it)."""
     step = out["step"]
     x, y = batch
-    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if leg == "fused" else "0"
+    fused = leg == "fused" if fused is None else fused
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if fused else "0"
     try:
         # ~100 ms of sleep covers the host's enqueue ahead of a whole step
         dev = device_ms(lambda: step(x, y), reps=10, warmup=2,
@@ -2586,7 +3047,7 @@ def resnet_times(leg, out, batch, gpu):
         loss.item()
         seconds = time.perf_counter() - t0
         print(f"  ResNet-50 step, {leg} leg (batch {x.shape[0]}, "
-              f"{x.shape[1]}x{x.shape[2]}, NHWC float32): device {dev:.3f} "
+              f"{x.shape[1]}x{x.shape[2]}, NHWC {dtype}): device {dev:.3f} "
               f"ms; with the loss read-back, host clock {host:.3f} ms; "
               f"{n * x.shape[0] / seconds:.1f} images/s over {n} steps "
               f"({seconds:.3f} s, host clock) [{gpu}]")
@@ -2819,6 +3280,13 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
     return result, events
 
 
+def phase_seconds(t_phase):
+    """Print the seconds since `t_phase` (a phase's start); return now."""
+    now = time.perf_counter()
+    print(f"  (phase took {now - t_phase:.1f} s)")
+    return now
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2832,7 +3300,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
     print("phase 1: build")
-    t0 = t_call = time.perf_counter()
+    t0 = t_call = t_phase = time.perf_counter()
     built = _build.build()
     for name, rec in built.items():
         regs = [ln.strip() for ln in rec["output"].splitlines()
@@ -2846,9 +3314,11 @@ def main():
             print(f"  {line}")
     print(gpu)
 
+    t_phase = phase_seconds(t_phase)
     print("phase 2: kernels against their plain versions")
     errs = kernels_against_plain(device)
 
+    t_phase = phase_seconds(t_phase)
     print("phase 3: serving at full width")
     cfg = tfm.TransformerConfig(**FULL)
     params = tfm.init_params(cfg, seed=0, device=device)
@@ -2897,12 +3367,14 @@ def main():
         raise AssertionError("chunked prefill did not lower the most "
                              "prefill tokens of any step")
 
+    t_phase = phase_seconds(t_phase)
     print("phase 3b: the fleet at full width")
     fleet = fleet_legs(
         cfg, params, oracles["off"], device, gpu,
         os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                      "chip_smoke_fleet_trace"))
 
+    t_phase = phase_seconds(t_phase)
     print("phase 4: training at full width")
     print(" leg flash (dense xent)")
     train_cfg = dataclasses.replace(cfg, use_flash=True)
@@ -2916,7 +3388,22 @@ def main():
         fused_cfg, n_experts=MOE["n_experts"]), device)
     resnet = resnet_legs(device)
     bn_layer_check(device)
+    print(" bench.py's headline path: bfloat16, scan, accum, remat")
+    rbatch = resnet["batch"]
+    try:
+        legs11 = bf16_legs(rbatch, device, resnet["unfused"]["losses"][0])
+        scan_leg("scan float32", device, None, planted_fault=True)
+        scan_leg("scan bfloat16", device, "bfloat16")
+        accum_leg(rbatch, device)
+        remat_legs(rbatch, device, resnet["unfused"])
+    finally:
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    for leg in ("bf16 unfused", "compute_dtype"):
+        del legs11[leg]
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    t_phase = phase_seconds(t_phase)
     print("phase 5: times")
     for leg, out in served.items():
         print(f"  tokens/s over the trace, levers {leg}: "
@@ -2973,10 +3460,18 @@ def main():
     rows += xent_rows(errs, legs4["fused"][3], flush, device, gpu)
     for leg in ("unfused", "fused"):
         resnet_times(leg, resnet[leg], resnet["batch"], gpu)
+    bf16 = legs11["bf16 fused"]
+    resnet_times("bf16 fused", bf16, (bf16["x"], bf16["y"]), gpu, fused=True,
+                 dtype="bfloat16")
+    del legs11, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_runs(gpu)
     rows += epilogue_rows(errs, resnet["fused"]["launches"], flush, device,
                           gpu)
     torch.cuda.synchronize()
 
+    phase_seconds(t_phase)
     print(f"whole call: {time.perf_counter() - t_call:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": rows}))

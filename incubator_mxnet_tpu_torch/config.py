@@ -7,8 +7,9 @@ path's, including the serving levers' (`MXTPU_PREFIX_CACHE`,
 engine's constructor argument wins over its knob), telemetry's (tracing,
 the flight recorder, the /metrics port, the serving SLOs and the /debug/*
 endpoints), the runtime sanitizers', resilience's (retry, fault
-injection), the serving fleet's and gateway's, and the ResNet train
-step's `MXTPU_FUSED_EPILOGUE`.
+injection), the serving fleet's and gateway's, the step statistics',
+and the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
+`MXTPU_REMAT_POLICY`.
 """
 from __future__ import annotations
 
@@ -87,6 +88,16 @@ _register("MXTPU_TRACE_BUFFER_SPANS", 256, int,
           "write+flush to the trace file (atexit flushes the "
           "remainder). Lower = fresher files after a crash, higher "
           "= fewer write calls on the span exit path.")
+_register("MXNET_TELEMETRY_STEPSTATS_WINDOW", 128, int,
+          "Rolling-window length (steps) for the step-phase p50/p99 "
+          "gauges and the step-anomaly median (telemetry/stepstats.py).")
+_register("MXNET_TELEMETRY_ANOMALY_FACTOR", 3.0, float,
+          "A step whose wall time exceeds this multiple of the rolling "
+          "median step time emits a step_anomaly flight event and bumps "
+          "mxtpu_step_anomalies_total.")
+_register("MXNET_TELEMETRY_ANOMALY_MIN_STEPS", 8, int,
+          "Minimum steps in the step-stats window before anomaly "
+          "detection arms (suppresses warm-up and capture outliers).")
 _register("MXTPU_FLIGHT_RECORDER_EVENTS", 4096, int,
           "Capacity of the always-on flight-recorder ring buffer "
           "(structured events: span boundaries, retries, reconnects, "
@@ -195,6 +206,18 @@ _register("MXTPU_FUSED_EPILOGUE", False, bool,
           "(ops/kernels/epilogue.py:bn_act_epilogue): one pass applies the "
           "BN affine folded to per-channel scale/shift, the residual add "
           "and the activation. Off (default) runs every op unfused.")
+_register("MXTPU_REMAT_POLICY", "", str,
+          "Named rematerialization policy for GluonTrainStep "
+          "(fused.resolve_remat_policy), under the JAX package's names: "
+          "'convs' (save convolution and matmul results, recompute the "
+          "rest), 'dots' (dots_saveable: every matmul), 'dots_no_batch' "
+          "(dots_with_no_batch_dims_saveable: mm/addmm only), 'offload' "
+          "(offload_dot_with_no_batch_dims: those results kept in pinned "
+          "host memory), 'nothing' (nothing_saveable: recompute "
+          "everything, remat=True's behaviour) or 'everything' "
+          "(everything_saveable: recompute nothing). A non-empty policy "
+          "turns remat on; empty (default) leaves remat to the step's "
+          "remat argument.")
 
 # runtime sanitizers (analysis/sanitizers.py)
 _register("MXTPU_SANITIZERS", "", str,

@@ -26,9 +26,60 @@ import threading
 import torch
 
 from .. import ndarray as _F
+from . import parameter as _parameter
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
+
+
+class _ParamSubst:
+    """Within the context, `Parameter.data()` of every name in `mapping`
+    ({full name: tensor}) returns the mapped tensor, on the calling
+    thread: the train step's forward sees its compute-dtype copies (and
+    a recomputed forward, entering the context again, the same ones)."""
+
+    def __init__(self, mapping):
+        self.mapping = mapping
+
+    def __enter__(self):
+        self._prev = getattr(_parameter._SUBST, "map", None)
+        _parameter._SUBST.map = self.mapping
+        return self
+
+    def __exit__(self, *exc):
+        _parameter._SUBST.map = self._prev
+
+    @staticmethod
+    def current():
+        """The calling thread's mapping, or None."""
+        return getattr(_parameter._SUBST, "map", None)
+
+
+_UNITS = threading.local()
+
+
+class _RematUnits:
+    """Within the context, a `HybridSequential` on the calling thread runs
+    each child that is not itself a `HybridSequential` (a residual unit,
+    a layer) as `wrap(fn, x)` instead of `fn(x)`: the train step's remat
+    checkpoints each unit on its own. `wrap` None turns it off (inside a
+    unit, so that units do not nest)."""
+
+    def __init__(self, wrap):
+        self.wrap = wrap
+
+    def __enter__(self):
+        self._prev = getattr(_UNITS, "wrap", None)
+        _UNITS.wrap = self.wrap
+        return self
+
+    def __exit__(self, *exc):
+        _UNITS.wrap = self._prev
+
+    @staticmethod
+    def current():
+        """The calling thread's `wrap`, or None."""
+        return getattr(_UNITS, "wrap", None)
 
 
 class _BlockScope:

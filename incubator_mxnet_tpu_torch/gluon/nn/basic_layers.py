@@ -2,11 +2,12 @@
 the ones ResNet needs."""
 from __future__ import annotations
 
+import functools
 import math
 
 from ... import initializer as init_mod
 from ...ops import epilogue
-from ..block import HybridBlock
+from ..block import HybridBlock, _RematUnits
 from .activations import Activation
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
@@ -16,7 +17,9 @@ class HybridSequential(HybridBlock):
     """Children run in order. With `MXTPU_FUSED_EPILOGUE` on, a
     `BatchNorm` child followed by an `Activation('relu')` child runs as one
     fused epilogue (`ops.epilogue.bn_act`), as the JAX package's dispatch
-    time rewrite does for the ResNet stem."""
+    time rewrite does for the ResNet stem. Under a train step's remat
+    (`block._RematUnits`) each child that is not itself a sequence (and
+    each fused pair) runs under its own checkpoint."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -25,17 +28,20 @@ class HybridSequential(HybridBlock):
     def hybrid_forward(self, F, x):
         blocks = list(self._modules.values())
         fuse = epilogue.enabled()
+        wrap = _RematUnits.current()
         i = 0
         while i < len(blocks):
             if (fuse and isinstance(blocks[i], BatchNorm)
                     and i + 1 < len(blocks)
                     and isinstance(blocks[i + 1], Activation)
                     and blocks[i + 1]._act_type == "relu"):
-                x = epilogue.bn_act(blocks[i], x)
+                fn = functools.partial(epilogue.bn_act, blocks[i])
                 i += 2
-                continue
-            x = blocks[i](x)
-            i += 1
+            else:
+                fn = blocks[i]
+                i += 1
+            x = (fn(x) if wrap is None or isinstance(fn, HybridSequential)
+                 else wrap(fn, x))
         return x
 
     def __len__(self):

@@ -5,11 +5,17 @@ shape (0 marks a dimension not known yet, resolved at the first forward),
 `grad_req`, `lr_mult` and `wd_mult`. Once its shape is known and
 `initialize` has been called, it holds a `torch.nn.Parameter` on the
 device `initialize` was given, with `requires_grad` set from `grad_req`;
-`data()` returns it. A non-differentiable parameter (BatchNorm's running
-stats) has `grad_req` "null" and is updated in place by its block.
+`data()` returns it, or, inside `block._ParamSubst`, the tensor the
+substitution maps its name to (a train step's compute-dtype copy). A
+non-differentiable parameter (BatchNorm's running stats) has `grad_req`
+"null" and is updated by its block.
+
+`cast` rebinds the data to a new `torch.nn.Parameter`: a holder of the
+old tensor (a train step built before the cast) no longer sees it.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 
 import torch
@@ -25,6 +31,11 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 
 def _dtype(dtype):
     return _DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+# the calling thread's {parameter name: tensor} substitution
+# (`block._ParamSubst`), or None
+_SUBST = threading.local()
 
 
 class DeferredInitializationError(Exception):
@@ -100,7 +111,11 @@ class Parameter:
                                         requires_grad=self._grad_req != "null")
 
     def data(self):
-        """The parameter's `torch.nn.Parameter`."""
+        """The parameter's `torch.nn.Parameter`, or its substitute inside
+        a `block._ParamSubst` that maps its name."""
+        subst = getattr(_SUBST, "map", None)
+        if subst is not None and self.name in subst:
+            return subst[self.name]
         if self._data is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(

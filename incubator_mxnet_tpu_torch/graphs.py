@@ -12,18 +12,24 @@ captures its graphs anew.
     site = graphs.wrap("serving_decode_step", fn, device=dev, pool=pool)
     out = site(tokens, positions, tables)   # numpy arrays in, fn's output
 
-`fn` takes device tensors and returns one tensor or None. On CUDA the
+`fn` takes device tensors and returns one tensor or None. The inputs are
+host numpy arrays (the serving sites') or torch tensors (the train
+step's scan: device tensors, copied device to device). On CUDA the
 first call for a signature (the inputs' shapes and dtypes):
 
 - warms `fn` on a side stream on zero-filled inputs, as PyTorch's graph
   rules require (the serving sites treat all-zero inputs as a no-op
-  outside the KV pool's null page);
+  outside the KV pool's null page). A site given `state` (a callable
+  returning the tensors `fn` updates in place: a train step's weights,
+  optimizer states and running stats) snapshots them before its warm-up
+  runs and puts them back after, so the warm-up leaves no trace; its
+  `warmup_runs` may differ from `WARMUP_RUNS`;
 - captures one call into a `torch.cuda.CUDAGraph`, from the memory pool
   `pool` (a `Pool` the caller's sites share);
 - registers the signature with `compilereg`, the capture's seconds as
   its `compile_s`.
 
-Every call copies the host inputs into the graph's static input tensors
+Every call copies the inputs into the graph's static input tensors
 (outside the graph, on the current stream) and replays it; the result is
 the graph's static output, valid only until any site of the same pool
 replays (the pool may hand one graph's output memory to another graph's
@@ -33,7 +39,9 @@ place. On the CPU, where there is no graph, `fn` runs eagerly on the
 inputs and the site registers a signature on its first call.
 
 Kernel launches: a capture records launches without running them, so the
-kernel wrappers' counts made during a capture go to the capture's tally
+kernel wrappers' counts made during a capture (on the capturing thread,
+or on the capture's stream from another thread: a train step's backward
+runs on autograd's device thread) go to the capture's tally
 (`ops/kernels/launches.py`) and are kept with that signature's graph
 (`.captured_launches`); each replay of the graph adds them to the
 wrappers' counts, since it launches those kernels. The eager warm-up
@@ -137,11 +145,14 @@ class Site:
     `pool_bytes` (device memory reserved during its captures: the
     pool's growth)."""
 
-    def __init__(self, name, fn, *, device, pool=None):
+    def __init__(self, name, fn, *, device, pool=None, state=None,
+                 warmup_runs=WARMUP_RUNS):
         self.name = name
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool if pool is not None else Pool()
+        self.state = state
+        self.warmup_runs = warmup_runs
         self.replays = 0
         self.capture_seconds = {}
         self.warmup_launches = {}
@@ -167,7 +178,8 @@ class Site:
         return out
 
     def __call__(self, *arrays):
-        arrays = [np.asarray(a, order="C") for a in arrays]
+        arrays = [a if torch.is_tensor(a) else np.asarray(a, order="C")
+                  for a in arrays]
         sig = compilereg.signature_of(*arrays)
         if self.device.type != "cuda":
             return self._eager_call(sig, arrays)
@@ -175,7 +187,8 @@ class Site:
         if g is None:
             g = self._capture(sig, arrays)
         for buf, a in zip(g.inputs, arrays):
-            buf.copy_(torch.from_numpy(a), non_blocking=True)
+            buf.copy_(a if torch.is_tensor(a) else torch.from_numpy(a),
+                      non_blocking=True)
         g.graph.replay()
         self.replays += 1
         g.replays += 1
@@ -199,7 +212,8 @@ class Site:
         return "captured"
 
     def _eager_call(self, sig, arrays):
-        inputs = [torch.from_numpy(a).to(self.device) for a in arrays]
+        inputs = [(a if torch.is_tensor(a) else torch.from_numpy(a))
+                  .to(self.device) for a in arrays]
         if sig not in self._eager:
             with _capture_lock():
                 if sig not in self._eager:  # not registered meanwhile
@@ -219,14 +233,9 @@ class Site:
         dev = self.device
         t0 = time.perf_counter()
         try:
-            inputs = [torch.zeros(a.shape, dtype=torch.from_numpy(a).dtype,
-                                  device=dev) for a in arrays]
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), _launches.observing() as warmup:
-                for _ in range(WARMUP_RUNS):
-                    self.fn(*inputs)
-            torch.cuda.current_stream(dev).wait_stream(side)
+            inputs = [torch.zeros(a.shape, dtype=_dtype(a), device=dev)
+                      for a in arrays]
+            warmup = self._warm_up(inputs)
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             with _capture_lock():
@@ -239,10 +248,14 @@ class Site:
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(dev)
                 graph = torch.cuda.CUDAGraph()
-                # the capture launches nothing: its counts go to the
+                stream = torch.cuda.Stream(dev)
+                # the capture launches nothing: its counts (a backward's
+                # too, from autograd's thread on this stream) go to the
                 # tally, credited at each replay instead
-                with _launches.capturing() as tally, _no_collection(), \
+                with _launches.capturing(stream) as tally, \
+                        _no_collection(), \
                         torch.cuda.graph(graph, pool=self.pool.handle(),
+                                         stream=stream,
                                          capture_error_mode="thread_local"):
                     output = self.fn(*inputs)
                 launches = [(kernel, tally[kernel])
@@ -261,8 +274,52 @@ class Site:
             raise RuntimeError(f"CUDA-graph capture of site {self.name!r} "
                                f"failed: {e}") from e
 
+    def _warm_up(self, inputs):
+        """Run `fn` on `inputs` `warmup_runs` times (on CUDA on a side
+        stream, as a capture requires) and put back the tensors `state`
+        names, even when a run fails. Returns {kernel: launches} of the
+        runs (CUDA) or {} (CPU, where nothing calls it but tests)."""
+        saved = self._snapshot()
+        try:
+            if self.device.type != "cuda":
+                for _ in range(self.warmup_runs):
+                    self.fn(*inputs)
+                return {}
+            dev = self.device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), \
+                    _launches.observing(side) as warmup:
+                for _ in range(self.warmup_runs):
+                    self.fn(*inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            return warmup
+        finally:
+            self._restore(saved)
 
-def wrap(name, fn, *, device, pool=None):
+    def _snapshot(self):
+        """Copies of the tensors `state()` names (None without `state`)."""
+        if self.state is None:
+            return None
+        with torch.no_grad():
+            return [(t, t.clone()) for t in self.state()]
+
+    @staticmethod
+    def _restore(saved):
+        if saved is None:
+            return
+        with torch.no_grad():
+            for t, copy in saved:
+                t.copy_(copy)
+
+
+def _dtype(a):
+    return a.dtype if torch.is_tensor(a) else torch.from_numpy(a).dtype
+
+
+def wrap(name, fn, *, device, pool=None, state=None,
+         warmup_runs=WARMUP_RUNS):
     """A `Site` running `fn` under the name `name`; see the module
     docstring."""
-    return Site(name, fn, device=device, pool=pool)
+    return Site(name, fn, device=device, pool=pool, state=state,
+                warmup_runs=warmup_runs)

@@ -5,11 +5,10 @@ A namespace only: there is no NDArray class in the port, and no tape
 (`torch.autograd` records the ops). `BatchNorm` carries out the
 reference's aux-state protocol itself: in training mode it writes the
 new moving stats into the moving-mean and moving-variance tensors it was
-given, in place, and returns the normalised data alone.
+given (`ops.nn.write_moving`: in place, or deferred for a train step
+that writes them once) and returns the normalised data alone.
 """
 from __future__ import annotations
-
-import torch
 
 from ..ops import nn as _nn
 
@@ -32,7 +31,6 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, **attrs):
     if not attrs.get("_training", False):
         return out
     out, new_mean, new_var = out
-    with torch.no_grad():
-        moving_mean.copy_(new_mean)
-        moving_var.copy_(new_var)
+    _nn.write_moving(moving_mean, new_mean)
+    _nn.write_moving(moving_var, new_var)
     return out

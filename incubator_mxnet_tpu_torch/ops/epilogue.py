@@ -18,8 +18,9 @@ computes follows the JAX `_emit`:
   BN's own `eps` and `fix_gamma` (g = 1 with `fix_gamma`);
 - in training mode (without `use_global_stats`) mean and var are the
   batch's biased moments, differentiable, and the BN's running stats get
-  the update its own forward would have made; otherwise they are the
-  running stats;
+  the update its own forward would have made (through
+  `ops.nn.write_moving`, so a train step may defer it); otherwise they
+  are the running stats;
 - only channels-last (axis = last) data of float32 or narrower is
   rewritten; anything else runs unfused. `rewrites_applied` counts the
   fused calls.
@@ -77,9 +78,8 @@ def _fused(norm, x, residual):
         mean, var = _nn.batch_moments(x, axis)
         new_mean, new_var = _nn.moving_update(running_mean, running_var,
                                               mean, var, norm._momentum)
-        with torch.no_grad():
-            running_mean.copy_(new_mean)
-            running_var.copy_(new_var)
+        _nn.write_moving(running_mean, new_mean)
+        _nn.write_moving(running_var, new_var)
     else:
         mean, var = running_mean.float(), running_var.float()
     scale = g.float() * torch.rsqrt(var + norm._epsilon)

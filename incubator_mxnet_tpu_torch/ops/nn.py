@@ -15,15 +15,27 @@ OIHW layout. The NHWC input is handed to `conv2d` as its NCHW
 `permute(0, 3, 1, 2)` view, which is already channels-last in memory, so
 PyTorch picks its channels-last algorithms and the output, permuted back,
 is a contiguous NHWC tensor with no copy on either side.
+
+A training-mode BatchNorm's new moving stats reach the running-stat
+tensors through `write_moving`: in place, or, inside
+`deferred_moving_writes(sink)`, into `sink` for the caller to write once
+(a train step whose forward may be recomputed, as the JAX step gets them
+back as aux outputs and a recomputed forward writes nothing).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as tF
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
-           "batch_moments", "moving_update", "activation", "flatten",
+           "batch_moments", "moving_update", "write_moving",
+           "moving_sink", "deferred_moving_writes", "activation", "flatten",
            "log_softmax", "pick"]
+
+_MOVING = threading.local()
 
 
 def fully_connected(data, weight, bias=None, *, num_hidden=None,
@@ -163,6 +175,35 @@ def moving_update(moving_mean, moving_var, mean, var, momentum):
             * (1 - momentum),
             moving_var * momentum + var.to(moving_var.dtype)
             * (1 - momentum))
+
+
+def write_moving(target, value):
+    """Write a new moving stat `value` into `target` (without gradient), or
+    record it in the calling thread's deferral sink."""
+    sink = getattr(_MOVING, "sink", None)
+    if sink is not None:
+        sink[id(target)] = (target, value.detach())
+        return
+    with torch.no_grad():
+        target.copy_(value)
+
+
+def moving_sink():
+    """The calling thread's deferral sink, or None (writes go in place)."""
+    return getattr(_MOVING, "sink", None)
+
+
+@contextlib.contextmanager
+def deferred_moving_writes(sink):
+    """Within the context the calling thread's `write_moving` calls record
+    {id(target): (target, value)} in `sink` (the last value per target)
+    and write nothing; a `sink` of None writes in place."""
+    prev = getattr(_MOVING, "sink", None)
+    _MOVING.sink = sink
+    try:
+        yield sink
+    finally:
+        _MOVING.sink = prev
 
 
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,

@@ -4,16 +4,46 @@ and `SGD`, with the fused update `GluonTrainStep` applies.
 `fused_update` follows the JAX package's `_sgd_fused`: g = rescale_grad
 * grad, clipped to +-clip_gradient when set, plus wd * w; with momentum,
 mom = momentum * mom - lr * g and w += mom, else w -= lr * g. It updates
-the weight and the momentum in place (the JAX step returns new arrays).
-Per-parameter multipliers follow the JAX `_mults`: a `param_dict` entry's
-`lr_mult` / `wd_mult` (a gluon `Parameter`'s) take priority, else the
-`lr_mult` / `wd_mult` dicts, keyed by name.
+the weight and the momentum in place (the JAX step returns new arrays
+and casts them back to their stored dtypes).
+
+`lr` is a Python float or a 0-d float32 tensor (a CUDA graph's static
+input, so that each replay reads its step's scheduled rate). Either way
+it enters as float32, as JAX's step hands it in (`jnp.asarray(lr,
+jnp.float32)`): a strong float32 operand, which promotes the update math
+of a low-precision weight to float32. For a bfloat16 (or float16) weight
+the update is the one XLA compiles from `_sgd_fused` under `jax.jit`,
+rounding for rounding: the Python constants are weakly typed, so they
+round to the weight's dtype; g = rescale_grad * grad (clipped) and wd *
+w each round to it; their sum, the momentum's decay, the lr product and
+the new weight stay float32 (XLA keeps excess precision there); the new
+weight and momentum round once, at the end. For float32 weights it is
+the same sequence of float32 operations.
+
+`update` applies the same arithmetic to many parameters at once, as the
+train step does: the parameters that share a dtype, an lr multiplier, a
+weight decay and whether they carry momentum form one group. A float32
+group runs each operation once for the whole group (`torch._foreach_*`);
+a low-precision group gathers its weights, gradients and momenta into
+one flat tensor each, runs the update on those and copies the results
+back. Either way each element goes through the same operations in the
+same order as `fused_update` on its own (bit-equal), and a step issues
+a few dozen device launches in place of a dozen per parameter.
+
+Per-parameter multipliers follow the JAX `_mults`: a `param_dict`
+entry's `lr_mult` / `wd_mult` (a gluon `Parameter`'s) take priority,
+else the `lr_mult` / `wd_mult` dicts, keyed by name. `num_update` is the
+count of updates the train step has made (it sets it, as JAX's does).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 __all__ = ["Optimizer", "SGD"]
+
+_LOW = (torch.bfloat16, torch.float16)
 
 
 class Optimizer:
@@ -29,20 +59,33 @@ class Optimizer:
         self.wd_mult = {}
         self.clip_gradient = clip_gradient
         self.param_dict = param_dict or {}
+        self.num_update = 0
 
     def create_state(self, index, weight):
         return None
 
-    def _mults(self, name, lr):
-        """(lr, wd) for the parameter `name`."""
+    def _mults(self, name):
+        """(lr_mult, wd) for the parameter `name`."""
         if name in self.param_dict:
-            return (lr * self.param_dict[name].lr_mult,
+            return (self.param_dict[name].lr_mult,
                     self.wd * self.param_dict[name].wd_mult)
-        return (lr * self.lr_mult.get(name, 1.0),
+        return (self.lr_mult.get(name, 1.0),
                 self.wd * self.wd_mult.get(name, 1.0))
 
-    def fused_update(self, name, weight, grad, state, lr):
+    def fused_update(self, name, weight, grad, state, lr, t=None):
+        """One step on `weight` (and its `state`), in place."""
+        self.update([name], [weight], [grad], [state], lr, t=t)
+
+    def update(self, names, weights, grads, states, lr, t=None):
+        """One step on every (name, weight, grad, state), in place."""
         raise NotImplementedError
+
+
+@functools.lru_cache(maxsize=None)
+def _weak(value, dtype):
+    """A Python constant as JAX's weak typing hands it to an op on a
+    `dtype` array: rounded to that dtype."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
 
 
 class SGD(Optimizer):
@@ -58,15 +101,61 @@ class SGD(Optimizer):
         return None
 
     @torch.no_grad()
-    def fused_update(self, name, weight, grad, state, lr):
-        """One step on `weight` (and its momentum `state`), in place."""
-        g = grad * self.rescale_grad
+    def update(self, names, weights, grads, states, lr, t=None):
+        """One step on each weight (and its momentum state), in place,
+        batched by group (see the module docstring); `t` (the update
+        count) is unused by SGD."""
+        if not torch.is_tensor(lr):
+            lr = torch.tensor(lr, dtype=torch.float32)
+        groups = {}
+        for name, w, g, s in zip(names, weights, grads, states):
+            lr_mult, wd = self._mults(name)
+            momentum = self.momentum != 0.0 and s is not None
+            key = (w.dtype, w.device, lr_mult, wd, momentum)
+            groups.setdefault(key, []).append((w, g, s))
+        for (dt, _, lr_mult, wd, momentum), group in groups.items():
+            ws, gs, ss = (list(c) for c in zip(*group))
+            glr = lr if lr_mult == 1.0 else lr * lr_mult
+            if dt in _LOW:
+                self._update_low(dt, ws, gs, ss if momentum else None, glr,
+                                 wd)
+            else:
+                self._update_full(ws, gs, ss if momentum else None, glr, wd)
+
+    def _update_full(self, ws, gs, ss, lr, wd):
+        if lr.device.type == "cpu":
+            lr = float(lr)  # the same float32 value, as a scalar operand
+        g = torch._foreach_mul(gs, self.rescale_grad)
         if self.clip_gradient:
-            g = g.clamp(-self.clip_gradient, self.clip_gradient)
-        lr, wd = self._mults(name, lr)
-        g = g + wd * weight
-        if self.momentum != 0.0 and state is not None:
-            state.mul_(self.momentum).sub_(lr * g)
-            weight.add_(state)
+            torch._foreach_clamp_min_(g, -self.clip_gradient)
+            torch._foreach_clamp_max_(g, self.clip_gradient)
+        torch._foreach_add_(g, torch._foreach_mul(ws, wd))
+        step = torch._foreach_mul(g, lr)
+        if ss is not None:
+            torch._foreach_mul_(ss, self.momentum)
+            torch._foreach_sub_(ss, step)
+            torch._foreach_add_(ws, ss)
         else:
-            weight.sub_(lr * g)
+            torch._foreach_sub_(ws, step)
+
+    def _update_low(self, dt, ws, gs, ss, lr, wd):
+        flat = lambda ts: torch.cat([t.reshape(-1) for t in ts])  # noqa: E731
+        w = flat(ws)
+        g = (flat(gs).float() * _weak(self.rescale_grad, dt)).to(dt)
+        if self.clip_gradient:
+            g = g.clamp(_weak(-self.clip_gradient, dt),
+                        _weak(self.clip_gradient, dt))
+        g = g.float() + (w.float() * _weak(wd, dt)).to(dt).float()
+        if ss is not None:
+            mom = flat(ss).float() * _weak(self.momentum, dt) - lr * g
+            _scatter(ws, (w.float() + mom).to(dt))
+            _scatter(ss, mom.to(dt))
+        else:
+            _scatter(ws, (w.float() - lr * g).to(dt))
+
+
+def _scatter(targets, flat):
+    """Copy consecutive pieces of the 1-d `flat` into `targets`."""
+    pieces = flat.split([t.numel() for t in targets])
+    torch._foreach_copy_(targets, [p.view(t.shape)
+                                   for p, t in zip(pieces, targets)])

@@ -499,15 +499,22 @@ class Replica:
         telemetry.log_event("fleet_replica_left", replica=self.replica_id)
         return True
 
-    def silent_kill(self):
+    def silent_kill(self, when=None):
         """Chaos helper: abrupt, silent death. Heartbeats stop NOW,
         nothing is handed off, and the router-visible state does NOT
-        change — detection must come from the heartbeat timeout."""
+        change — detection must come from the heartbeat timeout. With
+        `when`, a predicate called under the replica's lock (the lock its
+        pump steps and delivers under), the death happens only if it
+        holds, so what it saw is what the replica dies with. Returns
+        whether the replica died here."""
         with self._lock:
             if self._failed or self.state in ("dead", "left"):
-                return
+                return False
+            if when is not None and not when():
+                return False
             self._failed = True
             self._bindings.clear()
+            return True
 
     def mark_dead(self):
         """Router-side transition once the heartbeat timeout expired:
@@ -948,10 +955,13 @@ class FleetRouter:
             # nowhere to go — each replica finishes its own backlog
             self.drain(rid, handoff=False)
 
-    def kill(self, replica_id):
+    def kill(self, replica_id, when=None):
         """Chaos helper: abrupt silent death of one replica. Detection
-        still happens the honest way — heartbeat timeout."""
-        self.replica(replica_id).silent_kill()
+        still happens the honest way — heartbeat timeout. `when`: see
+        `Replica.silent_kill` (a port addition: a threaded fleet's chaos
+        run kills a replica mid-stream without racing its pump). Returns
+        whether it died."""
+        return self.replica(replica_id).silent_kill(when)
 
     # -- threaded mode -----------------------------------------------------
 

@@ -1,6 +1,8 @@
 """Runtime telemetry for the port: the metrics registry, tracing spans,
-request traces, the flight recorder, SLOs, the capture registry and the
-exporters, with the JAX package's names and semantics.
+request traces, the flight recorder, SLOs, the capture registry, the
+train step's phase statistics (`stepstats`), the memory ledger
+(`ledger`) and the exporters, with the JAX package's names and
+semantics.
 
 Off by default. `MXNET_TELEMETRY=1` (or `enable()`) turns it on; while
 off every instrumented site short-circuits: `span()` hands back a shared
@@ -37,6 +39,8 @@ from .exporters import (  # noqa: F401
 )
 from . import compilereg  # noqa: F401
 from . import slo  # noqa: F401
+from . import stepstats  # noqa: F401
+from . import ledger  # noqa: F401
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
@@ -45,7 +49,7 @@ __all__ = [
     "distributed", "recorder", "log_event",
     "dump_json", "prometheus_text", "start_http_server", "to_dict",
     "register_debug_handler", "unregister_debug_handler",
-    "compilereg", "slo",
+    "compilereg", "slo", "stepstats", "ledger",
     "enabled", "enable", "disable", "refresh_from_env",
     "counter", "gauge", "histogram", "inc", "observe", "set_gauge",
     "METRIC_NAMES", "SPAN_NAMES", "is_registered_metric",

@@ -226,6 +226,30 @@ def test_midstream_failover_resumes_token_identical():
     assert [list(s) for s in streams.values()] == before
 
 
+def test_kill_when_decides_under_the_replica_lock():
+    """A conditional kill happens only while its predicate holds, seen
+    under the replica's lock: a mid-stream request it saw stays
+    unfinished until the heartbeat fails it over."""
+    prompts, _ = _workload(n=1)
+    clk = FakeClock()
+    router = FleetRouter(clock=clk, heartbeat_timeout=0.5)
+    rep = router.add_replica(_engine(clk))
+    eid = router.submit(prompts[0], 8, sink=lambda ev: None)
+    entry = router.journal.get(eid)
+    assert not router.kill(rep.replica_id, when=lambda: False)
+    assert _tick_until(router, clk, _mid_stream(entry), n=100)
+    seen = []
+    assert router.kill(rep.replica_id,
+                       when=lambda: seen.append(len(entry.tokens)) or True)
+    assert not router.kill(rep.replica_id)  # already dead
+    for _ in range(3):
+        router.tick()
+    assert len(entry.tokens) == seen[0] < 8 and router.failovers == 0
+    clk.t += 1.0
+    router.tick()
+    assert router.failovers == 1
+
+
 def test_failover_budget_exhaustion_fails_request():
     prompts, _ = _workload(n=1)
     clk = FakeClock()
