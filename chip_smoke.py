@@ -131,6 +131,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    steps 2-3 the plain leg's at 1e-5, the running stats after step 1 a
    plain step's at rtol 1e-6, step 1's peak allocation printed; "nothing"
    must peak below plain);
+4c. gluon's imperative surface: (a) ResNet-50 v1 at bench.py's setup,
+   fused, through examples/gluon_mnist.py's loop (`DataLoader` over an
+   `ArrayDataset` of 3 batches from RandomState(0), shuffled ->
+   `autograd.record()` -> `net(x)` -> `SoftmaxCrossEntropyLoss` ->
+   `backward()` -> `gluon.Trainer("sgd").step(128)`), 6 steps, cuDNN
+   deterministic: each epilogue kernel 49 times per step; every loss
+   equal to `GluonTrainStep`'s (eager, same weights, batches and SGD) at
+   rtol 1e-5, the state after the steps within 1e-5 of its (gap over
+   movement) and step 1's gradients of the first and last convolution at
+   rtol 2e-4, atol 1e-5; images/s of the loop, of its step and of
+   `GluonTrainStep` on the same batches, the host's enqueue time per
+   step and the device's busy share over 3 steps; (b) gluon_mnist's loop
+   as written, on the card, 2 epochs (epoch-1 accuracy above 0.85);
+   (c) every registry op name and extra mode on the card against the
+   port's CPU result on tests/torch_op_cases.py's seeded inputs (values
+   rtol 1e-5, atol 1e-6; gradients rtol 1e-4, atol 1e-5) and every
+   sampler by its moments;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -169,6 +186,7 @@ import dataclasses
 import faulthandler
 import gc
 import http.client
+import importlib.util
 import json
 import math
 import os
@@ -1872,17 +1890,17 @@ def resnet_grads(net, x, y):
     mode at the net's current weights; the running stats this forward
     moves are put back."""
     params = net.collect_params()
-    stats = {n: p.data().clone() for n, p in params.items()
+    stats = {n: p.tensor().clone() for n, p in params.items()
              if p.grad_req == "null"}
     net.train()
     loss = resnet_loss(net, x, y)
     loss = loss.to(torch.promote_types(loss.dtype, torch.float32)).mean()
     net.train(False)
     names = [n for n, p in params.items() if p.grad_req != "null"]
-    grads = torch.autograd.grad(loss, [params[n].data() for n in names])
+    grads = torch.autograd.grad(loss, [params[n].tensor() for n in names])
     with torch.no_grad():
         for n, v in stats.items():
-            params[n].data().copy_(v)
+            params[n].tensor().copy_(v)
     return {n[len(net.prefix):]: g for n, g in zip(names, grads)}
 
 
@@ -2019,7 +2037,7 @@ def bn_layer_check(device):
                 norm.beta.set_data(beta)
                 norm.train()
                 leaves = [x.view(B, H, W, C).detach().requires_grad_(),
-                          norm.gamma.data(), norm.beta.data()]
+                          norm.gamma.tensor(), norm.beta.tensor()]
                 r = None
                 if residual:
                     r = res.view(B, H, W, C).detach().requires_grad_()
@@ -2029,8 +2047,8 @@ def bn_layer_check(device):
                 out[knob] = (y.detach().view(R, C),
                              [t.reshape(-1, C) if t.dim() > 1 else t
                               for t in grads],
-                             norm.running_mean.data(),
-                             norm.running_var.data())
+                             norm.running_mean.tensor(),
+                             norm.running_var.tensor())
         finally:
             os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
         (y0, g0, m0, v0), (y1, g1, m1, v1) = out["0"], out["1"]
@@ -2084,7 +2102,7 @@ def resnet_step(net, device, **kw):
 
 def running_stats(net):
     """{name without the net's prefix: a copy of the running stat}."""
-    return {n[len(net.prefix):]: p.data().clone()
+    return {n[len(net.prefix):]: p.tensor().clone()
             for n, p in net.collect_params().items() if p.grad_req == "null"}
 
 
@@ -2465,6 +2483,395 @@ def bench_runs(gpu):
               f"compile_s {f['compile_s']}; loss {f['loss']:.5f} [{gpu}]")
     print(f"  bench: {time.perf_counter() - t0:.1f} s")
     return out
+
+# -- phase 4c: gluon's imperative surface ------------------------------------
+
+IMP_BATCHES = 3   # ArrayDataset of 3 batches (231 MB of images)
+IMP_STEPS = 6     # two epochs of the loader
+IMP_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+IMP_STATE_GAP = 1e-5
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def imperative_data():
+    """IMP_BATCHES batches of bench.py's images and labels, drawn as
+    `resnet_batch` draws them, from RandomState(0), on the host."""
+    B, S = RESNET["batch"], RESNET["image"]
+    rng = np.random.RandomState(0)
+    n = IMP_BATCHES * B
+    x = np.ascontiguousarray(rng.rand(n, 3, S, S).astype(np.float32)
+                             .transpose(0, 2, 3, 1))
+    y = rng.randint(0, RESNET["classes"], size=n).astype(np.float32)
+    return x, y
+
+
+def imperative_step(net, loss_fn, trainer, data, label):
+    """One step of examples/gluon_mnist.py's loop: record, forward, loss,
+    backward, Trainer.step; returns the loss (an NDArray, per sample)."""
+    with tmx.autograd.record():
+        out = net(data)
+        loss = loss_fn(out, label)
+    loss.backward()
+    trainer.step(data.shape[0])
+    return loss
+
+
+def imperative_resnet(device, gpu):
+    """Phase 4c (a): ResNet-50 v1 at bench.py's setup (NHWC, float32,
+    batch 128 at 224 x 224, Xavier from the seeded generator, SGD lr 0.05
+    momentum 0.9 wd 1e-4) through the imperative loop with
+    MXTPU_FUSED_EPILOGUE=1: `DataLoader(ArrayDataset(...), batch_size=128,
+    shuffle=True)` -> `autograd.record()` -> `net(x)` ->
+    `SoftmaxCrossEntropyLoss` -> `loss.backward()` ->
+    `gluon.Trainer("sgd").step(128)`, IMP_STEPS steps (two epochs of
+    IMP_BATCHES batches), cuDNN deterministic. Each step must launch each
+    epilogue kernel EPI_PER_STEP times. Oracle: `GluonTrainStep` (eager,
+    SGD with rescale_grad 1, as its loss is already the batch mean) on a
+    net drawn from the same seed, from the same weights, momenta and
+    running stats, on the same batches: every step loss at rtol 1e-5,
+    the state after the steps within IMP_STATE_GAP (gap / movement, as
+    the scan leg), and step 1's gradients of the first and last
+    convolution (`Parameter.grad()`, scaled by 1/128: the loop's loss is
+    a sum over the batch) at rtol 2e-4, atol 1e-5."""
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _imperative_resnet(device, gpu)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+
+
+def _imperative_resnet(device, gpu):
+    t0 = time.perf_counter()
+    B = RESNET["batch"]
+    x, y = imperative_data()
+    t_data = time.perf_counter() - t0
+    np.random.seed(0)
+    loader = tmx.gluon.data.DataLoader(
+        tmx.gluon.data.ArrayDataset(x, y), batch_size=B, shuffle=True)
+    two = torch.from_numpy(x[:2]).to(device)
+    net = resnet50(two, device)
+    onet = resnet50(two, device)
+    params = net.collect_params()
+    trainer = tmx.gluon.Trainer(params, "sgd", dict(IMP_SGD))
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    ostep = GluonTrainStep(onet, resnet_loss,
+                           tmx.optimizer.SGD(rescale_grad=1.0, **IMP_SGD),
+                           device=device)
+    convs = [n for n in params if n.endswith("weight")
+             and params[n].tensor().dim() == 4]
+    convs = [convs[0], convs[-1]]
+    copies0 = tmx.gluon.block.input_copies
+    for k in EPI_KERNELS:
+        k.launches = 0
+    batches, losses, grads1 = [], [], None
+    while len(batches) < IMP_STEPS:
+        for data, label in loader:
+            before = [k.launches for k in EPI_KERNELS]
+            loss = imperative_step(net, loss_fn, trainer, data, label)
+            for k, b in zip(EPI_KERNELS, before):
+                if k.launches - b != EPI_PER_STEP:
+                    raise AssertionError(
+                        f"imperative leg: {k.__name__} launched "
+                        f"{k.launches - b} times in step "
+                        f"{len(batches) + 1}, expected {EPI_PER_STEP}")
+            losses.append(loss.mean()._data)
+            if grads1 is None:
+                grads1 = {n: params[n].grad()._data.clone() for n in convs}
+            batches.append((data, label))
+            if len(batches) == IMP_STEPS:
+                break
+    launches = {k.__name__: k.launches for k in EPI_KERNELS}
+    copies = tmx.gluon.block.input_copies - copies0
+    losses = torch.stack(losses).tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"imperative leg: non-finite loss {losses}")
+    # the oracle: step 1's gradients from the start, then the steps
+    names = [n[len(net.prefix):] for n in params
+             if params[n].grad_req != "null"]
+    ostep._ensure_built(*[t._data.to(device) for t in batches[0]])
+    start = state_copies(ostep)
+    _, ograds, _ = ostep._grads(*[t._data.to(device) for t in batches[0]])
+    ograds = dict(zip(names, ograds))
+    olosses = torch.stack([ostep(d._data, l._data)
+                           for d, l in batches]).tolist()
+    bad = [f"step {k + 1}: {a} against {b}"
+           for k, (a, b) in enumerate(zip(losses, olosses))
+           if not np.isclose(a, b, rtol=1e-5, atol=0)]
+    got = [t.detach() for t in
+           [params[n].tensor() for n in params
+            if params[n].grad_req != "null"]
+           + [params[n].tensor() for n in params
+              if params[n].grad_req == "null"]
+           + [trainer._updater.states[i]._data
+              for i in range(len(trainer._params))]]
+    gaps = state_gaps(ostep, got, state_copies(ostep), start)
+    exact = all(torch.equal(g, w) for g, w in zip(got, state_copies(ostep)))
+    bad += [f"{g} gap {v:.3e}" for g, v in gaps.items()
+            if not v <= IMP_STATE_GAP]
+    gerr = {}
+    for n in convs:
+        rel = n[len(net.prefix):]
+        mine = grads1[n] / B
+        gerr[rel] = float((mine - ograds[rel]).abs().max())
+        if not torch.allclose(mine, ograds[rel], rtol=2e-4, atol=1e-5):
+            bad.append(f"{rel} step-1 gradient: max abs diff {gerr[rel]:.3e}")
+    print(f"  (a) ResNet-50 v1 imperative, fused: {IMP_STEPS} steps over "
+          f"{len(loader)} batches x 2 epochs (data drawn in {t_data:.1f} s); "
+          f"losses {[round(v, 6) for v in losses]}; GluonTrainStep oracle "
+          f"{[round(v, 6) for v in olosses]}; state after the steps against "
+          f"the oracle (gap / movement): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (limit {IMP_STATE_GAP:g}); bit-equal: {exact}; step-1 "
+          f"gradients of {list(gerr)} max abs diff "
+          f"{[f'{v:.3e}' for v in gerr.values()]} (rtol 2e-4, atol 1e-5)")
+    print(f"  (a) epilogue launches over the {IMP_STEPS} steps {launches} "
+          f"({EPI_PER_STEP} of each per step); CPU arrays moved to the "
+          f"card by the blocks: {copies} ({copies / IMP_STEPS:g} per step: "
+          f"the images and the labels)")
+    if bad:
+        raise AssertionError(f"imperative leg parts from GluonTrainStep: "
+                             f"{bad}")
+    timing = imperative_times(net, loss_fn, trainer, loader, batches, ostep,
+                              device, gpu)
+    del onet, ostep
+    seconds = time.perf_counter() - t0
+    print(f"  (a) {seconds:.1f} s [{gpu}]")
+    return dict(launches=launches, copies=copies, losses=losses,
+                gaps=gaps, exact=exact, seconds=seconds, **timing)
+
+
+def imperative_times(net, loss_fn, trainer, loader, batches, ostep, device,
+                     gpu):
+    """images/s and ms per step (host clock, one sync at the end of each
+    window) of the imperative loop with its DataLoader, of the imperative
+    step on batches already fetched, and of GluonTrainStep's eager step on
+    the same batches; the host's enqueue time per imperative step (no
+    sync); and the device's busy share over 3 imperative steps."""
+    B = RESNET["batch"]
+    n = len(batches)
+
+    def window(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def loop():
+        k = 0
+        for data, label in loader:
+            imperative_step(net, loss_fn, trainer, data, label)
+            k += 1
+        return k
+
+    def steps():
+        hosts = []
+        for data, label in batches:
+            h0 = time.perf_counter()
+            imperative_step(net, loss_fn, trainer, data, label)
+            hosts.append(time.perf_counter() - h0)
+        return hosts
+
+    def oracle():
+        for data, label in batches:
+            ostep(data._data, label._data)
+
+    t_loop, k_loop = window(loop)
+    t_steps, hosts = window(steps)
+    t_oracle, _ = window(oracle)
+    out = dict(loop_ips=k_loop * B / t_loop, step_ips=n * B / t_steps,
+               oracle_ips=n * B / t_oracle, step_ms=t_steps / n * 1e3,
+               oracle_ms=t_oracle / n * 1e3,
+               host_ms=float(np.median(hosts)) * 1e3)
+    print(f"  (a) images/s, host clock: imperative loop with its "
+          f"DataLoader {out['loop_ips']:.1f} ({k_loop} steps, "
+          f"{t_loop / k_loop * 1e3:.3f} ms per step); imperative step on "
+          f"fetched batches {out['step_ips']:.1f} ({out['step_ms']:.3f} ms "
+          f"per step; host enqueue median {out['host_ms']:.3f} ms); "
+          f"GluonTrainStep eager on the same batches {out['oracle_ips']:.1f} "
+          f"({out['oracle_ms']:.3f} ms per step) [{gpu}]")
+    it = iter(batches)
+    stats = {}
+    busy_share(lambda: imperative_step(net, loss_fn, trainer, *next(it)),
+               "imperative ResNet-50 step", gpu, steps=3, warm=False,
+               top_n=6, kinds=True, stats=stats)
+    out["busy"] = stats.get("busy")
+    return out
+
+
+def imperative_mnist(gpu):
+    """Phase 4c (b): examples/gluon_mnist.py's loop as written, with
+    incubator_mxnet_tpu_torch in place of incubator_mxnet_tpu, for 2 epochs
+    at its defaults (batch 100, lr 0.1, momentum 0.9, Xavier, the default
+    context: the card). Epoch 1's accuracy must exceed 0.85, the bar of
+    tests/test_examples.py's test_gluon_mnist."""
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import autograd, gluon
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    t0 = time.perf_counter()
+    copies0 = gluon.block.input_copies
+    mx.random.seed(0)
+    np.random.seed(0)
+    rng = np.random.RandomState(0)
+    proto = rng.rand(10, 1, 28, 28).astype("float32")
+    y = rng.randint(0, 10, 4000)
+    X = proto[y] + 0.1 * rng.randn(4000, 1, 28, 28).astype("float32")
+    dataset = gluon.data.ArrayDataset(X, y.astype("float32"))
+    loader = gluon.data.DataLoader(dataset, batch_size=100, shuffle=True)
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(20, 5, activation="relu"), nn.MaxPool2D(2, 2),
+            nn.Conv2D(50, 5, activation="relu"), nn.MaxPool2D(2, 2),
+            nn.Flatten(), nn.Dense(500, activation="relu"), nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    accs = []
+    for epoch in range(2):
+        total, correct, cum_loss = 0, 0, 0.0
+        for data, label in loader:
+            with autograd.record():
+                out = net(data)
+                loss = loss_fn(out, label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            cum_loss += float(loss.mean().asscalar()) * data.shape[0]
+            correct += int((out.asnumpy().argmax(1)
+                            == label.asnumpy()).sum())
+            total += data.shape[0]
+        accs.append(correct / total)
+        print(f"  (b) gluon_mnist epoch {epoch} loss {cum_loss / total:.4f} "
+              f"acc {correct / total:.4f}")
+    seconds = time.perf_counter() - t0
+    copies = gluon.block.input_copies - copies0
+    print(f"  (b) gluon_mnist: 2 epochs of {len(loader)} steps in "
+          f"{seconds:.1f} s, {copies} CPU arrays moved to the card; epoch-1 "
+          f"accuracy {accs[1]:.4f} (bar 0.85) [{gpu}]")
+    if not accs[1] > 0.85:
+        raise AssertionError(f"gluon_mnist epoch-1 accuracy {accs[1]} is "
+                             f"not above 0.85")
+    return dict(accs=accs, seconds=seconds, copies=copies)
+
+
+def _lq_signed(lq):
+    """gelqf's (L, Q) with each Q row's largest-magnitude entry positive
+    and L's columns flipped to match (a sign convention of the solver)."""
+    L, Q = (np.array(v) for v in lq)
+    s = np.sign(np.take_along_axis(Q, np.abs(Q).argmax(-1)[..., None], -1))
+    return [L * np.swapaxes(s, -1, -2), Q * s]
+
+
+def _eig_recomposed(vals):
+    """syevd's (U, L) as (U^T diag(L) U, L): the eigenvectors are defined
+    only up to sign and within close eigenvalues, so two solvers are held
+    by the matrix they decompose and by the eigenvalues."""
+    U, L = (np.asarray(v, np.float64) for v in vals)
+    return [np.swapaxes(U, -1, -2) @ (L[..., None] * U), L]
+
+
+def registry_on_card(gpu):
+    """Phase 4c (c): every registry name (and each op's extra modes) on the
+    card against the port's CPU result, on the seeded inputs of
+    tests/test_torch_ndarray.py (`tests/torch_op_cases.py`): values at
+    rtol 1e-5, atol 1e-6, the inputs' gradients under the same head
+    gradients at rtol 1e-4, atol 1e-5 (LQ signs normalised, and syevd
+    held by U^T diag(L) U and L: solver conventions; the CPU test holds
+    U itself against the JAX package's LAPACK call); the samplers by
+    their moments on the card (mean within 6 standard errors, standard
+    deviation within 10 % of the distribution's)."""
+    from incubator_mxnet_tpu_torch.ndarray.register import F as opF
+    from incubator_mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+    # loaded by its path: tests/ stays off sys.path for the later phases
+    spec = importlib.util.spec_from_file_location(
+        "torch_op_cases", os.path.join(ROOT, "tests", "torch_op_cases.py"))
+    oc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oc)
+
+    t0 = time.perf_counter()
+    card_ctx = tmx.gpu(0)
+    cases = [(n, oc._ALL_CASES[oc._key(n)]) for n in oc.DETERMINISTIC]
+    cases += [(name, (name, fn, 10 + k))
+              for k, (name, fn) in enumerate(oc.EXTRA)]
+    bad, worst, worst_g = [], (0.0, ""), (0.0, "")
+    for name, (_, case_fn, seed) in cases:
+        inputs, attrs = case_fn(np.random.RandomState(seed))
+        op = OP_REGISTRY[name].name
+        grad = op not in oc.NO_GRAD
+        runs = [oc._port(name, inputs, attrs, seed + 1, grad, ctx=c)
+                for c in (oc.CPU, card_ctx)]
+        for vals, _, _ in runs:
+            if op == "_linalg_syevd":
+                vals[:] = _eig_recomposed(vals)
+            if op == "_linalg_gelqf":
+                vals[:] = _lq_signed(vals)
+        for what, k, rtol, atol in (("values", 0, 1e-5, 1e-6),
+                                    ("gradients", 1, 1e-4, 1e-5),
+                                    ("inputs after", 2, 1e-5, 1e-6)):
+            want, got = runs[0][k], runs[1][k]
+            if (want is None) != (got is None) or (
+                    want is not None and len(want) != len(got)):
+                bad.append(f"{name} {what}: {got} against {want}")
+                continue
+            for g, w in zip(got or (), want or ()):
+                g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+                if g.shape != w.shape or not np.allclose(
+                        g, w, rtol=rtol, atol=atol, equal_nan=True):
+                    err = (float(np.nanmax(np.abs(g - w)))
+                           if g.shape == w.shape else float("inf"))
+                    bad.append(f"{name} {what}: max abs diff {err:.3e}")
+                elif g.size:
+                    err = float(np.nanmax(np.abs(g - w)))
+                    if k == 1:
+                        worst_g = max(worst_g, (err, name))
+                    else:
+                        worst = max(worst, (err, name))
+    zs = {name: oc.sample_moments(name, ctx=card_ctx) for name in oc.RANDOM}
+    # an op that draws, called through F with its tensor by keyword: the
+    # generator is made on that tensor's card (zero share within 6
+    # standard errors of p, the kept elements scaled by 1 / (1 - p))
+    x = torch.ones(1 << 20, device=card_ctx.torch_device())
+    with tmx.autograd.train_mode():
+        drop = opF.Dropout(data=x, p=0.5)
+    share = float((drop == 0).float().mean())
+    kw_ok = (drop.device == x.device and abs(share - 0.5) < 6 * 0.5 / 1024
+             and bool(((drop == 0) | (drop == 2.0)).all()))
+    if not kw_ok:
+        bad.append(f"F.Dropout(data=<card tensor>): on {drop.device}, zero "
+                   f"share {share:.6f}")
+    seconds = time.perf_counter() - t0
+    n_ops = len({OP_REGISTRY[n].name for n in oc.DETERMINISTIC + oc.RANDOM})
+    print(f"  (c) registry on the card: {len(oc.DETERMINISTIC)} names and "
+          f"{len(oc.EXTRA)} extra modes against the CPU result (largest "
+          f"value diff {worst[0]:.3e} in {worst[1]}, largest gradient diff "
+          f"{worst_g[0]:.3e} in {worst_g[1]}); {len(zs)} sampler names by "
+          f"their moments (largest mean offset "
+          f"{max(zs.values()):.2f} standard errors); F.Dropout by keyword "
+          f"on the card: zero share {share:.6f}; {n_ops} ops in all; "
+          f"{seconds:.1f} s [{gpu}]")
+    if bad:
+        raise AssertionError(f"registry ops on the card part from the CPU: "
+                             f"{bad[:20]} ({len(bad)} in all)")
+    return dict(names=len(oc.DETERMINISTIC) + len(zs), seconds=seconds)
+
+
+def imperative_leg(device, gpu):
+    """Phase 4c: parts (a), (b) and (c); returns their results and the
+    leg's seconds."""
+    t0 = time.perf_counter()
+    out = {"resnet": imperative_resnet(device, gpu)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mnist"] = imperative_mnist(gpu)
+    out["ops"] = registry_on_card(gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  imperative leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
 
 # -- phase 5: times ----------------------------------------------------------
 
@@ -3010,7 +3417,7 @@ def chain_times(label, shape, x, res, dy, flush, device, gpu):
         for knob in ("0", "1"):
             os.environ["MXTPU_FUSED_EPILOGUE"] = knob
             norm(xs[:1].detach())  # resolves the BN's shapes
-            leaves = [xs, norm.gamma.data(), norm.beta.data()]
+            leaves = [xs, norm.gamma.tensor(), norm.beta.tensor()]
             fwd = device_ms(lambda: rewrite.bn_act(norm, xs, rs),
                             flush=flush)
             both = device_ms(lambda: torch.autograd.grad(
@@ -3400,6 +3807,12 @@ def main():
         os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
     for leg in ("bf16 unfused", "compute_dtype"):
         del legs11[leg]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
+    print("phase 4c: gluon's imperative surface")
+    imperative_leg(device, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -16,20 +16,34 @@ FlashAttention-2 forward, dQ and dK/dV kernels and whose loss with
 `parallel`); and ResNet training through the gluon front end (`gluon`,
 `fused.GluonTrainStep`, `optimizer.SGD`, `initializer`), whose
 BatchNorm -> ReLU (-> add) chains with `MXTPU_FUSED_EPILOGUE` run the
-fused epilogue kernels.
+fused epilogue kernels; and gluon's imperative surface: the `NDArray`
+(`nd`) over the operator registry, `autograd.record` / `backward`, the
+global random state (`random`), device contexts (`cpu()`, `gpu()`),
+`gluon.Trainer`, `gluon.data` and the nn layers and losses, so the
+reference's loop runs as written:
+
+    with autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(data.shape[0])
 
 Entry points take `device=None`, meaning CUDA; without CUDA they raise
 unless the caller passes `device="cpu"`, which runs each kernel's plain
 PyTorch version instead.
 """
-from . import (analysis, config, fused, gluon, initializer,  # noqa: F401
-               models, ndarray, ops, optimizer, parallel, resilience,
-               serving, telemetry)
+from . import (analysis, autograd, config, context, fused,  # noqa: F401
+               gluon, initializer, model, models, ndarray, ops, optimizer,
+               parallel, random, resilience, serving, telemetry)
+from .context import (Context, cpu, current_context, gpu,  # noqa: F401
+                      num_gpus, tpu)
 from .models import loss_fn, make_train_step  # noqa: F401
+from .ndarray.ndarray import NDArray  # noqa: F401
 
 init = initializer
+nd = ndarray
 
-__all__ = ["analysis", "config", "fused", "gluon", "init", "initializer",
-           "models", "ndarray", "ops", "optimizer", "parallel",
-           "resilience", "serving", "telemetry", "loss_fn",
-           "make_train_step"]
+__all__ = ["analysis", "autograd", "config", "context", "fused", "gluon",
+           "init", "initializer", "model", "models", "nd", "ndarray",
+           "ops", "optimizer", "parallel", "random", "resilience",
+           "serving", "telemetry", "loss_fn", "make_train_step", "Context",
+           "cpu", "gpu", "tpu", "current_context", "num_gpus", "NDArray"]

@@ -8,8 +8,9 @@ engine's constructor argument wins over its knob), telemetry's (tracing,
 the flight recorder, the /metrics port, the serving SLOs and the /debug/*
 endpoints), the runtime sanitizers', resilience's (retry, fault
 injection), the serving fleet's and gateway's, the step statistics',
-and the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
-`MXTPU_REMAT_POLICY`.
+the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
+`MXTPU_REMAT_POLICY`, and the imperative surface's (NDArray dtype, the
+trainer's guardrail, the checkpoint walk-back).
 """
 from __future__ import annotations
 
@@ -310,3 +311,20 @@ _register("MXTPU_GATEWAY_ACCESS_LOG", "", str,
           "(tenant, status, token counts, queue-wait/TTFT/latency, "
           "trace id, serving replica, failover count), '-' for "
           "stderr, empty (default) for off.")
+
+# the imperative surface: NDArrays, the trainer's guardrail, checkpoints
+_register("MXTPU_DEFAULT_DTYPE", "float32", str,
+          "Default dtype for new NDArrays.")
+_register("MXTPU_GUARDRAIL_POLICY", "", str,
+          "Divergence guardrail in Trainer.step: when non-empty, every "
+          "step runs one fused non-finite check over the gradients (one "
+          "host read) BEFORE they reach the optimizer. 'skip' drops the "
+          "poisoned update; 'rollback' raises GuardrailRollback for the "
+          "training loop to restore the last good checkpoint via "
+          "auto_resume; 'backoff' needs contrib.amp's loss scaler, not "
+          "ported yet, and raises. Empty (default) disables the check.")
+_register("MXTPU_CKPT_WALKBACK", 8, int,
+          "How many epochs model.latest_valid_checkpoint walks back over "
+          "corrupt/missing checkpoints before giving up (each skipped "
+          "epoch is logged to the flight recorder). 0 walks all the way "
+          "to epoch 0.")

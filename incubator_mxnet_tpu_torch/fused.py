@@ -232,8 +232,9 @@ class GluonTrainStep:
             raise RuntimeError(f"parameters still uninitialized after a "
                                f"forward: {missing[:5]}")
         self.names = [n for n, p in params if p.grad_req != "null"]
-        self.weights = [p.data() for n, p in params if p.grad_req != "null"]
-        self.aux = [p.data() for n, p in params if p.grad_req == "null"]
+        self.weights = [p.tensor() for n, p in params
+                        if p.grad_req != "null"]
+        self.aux = [p.tensor() for n, p in params if p.grad_req == "null"]
         self.states = [self.opt.create_state(i, w)
                        for i, w in enumerate(self.weights)]
         if self._pending_states is not None:

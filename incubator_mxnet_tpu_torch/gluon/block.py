@@ -5,18 +5,32 @@ gets the JAX package's name (a top-level block takes `<alias><n>_` from a
 per-process counter; children created inside `name_scope()` take
 `<alias><k>_` from their parent's counter); `collect_params`;
 `initialize(init, device=None)`; deferred shapes resolved by each layer's
-`_pre_forward` from its first input; and `hybrid_forward(F, x, **params)`
-with `F` the port's operator namespace (`incubator_mxnet_tpu_torch.ndarray`)
-and the block's parameters passed by attribute name.
+`_pre_forward` from its first input; `hybrid_forward(F, x, **params)`
+with `F` the registry's tensor-level namespace (`ndarray.register.F`)
+and the block's parameters passed by attribute name, as tensors; and
+`save_parameters` / `load_parameters` in `nd.save`'s container.
+
+Called with NDArrays, as in the JAX package (`net(x)` inside
+`autograd.record()`), a block returns NDArrays. A `HybridBlock` hands
+its `hybrid_forward` the arrays' tensors, moving a CPU array (a
+`DataLoader` batch) to the parameters' device, or, for a block without
+parameters (a loss), to the card another input is on (`input_copies`
+counts those copies); a plain `Block` hands its `forward` the
+NDArrays. For the
+call the block and its children take their mode from
+`autograd.is_training()`, and the ops run under `torch.no_grad()`
+unless `autograd.is_recording()`, so nothing outside `record()` builds
+a graph. Called with tensors (`fused.GluonTrainStep`, the model zoo's
+train steps) a block behaves as a `torch.nn.Module`: its mode is
+`nn.Module.training` (a block starts in predict mode; `train()` turns
+training mode on for the block and its children) and torch's grad mode
+is the caller's.
 
 PyTorch idiom in place of the JAX package's machinery: children are
 submodules, parameters' data are `torch.nn.Parameter`s, `torch.autograd`
-records the ops, and the training flag is `nn.Module.training`. A block
-starts in predict mode (`training` False), as a gluon block outside
-`autograd.record(train_mode=True)` does; `train()` turns training mode on
-for the block and its children. `hybridize()` is a no-op: PyTorch runs
-eagerly and there is no cached graph to build. Not ported: `SymbolBlock`,
-`export` and parameter files.
+records the ops, and forward hooks are torch's. `hybridize()` is a
+no-op: PyTorch runs eagerly and there is no cached graph to build. Not
+ported: `SymbolBlock` and `export` (the symbolic slice).
 """
 from __future__ import annotations
 
@@ -25,15 +39,38 @@ import threading
 
 import torch
 
-from .. import ndarray as _F
+from .. import autograd
+from ..ndarray.ndarray import NDArray
+from ..ndarray.register import F as _F
 from . import parameter as _parameter
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "training_mode"]
+
+# CPU arrays moved to the parameters' device by an imperative call
+input_copies = 0
+
+# the calling thread's mode for an imperative (NDArray) call, or None
+_MODE = threading.local()
+
+
+def training_mode(block):
+    """The mode `block` runs in: `autograd.is_training()` inside an
+    imperative call, else the block's own `training` flag."""
+    mode = getattr(_MODE, "training", None)
+    return block.training if mode is None else mode
+
+
+def _wrap(out):
+    if torch.is_tensor(out):
+        return NDArray._from_data(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_wrap(o) for o in out)
+    return out
 
 
 class _ParamSubst:
-    """Within the context, `Parameter.data()` of every name in `mapping`
+    """Within the context, `Parameter.tensor()` of every name in `mapping`
     ({full name: tensor}) returns the mapped tensor, on the calling
     thread: the train step's forward sees its compute-dtype copies (and
     a recomputed forward, entering the context again, the same ones)."""
@@ -202,10 +239,100 @@ class Block(torch.nn.Module):
             if p._data is not None:
                 yield name, p._data
 
-    def initialize(self, init=None, device=None, force_reinit=False):
+    def initialize(self, init=None, device=None, force_reinit=False,
+                   ctx=None, verbose=False):
         """Initialize every parameter (see `Parameter.initialize`);
-        `device` None means CUDA and raises without it."""
-        self.collect_params().initialize(init, device, force_reinit)
+        `device` None means CUDA and raises without it (`ctx`, a Context,
+        is the reference's spelling)."""
+        self.collect_params().initialize(init, device, force_reinit,
+                                         ctx=ctx)
+
+    def _param_device(self):
+        """The device of the first parameter that has one, or None."""
+        for p in self._params.values():
+            dev = p._device()
+            if dev is not None:
+                return dev
+        for child in self._modules.values():
+            if isinstance(child, Block):
+                dev = child._param_device()
+                if dev is not None:
+                    return dev
+        return None
+
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray) for a in args):
+            return super().__call__(*args, **kwargs)
+        if isinstance(self, HybridBlock):
+            args = self._unwrap(args)
+        prev = getattr(_MODE, "training", None)
+        _MODE.training = autograd.is_training()
+        try:
+            with torch.set_grad_enabled(autograd.is_recording()):
+                out = super().__call__(*args, **kwargs)
+        finally:
+            _MODE.training = prev
+        return _wrap(out)
+
+    def _unwrap(self, args):
+        """The arrays' tensors, a CPU one moved to the parameters' device
+        (for a block without parameters, a loss: to another input's
+        card)."""
+        global input_copies
+        device = self._param_device()
+        if device is None:
+            device = next((a._data.device for a in args
+                           if isinstance(a, NDArray) and a._data.is_cuda),
+                          None)
+        out = []
+        for a in args:
+            if isinstance(a, NDArray):
+                a = a._data
+                if device is not None and a.device != device:
+                    a = a.to(device, non_blocking=True)
+                    input_copies += 1
+            out.append(a)
+        return out
+
+    def summary(self, *inputs):
+        """Run the block once on `inputs` (the JAX package prints nothing
+        more either) and return the output."""
+        return self(*inputs)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Save the parameters by structure-relative name ('0.weight'), in
+        `nd.save`'s container."""
+        from ..ndarray import save as nd_save
+
+        params = self._collect_params_with_prefix()
+        nd_save(filename, {n: p.data() for n, p in params.items()
+                           if p._data is not None})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a `save_parameters` file (or a `ParameterDict.save` one, by
+        full names), the port's or the JAX package's."""
+        from ..context import cpu
+        from ..ndarray import load as nd_load
+
+        # staged on the CPU: set_data copies each to its parameter's device
+        loaded = nd_load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if loaded and params and not any(k in params for k in loaded):
+            params = dict(self.collect_params().items())
+        for name, p in params.items():
+            if name in loaded:
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise ValueError(f"parameter {name} missing in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(params.keys())
+            if extra:
+                raise ValueError(f"extra parameters: {sorted(extra)}")
+
+    save_params = save_parameters
+    load_params = load_parameters
 
     def cast(self, dtype):
         """Cast every parameter of the block and its children to
@@ -234,7 +361,7 @@ class HybridBlock(Block):
         input."""
 
     def _param_kwargs(self):
-        return {name: p.data() for name, p in self._reg_params.items()}
+        return {name: p.tensor() for name, p in self._reg_params.items()}
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -1,5 +1,5 @@
-"""Gluon nn layers (`incubator_mxnet_tpu/gluon/nn/`): the ones ResNet
-needs."""
+"""Gluon nn layers (`incubator_mxnet_tpu/gluon/nn/`)."""
 from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403
+from ..block import Block, HybridBlock  # noqa: F401

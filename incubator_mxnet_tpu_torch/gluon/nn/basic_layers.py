@@ -1,5 +1,9 @@
-"""Gluon basic layers (`incubator_mxnet_tpu/gluon/nn/basic_layers.py`):
-the ones ResNet needs."""
+"""Gluon basic layers (`incubator_mxnet_tpu/gluon/nn/basic_layers.py`).
+
+`Embedding` takes dense gradients only (`sparse_grad` waits for sparse
+storage, ROADMAP Queue A 5). `Lambda` / `HybridLambda` given an op name
+call the tensor-level `F` function of that name: blocks called with
+NDArrays hand their forward the tensors."""
 from __future__ import annotations
 
 import functools
@@ -7,10 +11,40 @@ import math
 
 from ... import initializer as init_mod
 from ...ops import epilogue
-from ..block import HybridBlock, _RematUnits
+from ..block import Block, HybridBlock, _F, _RematUnits, training_mode
 from .activations import Activation
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "InstanceNorm", "LayerNorm", "GroupNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda",
+           "ReflectionPad2D"]
+
+
+class Sequential(Block):
+    """Children run in order."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)()
+            net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
 class HybridSequential(HybridBlock):
@@ -99,6 +133,22 @@ class Dense(HybridBlock):
         return f"Dense({self._units})"
 
 
+class Dropout(HybridBlock):
+    """Inverted dropout with rate `rate` (whole slices along `axes`), in
+    training mode only."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes,
+                             _training=training_mode(self))
+        return x
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization over `axis` (gluon defaults: epsilon 1e-5,
     momentum 0.9, `fix_gamma = not scale`). In training mode it
@@ -144,9 +194,153 @@ class BatchNorm(HybridBlock):
             x, gamma, beta, running_mean, running_var, eps=self._epsilon,
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            _training=self.training)
+            _training=training_mode(self))
 
 
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+def _affine(block, name, c, grad):
+    init = init_mod.One() if name == "gamma" else init_mod.Zero()
+    return block.params.get(name, shape=(c,), init=init,
+                            allow_deferred_init=True,
+                            grad_req="write" if grad else "null")
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalization over the spatial dims of NC* data."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = _affine(self, "gamma", in_channels, True)
+            self.beta = _affine(self, "beta", in_channels, True)
+
+    def _pre_forward(self, x, *args):
+        if not self.gamma._shape_known():
+            self.gamma.shape = (x.shape[1],)
+            self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over `axis`."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = _affine(self, "gamma", in_channels, True)
+            self.beta = _affine(self, "beta", in_channels, True)
+
+    def _pre_forward(self, x, *args):
+        if not self.gamma._shape_known():
+            c = x.shape[self._axis]
+            self.gamma.shape = (c,)
+            self.beta.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    """Group normalization over `num_groups` channel groups of NC* data."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = int(num_groups)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = _affine(self, "gamma", in_channels, scale)
+            self.beta = _affine(self, "beta", in_channels, center)
+
+    def _pre_forward(self, x, *args):
+        if not self.gamma._shape_known():
+            self.gamma.shape = (x.shape[1],)
+            self.beta.shape = (x.shape[1],)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    """A (input_dim, output_dim) lookup table for integer indices."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        if sparse_grad:
+            raise NotImplementedError("Embedding(sparse_grad=True) waits for "
+                                      "sparse storage (ROADMAP Queue A 5)")
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+
+class Lambda(Block):
+    """Wrap a function (or the name of an `F` op) as a block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func = (getattr(_F, function) if isinstance(function, str)
+                      else function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wrap a function `fn(*tensors)` (or the name of an `F` op) as a
+    hybrid block; as in the JAX package, the function is not handed
+    `F`."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func = None
+            self._func_name = function
+        else:
+            self._func = function
+            self._func_name = getattr(function, "__name__", "lambda")
+
+    def hybrid_forward(self, F, *args):
+        fn = self._func or getattr(F, self._func_name)
+        return fn(*args)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding on H/W of NCHW input."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        if len(padding) != 8:
+            raise ValueError(
+                "padding must be an int or an 8-tuple (before/after for "
+                "each NCHW axis); got %r" % (padding,))
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)

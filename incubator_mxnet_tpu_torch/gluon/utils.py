@@ -1,10 +1,57 @@
-"""Gluon utilities: carrying weights between nets."""
+"""Gluon utilities (`incubator_mxnet_tpu/gluon/utils.py`): splitting a
+batch over contexts, clipping gradients by their global norm, and
+carrying weights between nets."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_params"]
+from ..ndarray.ndarray import NDArray, array
+
+__all__ = ["split_data", "split_and_load", "clip_global_norm",
+           "load_numpy_params"]
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """`num_slice` slices of `data` along `batch_axis` (the last takes the
+    remainder unless `even_split` demands equal ones)."""
+    size = data.shape[batch_axis]
+    if even_split and size % num_slice != 0:
+        raise ValueError(f"data size {size} not divisible by {num_slice}")
+    step = size // num_slice
+    slices = []
+    for i in range(num_slice):
+        lo = i * step
+        hi = (i + 1) * step if i < num_slice - 1 else size
+        idx = [slice(None)] * data.ndim
+        idx[batch_axis] = slice(lo, hi)
+        slices.append(data[tuple(idx)])
+    return slices
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """Split `data` over `ctx_list`, each slice on its context."""
+    if not isinstance(data, NDArray):
+        data = array(data, ctx=ctx_list[0])
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    slices = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+
+
+def clip_global_norm(arrays, max_norm, check_isfinite=True):
+    """Scale `arrays` (NDArrays, in place) so that their joint 2-norm is
+    at most `max_norm`; returns the norm before scaling (one host
+    read)."""
+    with torch.no_grad():
+        total = sum(torch.sum(torch.square(a._data.float()))
+                    for a in arrays)
+        norm = float(torch.sqrt(total))
+        scale = max_norm / (norm + 1e-8)
+        if scale < 1.0:
+            for a in arrays:
+                a._data.mul_(scale)
+    return norm
 
 
 def load_numpy_params(net, arrays, prefix=""):

@@ -2,11 +2,13 @@
 (`incubator_mxnet_tpu/initializer.py`).
 
 Values are drawn from an explicit `torch.Generator` (the initializer's
-`generator`, else PyTorch's default CPU generator) on the generator's
-device, then moved to the parameter's: a seeded CPU generator gives the
-same weights on any device. The JAX package draws from JAX keys, so the
-bits differ from it; tests compare the distribution, and parity runs
-carry the weights across (`gluon.utils.load_numpy_params`).
+`generator`, else a CPU generator seeded from the global random state,
+`random.next_generator()`, so `mx.random.seed(s)` fixes the weights) on
+the generator's device, then moved to the parameter's: a seeded CPU
+generator gives the same weights on any device. The JAX package draws
+from JAX keys, so the bits differ from it; tests compare the
+distribution, and parity runs carry the weights across
+(`gluon.utils.load_numpy_params`).
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ import math
 
 import torch
 
-__all__ = ["Initializer", "InitDesc", "Zero", "One", "Uniform", "Xavier"]
+from . import random as _random
+
+__all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
+           "Xavier"]
 
 
 class InitDesc(str):
@@ -56,13 +61,16 @@ class Initializer:
             else:
                 self._init_default(name, arr)
 
+    def _generator(self):
+        return self.generator or _random.next_generator()
+
     def _uniform(self, shape, low, high):
-        gen = self.generator or torch.default_generator
+        gen = self._generator()
         return torch.empty(shape, device=gen.device).uniform_(
             low, high, generator=gen)
 
     def _normal(self, shape, std):
-        gen = self.generator or torch.default_generator
+        gen = self._generator()
         return torch.empty(shape, device=gen.device).normal_(
             0.0, std, generator=gen)
 
@@ -96,6 +104,15 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, name, arr):
         self._init_one(name, arr)
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0, generator=None):
+        super().__init__(generator)
+        self.value = value
+
+    def _init_weight(self, name, arr):
+        arr.fill_(self.value)
 
 
 class Uniform(Initializer):

@@ -1,0 +1,59 @@
+"""Checkpoint discovery (`incubator_mxnet_tpu/model.py`): the newest
+verified epoch checkpoint under a prefix, the walk-back that
+`gluon.Trainer.auto_resume` starts from. The rest of `model.py` (the
+legacy `FeedForward` and the checkpoint helpers of the symbolic API)
+waits for the symbolic slice.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import re
+
+from . import config as _config
+from . import resilience as _resilience
+from . import telemetry as _telemetry
+
+__all__ = ["latest_valid_checkpoint"]
+
+logger = logging.getLogger(__name__)
+
+
+def latest_valid_checkpoint(prefix):
+    """Newest epoch under `prefix` whose params file passes manifest
+    verification, or None — the recovery entry point: after a crash,
+    resume from this epoch and every torn/corrupt newer file is skipped.
+
+    The walk-back is BOUNDED by MXTPU_CKPT_WALKBACK (0 = unbounded):
+    many consecutive corrupt epochs usually mean a sick filesystem, not
+    a torn tail — better to stop and say so than to silently resume
+    from days-old weights. Every skipped epoch lands in the flight
+    recorder."""
+    d = os.path.dirname(prefix) or "."
+    pat = re.compile(re.escape(os.path.basename(prefix))
+                     + r"-(\d{4,})\.params$")
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return None
+    epochs = sorted({int(m.group(1)) for n in names
+                     if (m := pat.match(n))}, reverse=True)
+    bound = max(0, int(_config.get("MXTPU_CKPT_WALKBACK")))
+    for i, epoch in enumerate(epochs):
+        if bound and i >= bound:
+            logger.warning(
+                "latest_valid_checkpoint: gave up after %d corrupt "
+                "epochs under %s (MXTPU_CKPT_WALKBACK=%d); refusing to "
+                "walk back further — inspect the checkpoint directory",
+                bound, prefix, bound)
+            _telemetry.log_event("ckpt_walkback_exhausted",
+                                 prefix=str(prefix), bound=bound,
+                                 newest=epochs[0])
+            return None
+        if _resilience.verify(f"{prefix}-{epoch:04d}.params"):
+            return epoch
+        logger.warning("latest_valid_checkpoint: epoch %d under %s "
+                       "failed verification; walking back", epoch, prefix)
+        _telemetry.log_event("ckpt_skipped", prefix=str(prefix),
+                             epoch=int(epoch))
+    return None

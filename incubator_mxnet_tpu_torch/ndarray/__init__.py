@@ -1,36 +1,171 @@
-"""The `F` namespace handed to `HybridBlock.hybrid_forward`: the operators
-of `ops/nn.py` under the reference's registry names, on torch tensors.
+"""The eager NDArray API (`incubator_mxnet_tpu/ndarray/`): the `NDArray`
+class, one generated function per registry op (`nd.relu`,
+`nd.FullyConnected`, ...), creation functions, `save` / `load` and the
+`random` namespace.
 
-A namespace only: there is no NDArray class in the port, and no tape
-(`torch.autograd` records the ops). `BatchNorm` carries out the
-reference's aux-state protocol itself: in training mode it writes the
-new moving stats into the moving-mean and moving-variance tensors it was
-given (`ops.nn.write_moving`: in place, or deferred for a train step
-that writes them once) and returns the normalised data alone.
+A generated function takes NDArrays (and array-likes) and returns
+NDArrays; torch tensors go through the tensor-level namespace
+`HybridBlock.hybrid_forward` receives (`register.F`).
+
+`save` / `load` write and read the JAX package's container (magic
+`MXTPU001`) byte for byte; reference-format `.params` files are read
+through `legacy_io`. Loaded arrays live on `ctx`, by default the
+current context, as every array the port makes does. Not ported here:
+sparse storage, DLPack and the `image` / `linalg` / `contrib`
+namespaces.
 """
 from __future__ import annotations
 
-from ..ops import nn as _nn
+import struct
 
-__all__ = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
-           "Activation", "Flatten", "log_softmax", "pick"]
+import numpy as np
+import torch
 
-FullyConnected = _nn.fully_connected
-Convolution = _nn.convolution
-Pooling = _nn.pooling
-Activation = _nn.activation
-Flatten = _nn.flatten
-log_softmax = _nn.log_softmax
-pick = _nn.pick
+from .. import autograd
+from ..base import dtype_name, dtype_torch
+from ..context import Context, current_context, to_device  # noqa: F401
+from .ndarray import NDArray, array, concatenate, waitall  # noqa: F401
+from . import register as _register
+from .register import F  # noqa: F401
+
+_register.install_ops(globals())
+
+from . import legacy_io  # noqa: E402,F401
+from . import random  # noqa: E402,F401
 
 
-def BatchNorm(data, gamma, beta, moving_mean, moving_var, **attrs):
-    """`ops.nn.batch_norm`, with the new moving stats of a training-mode
-    call written back into `moving_mean` and `moving_var`."""
-    out = _nn.batch_norm(data, gamma, beta, moving_mean, moving_var, **attrs)
-    if not attrs.get("_training", False):
-        return out
-    out, new_mean, new_var = out
-    _nn.write_moving(moving_mean, new_mean)
-    _nn.write_moving(moving_var, new_var)
+def _default_dtype():
+    from .. import config as _config
+
+    return _config.get("MXTPU_DEFAULT_DTYPE")
+
+
+def _make(fn, shape, ctx, dtype):
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray._from_data(fn(shape, dtype=dtype_torch(
+        dtype or _default_dtype()), device=to_device(ctx)))
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    return _make(torch.zeros, shape, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=None, **kwargs):
+    return _make(torch.ones, shape, ctx, dtype)
+
+
+def full(shape, val, ctx=None, dtype=None, **kwargs):
+    return _make(lambda s, **kw: torch.full(s, val, **kw), shape, ctx, dtype)
+
+
+def empty(shape, ctx=None, dtype=None):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    if stop is None:
+        start, stop = 0, start
+    out = torch.arange(start, stop, step,
+                       dtype=dtype_torch(dtype or _default_dtype()),
+                       device=to_device(ctx))
+    if repeat > 1:
+        out = torch.repeat_interleave(out, repeat)
+    return NDArray._from_data(out)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    out = _register.invoke_by_name("_eye", (), dict(N=N, M=M, k=k,
+                                                    dtype=dtype, ctx=ctx))
     return out
+
+
+def moveaxis(data, source, destination):
+    return data._apply(lambda d: torch.movedim(d, source, destination))
+
+
+def stack_arrays(*arrays, axis=0):
+    return autograd.invoke_recorded(lambda *xs: torch.stack(xs, dim=axis),
+                                    list(arrays))[0]
+
+
+# -- serialization: the JAX package's container, byte for byte --------------
+# magic + count + per entry (name, dtype, shape, raw little-endian bytes)
+
+_MAGIC = b"MXTPU001"
+
+
+def _entry_bytes(arr):
+    """(dtype name, shape, raw bytes) of an array."""
+    t = arr._data if isinstance(arr, NDArray) else arr
+    if torch.is_tensor(t):
+        t = t.detach().cpu().contiguous()
+        name = dtype_name(t.dtype)
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16
+               else t).numpy().tobytes()
+        return name, tuple(t.shape), raw
+    a = np.ascontiguousarray(np.asarray(t))
+    return a.dtype.name, a.shape, a.tobytes()
+
+
+def save(fname, data):
+    """Save an NDArray, or a list or dict of them, to a container file."""
+    if isinstance(data, NDArray):
+        entries = [("", data)]
+    elif isinstance(data, (list, tuple)):
+        entries = [("", d) for d in data]
+    elif isinstance(data, dict):
+        entries = sorted(data.items())
+    else:
+        raise TypeError("save expects NDArray, list, or dict")
+    with open(fname, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<q", len(entries)))
+        for name, arr in entries:
+            dt, shape, raw = _entry_bytes(arr)
+            nb = name.encode("utf-8")
+            db = dt.encode("utf-8")
+            f.write(struct.pack("<i", len(nb)))
+            f.write(nb)
+            f.write(struct.pack("<i", len(db)))
+            f.write(db)
+            f.write(struct.pack("<i", len(shape)))
+            f.write(struct.pack(f"<{len(shape)}q", *shape))
+            f.write(struct.pack("<q", len(raw)))
+            f.write(raw)
+
+
+def _from_raw(raw, dt, shape):
+    if dt == "bfloat16":
+        return torch.frombuffer(bytearray(raw),
+                                dtype=torch.bfloat16).reshape(shape)
+    return torch.from_numpy(np.frombuffer(raw, dtype=np.dtype(dt))
+                            .reshape(shape).copy())
+
+
+def load(fname, ctx=None):
+    """Load a container saved by `save` -> list or dict of NDArrays on
+    `ctx` (None: the current context); reference-format `.params` files
+    are read through `legacy_io`."""
+    device = to_device(ctx)
+    if legacy_io.is_mxnet_params(fname):
+        return legacy_io.load_mxnet_params(fname, ctx=device)
+    with open(fname, "rb") as f:
+        if f.read(8) != _MAGIC:
+            raise ValueError(f"{fname}: not a valid NDArray container")
+        (count,) = struct.unpack("<q", f.read(8))
+        named, anon = {}, []
+        for _ in range(count):
+            (ln,) = struct.unpack("<i", f.read(4))
+            name = f.read(ln).decode()
+            (ld,) = struct.unpack("<i", f.read(4))
+            dt = f.read(ld).decode()
+            (nd_,) = struct.unpack("<i", f.read(4))
+            shape = struct.unpack(f"<{nd_}q", f.read(8 * nd_)) if nd_ else ()
+            (nb,) = struct.unpack("<q", f.read(8))
+            arr = NDArray._from_data(
+                _from_raw(f.read(nb), dt, shape).to(device))
+            if name:
+                named[name] = arr
+            else:
+                anon.append(arr)
+    return named if named else anon

@@ -1,2 +1,8 @@
-"""Operators of the port: hand-written CUDA kernels (`csrc/`), their
-build (`_build`) and their PyTorch wrappers (`kernels/`)."""
+"""Operators: the registry and its tensor, nn and random op families
+(`incubator_mxnet_tpu/ops/`), the fused epilogue rewrite, and the
+hand-written CUDA kernels (`ops/kernels`, `ops/csrc`)."""
+from .registry import (OP_REGISTRY, OpDef, alias, get_op,  # noqa: F401
+                       list_ops, register)
+from . import tensor  # noqa: F401
+from . import nn  # noqa: F401
+from . import random  # noqa: F401

@@ -61,6 +61,8 @@ def bn_act(norm, x, residual=None):
 
 
 def _fused(norm, x, residual):
+    from ..gluon.block import training_mode
+
     axis = norm._axis % x.dim()
     if axis != x.dim() - 1:
         return None  # the kernel is channels-last only
@@ -71,10 +73,10 @@ def _fused(norm, x, residual):
         return None
     norm._pre_forward(x)
     gamma, beta, running_mean, running_var = (
-        p.data() for p in (norm.gamma, norm.beta, norm.running_mean,
+        p.tensor() for p in (norm.gamma, norm.beta, norm.running_mean,
                            norm.running_var))
     g = gamma if norm._scale else torch.ones_like(gamma)
-    if norm.training and not norm._use_global_stats:
+    if training_mode(norm) and not norm._use_global_stats:
         mean, var = _nn.batch_moments(x, axis)
         new_mean, new_var = _nn.moving_update(running_mean, running_var,
                                               mean, var, norm._momentum)

@@ -1,6 +1,9 @@
-"""Neural-network operators that the gluon ResNet dispatches, on torch
-tensors, with the JAX package's names, attributes and semantics
-(`incubator_mxnet_tpu/ops/nn.py`, `pick` from `ops/tensor.py`).
+"""Neural-network operators on torch tensors, registered under the JAX
+package's names with its attributes and semantics
+(`incubator_mxnet_tpu/ops/nn.py`: 25 of its 27 ops under 30 of its 33
+names; `RNN` waits for `gluon.rnn` and `CTCLoss` / `ctc_loss` for the
+CTC loss; `GroupNorm` is JAX's `ops/contrib_ops.py` op, which the gluon
+layer needs).
 
 Convolutions, pooling and products go to PyTorch (cuDNN on the card), as
 the JAX package leaves them to XLA; the normalisation is written out in
@@ -25,19 +28,28 @@ back as aux outputs and a recomputed forward writes nothing).
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
 import torch.nn.functional as tF
 
+from .registry import alias, register
+from .tensor import pick  # noqa: F401  (the F namespace's `pick`)
+
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "batch_moments", "moving_update", "write_moving",
-           "moving_sink", "deferred_moving_writes", "activation", "flatten",
-           "log_softmax", "pick"]
+           "moving_sink", "deferred_moving_writes", "activation",
+           "log_softmax", "pick", "deconvolution", "layer_norm",
+           "instance_norm", "group_norm", "l2_normalization", "lrn",
+           "leaky_relu", "softmax", "softmin", "softmax_activation",
+           "softmax_cross_entropy", "softmax_output", "dropout",
+           "upsampling", "im2col", "col2im", "svm_output"]
 
 _MOVING = threading.local()
 
 
+@register("FullyConnected", optional=("bias",))
 def fully_connected(data, weight, bias=None, *, num_hidden=None,
                     no_bias=False, flatten=True):
     """y = x W^T + b; x flattened to (N, -1) first when `flatten`."""
@@ -77,6 +89,7 @@ def _from_nc(x, nd):
 _CONV = {1: tF.conv1d, 2: tF.conv2d, 3: tF.conv3d}
 
 
+@register("Convolution", optional=("bias",))
 def convolution(data, weight, bias=None, *, kernel=None, stride=None,
                 dilate=None, pad=None, num_filter=None, num_group=1,
                 no_bias=False, workspace=1024, cudnn_tune=None,
@@ -102,6 +115,7 @@ _POOL = {
 }
 
 
+@register("Pooling")
 def pooling(data, *, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, cudnn_off=False, layout=None,
@@ -114,12 +128,27 @@ def pooling(data, *, kernel=None, pool_type="max", global_pool=False,
     nd = data.dim() - 2
     last = _channels_last(layout, nd)
     spatial = tuple(range(1, 1 + nd)) if last else tuple(range(2, 2 + nd))
-    if pool_type not in ("max", "avg"):
-        raise NotImplementedError(f"pool_type {pool_type!r} is not ported")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type}")
     if global_pool:
         if pool_type == "max":
             return data.amax(dim=spatial, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=spatial, keepdim=True)
+        if pool_type == "lp":
+            pv = float(p_value)
+            return data.abs().pow(pv).sum(dim=spatial,
+                                          keepdim=True).pow(1.0 / pv)
         return data.mean(dim=spatial, keepdim=True)
+    if pool_type in ("sum", "lp"):
+        # the window sums: an average over zero padding times the window
+        pv = float(p_value)
+        src = data.abs().pow(pv) if pool_type == "lp" else data
+        total = pooling(src, kernel=kernel, pool_type="avg", stride=stride,
+                        pad=pad, pooling_convention=pooling_convention,
+                        count_include_pad=True, layout=layout) * \
+            math.prod(_tup(kernel, nd))
+        return total.pow(1.0 / pv) if pool_type == "lp" else total
     k = _tup(kernel, nd)
     s = _tup(stride, nd) if stride is not None else (1,) * nd
     p = _tup(pad, nd) if pad is not None else (0,) * nd
@@ -206,6 +235,8 @@ def deferred_moving_writes(sink):
         _MOVING.sink = prev
 
 
+@register("BatchNorm", aux=("moving_mean", "moving_var"),
+          needs_training=True)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False,
@@ -241,6 +272,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     return out
 
 
+@register("Activation")
 def activation(data, *, act_type="relu"):
     if act_type == "relu":
         return torch.relu(data)
@@ -255,11 +287,8 @@ def activation(data, *, act_type="relu"):
     raise ValueError(f"unknown act_type {act_type}")
 
 
-def flatten(data):
-    """Collapse all dims after the first into one."""
-    return data.reshape(data.shape[0], -1)
 
-
+@register("log_softmax")
 def log_softmax(data, *, axis=-1, temperature=None):
     """log(softmax(data)) over `axis`, float32 math for narrower inputs,
     returned in the input's dtype."""
@@ -269,14 +298,373 @@ def log_softmax(data, *, axis=-1, temperature=None):
     return torch.log_softmax(x, dim=axis)
 
 
-def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
-    """One element per row along `axis` at `index` (indices clipped to the
-    axis, or wrapped with mode='wrap')."""
-    ax = axis % data.dim()
-    idx = index.to(torch.int64)
-    if mode == "wrap":
-        idx = torch.remainder(idx, data.shape[ax])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX package's nn ops
+# ---------------------------------------------------------------------------
+
+_DECONV = {1: tF.conv_transpose1d, 2: tF.conv_transpose2d,
+           3: tF.conv_transpose3d}
+
+
+@register("Deconvolution", optional=("bias",))
+def deconvolution(data, weight, bias=None, *, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True, workspace=512,
+                  cudnn_tune=None, cudnn_off=False, layout=None):
+    """Transposed convolution, NC(D)HW only, weight (in_c, out_c/group,
+    *kernel) as in the reference."""
+    nd = data.dim() - 2
+    p = _tup(pad, nd) if pad is not None else (0,) * nd
+    a = _tup(adj, nd) if adj is not None else (0,) * nd
+    out = _DECONV[nd](data, weight, None, _tup(stride, nd), p, a, num_group)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _moments(x, dims):
+    return x.mean(dim=dims, keepdim=True), x.var(dim=dims, unbiased=False,
+                                                 keepdim=True)
+
+
+@register("LayerNorm",
+          num_outputs=lambda attrs: 3 if attrs.get("output_mean_var") else 1)
+def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
+               output_mean_var=False):
+    """Layer normalization over `axis`; with output_mean_var also the
+    (gradient-stopped) mean and std, the axis kept as size 1."""
+    mean, var = _moments(data, (axis,))
+    x_hat = (data - mean) * torch.rsqrt(var + eps)
+    bshape = [1] * data.dim()
+    bshape[axis % data.dim()] = data.shape[axis % data.dim()]
+    out = x_hat * gamma.reshape(bshape) + beta.reshape(bshape)
+    if output_mean_var:
+        return out, mean.detach(), torch.sqrt(var + eps).detach()
+    return out
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """Instance norm over the spatial dims."""
+    mean, var = _moments(data, tuple(range(2, data.dim())))
+    x_hat = (data - mean) * torch.rsqrt(var + eps)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return x_hat * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("GroupNorm")
+def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5):
+    """Group normalization: data (N, C, ...) normalised over each of
+    num_groups channel groups."""
+    n, c = data.shape[0], data.shape[1]
+    g = int(num_groups)
+    x = data.reshape((n, g, c // g) + tuple(data.shape[2:]))
+    mean, var = _moments(x, tuple(range(2, x.dim())))
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    bshape = (1, c) + (1,) * (data.dim() - 2)
+    return x * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """data / sqrt(sum(data^2) + eps) per instance, channel or spatial
+    position."""
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.dim()))
     else:
-        idx = idx.clamp(0, data.shape[ax] - 1)
-    out = torch.gather(data, ax, idx.unsqueeze(ax))
-    return out if keepdims else out.squeeze(ax)
+        raise ValueError(mode)
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=axes,
+                                       keepdim=True) + eps)
+
+
+@register("LRN")
+def lrn(data, *, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response norm across channels."""
+    half = nsize // 2
+    padded = tF.pad(torch.square(data),
+                    (0, 0) * (data.dim() - 2) + (half, half))
+    window = sum(padded.narrow(1, i, data.shape[1]) for i in range(nsize))
+    return data / torch.pow(knorm + (alpha / nsize) * window, beta)
+
+
+@register("LeakyReLU", optional=("gamma",), needs_rng=True,
+          needs_training=True)
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, _rng=None,
+               _training=False):
+    """leaky / prelu (a learned `gamma`) / elu / selu / gelu / rrelu."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = (gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+             if gamma.dim() == 1 else gamma)
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        a, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data > 0, data, a * torch.expm1(data))
+    if act_type == "gelu":
+        return tF.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        if _training and _rng is not None:
+            s = torch.empty(data.shape, dtype=data.dtype,
+                            device=data.device).uniform_(
+                lower_bound, upper_bound, generator=_rng)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+def _f32_softmax(data, dim):
+    """softmax in at least float32, returned in the input's dtype."""
+    if data.dtype in (torch.bfloat16, torch.float16):
+        return torch.softmax(data.float(), dim=dim).to(data.dtype)
+    return torch.softmax(data, dim=dim)
+
+
+@register("softmax", optional=("length",), no_grad_inputs=("length",))
+def softmax(data, length=None, *, axis=-1, temperature=None,
+            use_length=None):
+    """Softmax over `axis`, with optional `temperature` scaling; with
+    `length`, positions at or past each row's length get 0."""
+    x = data / temperature if temperature else data
+    if use_length is False:
+        length = None
+    if length is None:
+        return _f32_softmax(x, axis)
+    ax = axis % x.dim()
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    mask = torch.arange(x.shape[ax], device=x.device).reshape(shape) < \
+        length.to(torch.int64).unsqueeze(ax)
+    out = _f32_softmax(torch.where(mask, x, torch.full(
+        (), -math.inf, dtype=x.dtype, device=x.device)), axis)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+@register("softmin")
+def softmin(data, *, axis=-1):
+    """Softmax of the negated input."""
+    return _f32_softmax(-data, axis)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, *, mode="instance"):
+    """Softmax over channels (mode 'channel') or the whole instance."""
+    if mode == "channel":
+        return _f32_softmax(data, 1)
+    return _f32_softmax(data.reshape(data.shape[0], -1), -1).reshape(
+        data.shape)
+
+
+@register("softmax_cross_entropy", no_grad_inputs=("label",))
+def softmax_cross_entropy(data, label):
+    """Cross-entropy between softmax(data) and integer labels, summed over
+    the batch."""
+    logp = log_softmax(data, axis=-1)
+    lbl = label.to(torch.int64)
+    return -torch.sum(torch.gather(logp, -1, lbl[:, None]))
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; backward (softmax - onehot(label)) scaled as the
+    reference's loss layer, ignoring the head gradient unless out_grad."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                multi_output, normalization, smooth_alpha, preserve_shape,
+                out_grad):
+        if multi_output:
+            out = _f32_softmax(data, 1)
+        elif preserve_shape or data.dim() <= 2:
+            out = _f32_softmax(data, -1)
+        else:
+            out = _f32_softmax(data.reshape(data.shape[0], -1),
+                               -1).reshape(data.shape)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, multi_output,
+                     normalization, smooth_alpha, preserve_shape, out_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, multi_output, normalization,
+         smooth_alpha, preserve_shape, out_grad) = ctx.attrs
+        shape = out.shape
+        flattened = not multi_output and not preserve_shape and out.dim() > 2
+        if flattened:
+            out = out.reshape(shape[0], -1)
+            g = g.reshape(shape[0], -1)
+        axis = 1 if multi_output else -1
+        n_class = out.shape[axis]
+        lbl = label.to(torch.int64)
+        onehot = (lbl.unsqueeze(-1) == torch.arange(
+            n_class, device=out.device)).to(out.dtype)
+        if multi_output:
+            onehot = torch.movedim(onehot, -1, 1)
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) + smooth_alpha / n_class
+        grad = out - onehot
+        if use_ignore:
+            mask = (lbl != int(ignore_label)).to(out.dtype).unsqueeze(axis)
+            grad = grad * mask
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid" and use_ignore:
+            valid = torch.clamp(torch.sum(lbl != int(ignore_label)).to(
+                out.dtype), min=1.0)
+            grad = grad / valid
+        grad = grad * scale
+        if out_grad:
+            grad = grad * g
+        if flattened:
+            grad = grad.reshape(shape)
+        return (grad, None) + (None,) * 8
+
+
+@register("SoftmaxOutput", aliases=("Softmax",), no_grad_inputs=("label",))
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   use_ignore=False, multi_output=False,
+                   normalization="null", preserve_shape=False,
+                   out_grad=False, smooth_alpha=0.0):
+    """Softmax forward whose backward is (softmax - one_hot(label)) *
+    grad_scale -- the reference's fused softmax loss layer."""
+    return _SoftmaxOutput.apply(
+        data, label, float(grad_scale), float(ignore_label),
+        bool(use_ignore), bool(multi_output), normalization,
+        float(smooth_alpha), bool(preserve_shape), bool(out_grad))
+
+
+def _make_regression_output(name, fwd_fn, grad_fn):
+    class _Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, data, label, grad_scale):
+            out = fwd_fn(data)
+            ctx.save_for_backward(out, label)
+            ctx.grad_scale = grad_scale
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            out, label = ctx.saved_tensors
+            return grad_fn(out, label) * ctx.grad_scale, None, None
+
+    @register(name, no_grad_inputs=("label",))
+    def op(data, label, *, grad_scale=1.0):
+        """Regression output: forward activation with the reference's fixed
+        loss gradient, ignoring the head gradient."""
+        return _Fn.apply(data, label, float(grad_scale))
+
+    op.__name__ = name
+    return op
+
+
+_make_regression_output(
+    "LinearRegressionOutput", lambda x: x,
+    lambda o, lb: o - lb.reshape(o.shape))
+_make_regression_output(
+    "LogisticRegressionOutput", torch.sigmoid,
+    lambda o, lb: o - lb.reshape(o.shape))
+_make_regression_output(
+    "MAERegressionOutput", lambda x: x,
+    lambda o, lb: torch.sign(o - lb.reshape(o.shape)))
+
+
+@register("Dropout", needs_rng=True, needs_training=True)
+def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
+            _rng=None, _training=False):
+    """Inverted dropout: keep each element (or each slice along `axes`)
+    with probability 1 - p, scaled by 1 / (1 - p)."""
+    if not _training and mode != "always":
+        return data
+    if p <= 0 or _rng is None:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = torch.rand(shape, generator=_rng, device=data.device) < 1.0 - p
+    return torch.where(keep, data / (1.0 - p), torch.zeros_like(data))
+
+
+@register("UpSampling")
+def upsampling(*args, scale=2, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest or bilinear (half-pixel) upsampling of NCHW data."""
+    data = args[0]
+    if sample_type == "nearest":
+        return torch.repeat_interleave(
+            torch.repeat_interleave(data, scale, dim=2), scale, dim=3)
+    return tF.interpolate(data, scale_factor=scale, mode="bilinear",
+                          align_corners=False)
+
+
+@register("im2col")
+def im2col(data, *, kernel, stride=(), dilate=(), pad=()):
+    """data (N, C, H, W) -> (N, C*prod(kernel), L), channel-major."""
+    n_sp = len(kernel)
+    return tF.unfold(data, tuple(kernel), dilation=_tup(dilate, n_sp),
+                     padding=_tup(pad, n_sp) if pad else 0,
+                     stride=_tup(stride, n_sp))
+
+
+@register("col2im")
+def col2im(data, *, output_size, kernel, stride=(), dilate=(), pad=()):
+    """The adjoint of im2col: column blocks scatter-added back into an
+    (N, C, *output_size) image."""
+    n_sp = len(kernel)
+    return tF.fold(data, tuple(int(s) for s in output_size), tuple(kernel),
+                   dilation=_tup(dilate, n_sp),
+                   padding=_tup(pad, n_sp) if pad else 0,
+                   stride=_tup(stride, n_sp))
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; backward the multiclass hinge-loss gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = (margin, reg, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.attrs
+        onehot = (label.to(torch.int64).unsqueeze(-1) == torch.arange(
+            out.shape[-1], device=out.device)).to(out.dtype)
+        if use_linear:
+            g_true = -(margin - out > 0).to(out.dtype)
+            g_other = (margin + out > 0).to(out.dtype)
+        else:
+            g_true = -2.0 * torch.clamp(margin - out, min=0.0)
+            g_other = 2.0 * torch.clamp(margin + out, min=0.0)
+        return (reg * (onehot * g_true + (1 - onehot) * g_other), None,
+                None, None, None)
+
+
+@register("SVMOutput")
+def svm_output(data, label, *, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """Identity forward whose backward is the multiclass hinge-loss
+    gradient (L1 with use_linear, else L2), ignoring the head gradient."""
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))
+
+
+alias("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm")
+alias("Embedding", "_contrib_SparseEmbedding")
+alias("Convolution", "Convolution_v1")
+alias("Pooling", "Pooling_v1")

@@ -1,5 +1,8 @@
-"""Optimizers (`incubator_mxnet_tpu/optimizer.py`): the `Optimizer` base
-and `SGD`, with the fused update `GluonTrainStep` applies.
+"""Optimizers (`incubator_mxnet_tpu/optimizer.py`): the registry
+(`register`, `create`), the `Optimizer` base with its learning-rate and
+weight-decay multipliers and update counts, `Updater` / `get_updater`,
+and `SGD`, with the fused update `GluonTrainStep` and `gluon.Trainer`
+apply. The other 15 optimizers are ROADMAP Queue A 3.
 
 `fused_update` follows the JAX package's `_sgd_fused`: g = rescale_grad
 * grad, clipped to +-clip_gradient when set, plus wd * w; with momentum,
@@ -32,23 +35,52 @@ a few dozen device launches in place of a dozen per parameter.
 
 Per-parameter multipliers follow the JAX `_mults`: a `param_dict`
 entry's `lr_mult` / `wd_mult` (a gluon `Parameter`'s) take priority,
-else the `lr_mult` / `wd_mult` dicts, keyed by name. `num_update` is the
-count of updates the train step has made (it sets it, as JAX's does).
+else the `lr_mult` / `wd_mult` dicts, keyed by name (`set_lr_mult`;
+`set_wd_mult` also zeroes the weight decay of every parameter of
+`idx2name` whose name ends in neither `_weight` nor `_gamma`, as the
+JAX package does). `num_update` is the largest per-index update count
+(`_update_count`); a train step sets it itself, as JAX's does.
+
+`Updater` holds one state per parameter index as NDArrays; its
+`get_states` pickles {index: numpy array or None}, the JAX package's
+format, so float32 state files are interchangeable both ways.
 """
 from __future__ import annotations
 
 import functools
+import pickle
 
+import numpy as np
 import torch
 
-__all__ = ["Optimizer", "SGD"]
+__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+           "register"]
 
 _LOW = (torch.bfloat16, torch.float16)
+_REGISTRY = {}
+
+
+def register(klass):
+    """Register an optimizer class under its lower-cased name."""
+    _REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    """An optimizer by registered name (or the optimizer itself)."""
+    if isinstance(name, Optimizer):
+        return name
+    return _REGISTRY[name.lower()](**kwargs)
 
 
 class Optimizer:
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None, param_dict=None):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None, **kwargs):
+        if sym is not None:
+            raise NotImplementedError("Optimizer(sym=...) waits for the "
+                                      "symbolic slice")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -57,12 +89,53 @@ class Optimizer:
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
+        self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict or {}
-        self.num_update = 0
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        return create(name, **kwargs)
 
     def create_state(self, index, weight):
         return None
+
+    def create_state_multi_precision(self, index, weight):
+        return self.create_state(index, weight)
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not (n.endswith("_weight")
+                                or n.endswith("_gamma"))}
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _base_lr(self):
+        return (self.lr_scheduler(self.num_update)
+                if self.lr_scheduler is not None else self.lr)
+
+    def _get_lr(self, index):
+        return self._base_lr() * self._mults(self.idx2name.get(index,
+                                                               index))[0]
+
+    def _get_wd(self, index):
+        return self._mults(self.idx2name.get(index, index))[1]
 
     def _mults(self, name):
         """(lr_mult, wd) for the parameter `name`."""
@@ -88,6 +161,7 @@ def _weak(value, dtype):
     return float(torch.tensor(value, dtype=torch.float32).to(dtype))
 
 
+@register
 class SGD(Optimizer):
     """SGD with momentum and weight decay."""
 
@@ -97,7 +171,8 @@ class SGD(Optimizer):
 
     def create_state(self, index, weight):
         if self.momentum != 0.0:
-            return torch.zeros_like(weight, memory_format=torch.preserve_format)
+            return torch.zeros_like(weight,
+                                    memory_format=torch.preserve_format)
         return None
 
     @torch.no_grad()
@@ -159,3 +234,80 @@ def _scatter(targets, flat):
     pieces = flat.split([t.numel() for t in targets])
     torch._foreach_copy_(targets, [p.view(t.shape)
                                    for p, t in zip(pieces, targets)])
+
+
+class Updater:
+    """Applies an optimizer per parameter index, holding each index's
+    state (an NDArray, or None)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def _state(self, index, weight):
+        from .ndarray.ndarray import NDArray
+
+        if index not in self.states:
+            s = self.optimizer.create_state_multi_precision(index, weight)
+            self.states[index] = None if s is None else \
+                NDArray._from_data(s)
+            self.states_synced[index] = True
+        s = self.states[index]
+        if s is None:
+            return None
+        if s._data.device != weight.device:  # loaded before the first step
+            s._data = s._data.to(weight.device)
+        return s._data
+
+    def __call__(self, index, grad, weight):
+        """One update of `weight` (an NDArray) by `grad`."""
+        self.update([index], [grad], [weight])
+
+    def update(self, indices, grads, weights):
+        """One update of every (index, grad, weight), batched by the
+        optimizer; each index's count advances first."""
+        o = self.optimizer
+        ws = [w._data for w in weights]
+        states = [self._state(i, w) for i, w in zip(indices, ws)]
+        for i in indices:
+            o._update_count(i)
+        o.update([o.idx2name.get(i, i) for i in indices], ws,
+                 [g._data for g in grads], states, o._base_lr())
+
+    def get_states(self, dump_optimizer=False):
+        """The pickled states: {index: numpy array or None}."""
+        if dump_optimizer:
+            raise NotImplementedError(
+                "get_states(dump_optimizer=True) would pickle the port's "
+                "optimizer class, which the JAX package cannot load")
+        states = {k: None if v is None else v.asnumpy()
+                  for k, v in self.states.items()}
+        return pickle.dumps(states)
+
+    def set_states(self, states_blob):
+        """Restore `get_states` bytes (the port's or the JAX package's);
+        states land on the device of the states they replace, else on
+        their weight's at its next update."""
+        from .ndarray.ndarray import NDArray
+
+        states = pickle.loads(states_blob)
+        if isinstance(states, tuple) and len(states) == 2:
+            raise NotImplementedError("a states file with a dumped "
+                                      "optimizer cannot be loaded here")
+        out = {}
+        for k, v in states.items():
+            if v is None:
+                out[k] = None
+                continue
+            old = self.states.get(k)
+            t = torch.from_numpy(np.array(v))
+            if old is not None:
+                t = t.to(old._data.device, old._data.dtype)
+            out[k] = NDArray._from_data(t)
+        self.states = out
+        self.states_synced = {k: True for k in out}
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

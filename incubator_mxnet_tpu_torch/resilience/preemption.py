@@ -24,11 +24,9 @@ low-priority/spot training):
    step always completes, so the bundle is taken at a consistent point.
 3. `write_bundle()` captures the FULL resume state crash-consistently:
    parameters, optimizer states, the data pipeline's mid-epoch cursor
-   (`loader.state_dict()`), and the generator position: where the JAX
-   package records its global (seed, counter) pair, the port records
-   torch's default generators (`torch.get_rng_state()`, and each card's
-   once CUDA is initialised), each through the tmp/fsync/rename +
-   manifest protocol.
+   (`loader.state_dict()`), and the global generator position
+   (`random.get_state()`, the (seed, counter) pair), each through the
+   tmp/fsync/rename + manifest protocol.
 4. `checkpoint_and_exit()` additionally retires this rank from the PS
    sync group via the graceful-leave RPC (survivors' quorum shrinks NOW,
    no heartbeat-timeout stall), dumps the flight recorder, and exits
@@ -47,8 +45,7 @@ import pickle
 import signal
 import threading
 
-import torch
-
+from .. import random as _random
 from . import checkpoint as _checkpoint
 
 logger = logging.getLogger(__name__)
@@ -166,7 +163,7 @@ def write_bundle(prefix, trainer=None, net=None, loader=None, epoch=0):
     payload = {
         "version": 1,
         "epoch": int(epoch),
-        "rng": _rng_state(),
+        "rng": _random.get_state(),
         "loader": None if loader is None else loader.state_dict(),
         "has_params": net is not None,
         "has_states": trainer is not None,
@@ -176,15 +173,6 @@ def write_bundle(prefix, trainer=None, net=None, loader=None, epoch=0):
                 "loader %s)", bundle, int(epoch),
                 "mid-epoch" if loader is not None else "absent")
     return bundle
-
-
-def _rng_state():
-    """The port's generator position: torch's default CPU generator and,
-    once CUDA is initialised, each card's."""
-    state = {"torch_cpu": torch.get_rng_state()}
-    if torch.cuda.is_initialized():
-        state["torch_cuda"] = torch.cuda.get_rng_state_all()
-    return state
 
 
 def read_bundle(prefix):

@@ -21,7 +21,7 @@ from incubator_mxnet_tpu.ndarray.ndarray import NDArray
 from incubator_mxnet_tpu.ops import nn as jnn
 from incubator_mxnet_tpu.ops import tensor as jtensor
 import incubator_mxnet_tpu_torch as tmx
-from incubator_mxnet_tpu_torch import ndarray as F
+from incubator_mxnet_tpu_torch.ndarray.register import F
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 
 
@@ -156,7 +156,7 @@ def test_predict_mode_forward_leaves_running_stats_alone():
     assert not net.training
     with torch.no_grad():
         net(torch.rand(2, 32, 32, 3))
-    stats = [p.data() for n, p in net.collect_params().items()
+    stats = [p.tensor() for n, p in net.collect_params().items()
              if n.endswith(("running_mean", "running_var"))]
     assert all(torch.equal(s, torch.zeros_like(s)) or
                torch.equal(s, torch.ones_like(s)) for s in stats)
@@ -197,6 +197,6 @@ def test_seeded_generator_gives_the_same_weights_twice():
                                        .manual_seed(3)), device="cpu")
         with torch.no_grad():
             net(torch.zeros(1, 32, 32, 3))
-        return [p.data().clone() for p in net.collect_params().values()]
+        return [p.tensor().clone() for p in net.collect_params().values()]
 
     assert all(torch.equal(a, b) for a, b in zip(draw(), draw()))

@@ -13,6 +13,7 @@ import torch
 
 from incubator_mxnet_tpu import resilience as jres
 from incubator_mxnet_tpu.resilience import fault as jfault
+from incubator_mxnet_tpu_torch import random as trandom
 from incubator_mxnet_tpu_torch import resilience as tres
 from incubator_mxnet_tpu_torch.resilience import fault as tfault
 from incubator_mxnet_tpu_torch.resilience import preemption as tpre
@@ -255,20 +256,21 @@ class _StubLoader:
 
 def test_bundle_write_read_clear(tmp_path):
     prefix = str(tmp_path / "run")
-    torch.manual_seed(5)
-    torch.rand(3)
-    rng = torch.get_rng_state()
+    trandom.seed(5)
+    trandom.next_key()
+    rng = trandom.get_state()
     bundle = tpre.write_bundle(prefix, trainer=_StubTrainer(b"states"),
                                net=_StubNet(b"params"), loader=_StubLoader(),
                                epoch=7)
     assert bundle == tpre.bundle_paths(prefix)[0]
-    torch.manual_seed(999)
+    trandom.seed(999)
     got = tpre.read_bundle(prefix)
     assert got["epoch"] == 7 and got["version"] == 1
     assert got["has_params"] and got["has_states"]
     assert got["loader"] == {"epoch_seed": 3, "cursor": 5}
-    torch.set_rng_state(got["rng"]["torch_cpu"])
-    assert torch.equal(torch.get_rng_state(), rng)
+    assert got["rng"] == {"seed": 5, "counter": 1}
+    trandom.set_state(got["rng"])
+    assert trandom.get_state() == rng
     _, params, states = tpre.bundle_paths(prefix)
     assert open(params, "rb").read() == b"params"
     assert open(states, "rb").read() == b"states"
@@ -299,19 +301,22 @@ def test_bundle_rejects_damage(damage, tmp_path):
 
 
 def test_bundle_layout_equal_jax(tmp_path):
-    """The same descriptor keys and payload files as the JAX bundle, but
-    for the generator position each package records."""
+    """The same descriptor keys, payload files and generator position
+    ({"seed", "counter"}) as the JAX bundle."""
+    from incubator_mxnet_tpu import random as jrandom
     from incubator_mxnet_tpu.resilience import preemption as jpre
+    trandom.seed(3)
+    jrandom.seed(3)
+    for _ in range(2):
+        trandom.next_key()
+        jrandom.next_key()
     tpre.write_bundle(str(tmp_path / "port"), net=_StubNet(b"p"), epoch=4)
     jpre.write_bundle(str(tmp_path / "jax"), net=_StubNet(b"p"), epoch=4)
     got = tpre.read_bundle(str(tmp_path / "port"))
     want = jpre.read_bundle(str(tmp_path / "jax"))
     assert sorted(got) == sorted(want)
-    assert {k: v for k, v in got.items() if k != "rng"} == \
-        {k: v for k, v in want.items() if k != "rng"}
-    assert set(got["rng"]) == {"torch_cpu"}  # no CUDA initialised here
-    assert pickle.loads(pickle.dumps(got["rng"]))["torch_cpu"].dtype \
-        == torch.uint8
+    assert got == want
+    assert got["rng"] == {"seed": 3, "counter": 2}
 
 
 def test_sigterm_sets_requested_then_escalates():

@@ -168,7 +168,7 @@ def test_train_steps_match_jax(knob, jax_steps, monkeypatch):
         assert loss.dtype == torch.float32 and loss.dim() == 0
         np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5,
                                    atol=1e-6, err_msg=f"step {i + 1}")
-        got = {n[len(net.prefix):]: p.data().detach().numpy()
+        got = {n[len(net.prefix):]: p.tensor().detach().numpy()
                for n, p in net.collect_params().items()}
         assert set(got) == set(after)
         for name, want in after.items():
@@ -201,12 +201,12 @@ def test_first_step_builds_deferred_shapes_in_predict_mode(monkeypatch):
     assert tepi.rewrites_applied == 2 * REWRITES_PER_FORWARD
     assert not net.training
     stem = net.collect_params()[net.prefix + "batchnorm0_running_mean"]
-    assert float(stem.data().abs().max()) > 0
+    assert float(stem.tensor().abs().max()) > 0
     # a predict-mode forward now uses and keeps the running stats
-    before = stem.data().clone()
+    before = stem.tensor().clone()
     with torch.no_grad():
         net(x)
-    assert torch.equal(stem.data(), before)
+    assert torch.equal(stem.tensor(), before)
 
 
 def test_not_ported_options_raise():

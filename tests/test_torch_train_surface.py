@@ -89,7 +89,7 @@ def _port_step(net, **kw):
 
 
 def _port_values(net):
-    return [p.data().detach().float().numpy()
+    return [p.tensor().detach().float().numpy()
             for p in net.collect_params().values()]
 
 
@@ -134,7 +134,7 @@ def test_scan_steps_on_a_bfloat16_cast_net_matches_jax():
         got = step.scan_steps(txs, torch.from_numpy(ys))
         assert got.dtype == torch.float32 and got.shape == (3,)
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-2)
-    assert all(p.data().dtype == torch.bfloat16
+    assert all(p.tensor().dtype == torch.bfloat16
                for p in net.collect_params().values())
     assert all(s.dtype == torch.bfloat16 for s in step.states)
     assert step._n == 9 and step.opt.num_update == 9
@@ -311,7 +311,7 @@ def _resnet_run(**kw):
     step = _port_step(net, opt=tmx.optimizer.SGD(
         learning_rate=0.05, momentum=0.9, wd=1e-4, rescale_grad=0.25), **kw)
     losses = [float(step(x, y))]
-    stats = {n[len(net.prefix):]: p.data().clone()
+    stats = {n[len(net.prefix):]: p.tensor().clone()
              for n, p in net.collect_params().items()
              if p.grad_req == "null"}
     tepi.rewrites_applied = 0
@@ -365,12 +365,12 @@ def test_running_stats_move_once_against_one_plain_forward(monkeypatch):
         net(x[:2])
     stem_conv = net.features[0]
     mean = net.collect_params()[net.prefix + "batchnorm0_running_mean"]
-    before = mean.data().clone()
+    before = mean.tensor().clone()
     with torch.no_grad():
         batch_mean = stem_conv(x).mean(dim=(0, 1, 2))
     step = _port_step(net, remat_policy="nothing")
     step(x, y)
-    np.testing.assert_allclose(mean.data().numpy(),
+    np.testing.assert_allclose(mean.tensor().numpy(),
                                (0.9 * before + 0.1 * batch_mean).numpy(),
                                rtol=1e-5, atol=1e-6)
 
@@ -479,7 +479,7 @@ def test_a_cast_before_the_first_step_is_honoured():
     net.cast("bfloat16")
     step(torch.from_numpy(X).bfloat16(), torch.from_numpy(Y))
     params = [p for p in net.collect_params().values()]
-    assert all(w is p.data() for w, p in zip(step.weights, params))
+    assert all(w is p.tensor() for w, p in zip(step.weights, params))
     assert all(w.dtype == torch.bfloat16 for w in step.weights)
 
 

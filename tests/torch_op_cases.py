@@ -1,0 +1,523 @@
+"""Seeded inputs for every operator of the port's registry, shared by
+`tests/test_torch_ndarray.py` (the port against the JAX package on the
+CPU) and `chip_smoke.py` (the port on the card against its own CPU
+result). JAX-free: numpy, torch and the port only.
+
+`CASES` maps an op to case(rng) -> (inputs, attrs); an input that is a
+numpy array becomes an NDArray. `NAME_CASES` gives an alias a case of
+its own, `EXTRA` adds cases for an op's other modes, and
+`RANDOM_CASES` the samplers' parameters with the mean and standard
+deviation of each row's distribution.
+"""
+import numpy as np
+import torch
+
+import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu_torch import autograd as tag
+from incubator_mxnet_tpu_torch import nd as tnd
+from incubator_mxnet_tpu_torch.ops.registry import OP_REGISTRY
+
+CPU = tmx.cpu()
+
+
+def A(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def U(rng, lo, hi, *shape):
+    return rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def P(rng, *shape):
+    return U(rng, 0.5, 2.0, *shape)
+
+
+def R(rng, *shape):
+    """Small integers as float32 (ties for the comparisons)."""
+    return np.round(rng.randn(*shape) * 1.5).astype(np.float32)
+
+
+def I(vals):
+    return np.asarray(vals, np.float32)
+
+
+def SPD(rng, n):
+    a = A(rng, n, n)
+    return (a @ a.T + n * np.eye(n)).astype(np.float32)
+
+
+def LOW(rng, n):
+    return np.linalg.cholesky(SPD(rng, n)).astype(np.float32)
+
+
+def _binary(lhs, rhs=None):
+    return lambda r: ([lhs(r), (rhs or lhs)(r)], {})
+
+
+def _scalar(data, scalar):
+    return lambda r: ([data(r)], {"scalar": scalar})
+
+
+def _unary(data):
+    return lambda r: ([data(r)], {})
+
+
+def _a(*shape):
+    return lambda r: A(r, *shape)
+
+
+def _p(*shape):
+    return lambda r: P(r, *shape)
+
+
+def _u(lo, hi, *shape):
+    return lambda r: U(r, lo, hi, *shape)
+
+
+def _rd(*shape):
+    return lambda r: R(r, *shape)
+
+
+# canonical op name -> case(rng) -> (inputs, attrs); an input that is a
+# numpy array becomes an NDArray, anything else is passed as it is
+CASES = {}
+for _n in ("broadcast_add", "broadcast_sub", "broadcast_mul",
+           "broadcast_maximum", "broadcast_minimum", "broadcast_hypot"):
+    CASES[_n] = _binary(_a(2, 3, 4), _a(1, 3, 1))
+CASES["broadcast_div"] = _binary(_a(2, 3, 4), _p(1, 3, 1))
+CASES["broadcast_mod"] = _binary(_u(-3, 3, 2, 3), _p(2, 3))
+CASES["broadcast_power"] = _binary(_p(2, 3), _a(2, 3))
+for _n in ("broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+           "broadcast_greater_equal", "broadcast_lesser",
+           "broadcast_lesser_equal", "broadcast_logical_and",
+           "broadcast_logical_or", "broadcast_logical_xor"):
+    CASES[_n] = _binary(_rd(3, 4), _rd(3, 4))
+for _n, _s in (("_plus_scalar", 1.5), ("_minus_scalar", 0.5),
+               ("_rminus_scalar", 2.0), ("_mul_scalar", -1.5),
+               ("_div_scalar", 3.0), ("_maximum_scalar", 0.2),
+               ("_minimum_scalar", -0.2), ("_hypot_scalar", 0.7)):
+    CASES[_n] = _scalar(_a(3, 4), _s)
+CASES["_rdiv_scalar"] = _scalar(_p(3, 4), 2.0)
+CASES["_mod_scalar"] = _scalar(_u(-3, 3, 3, 4), 0.7)
+CASES["_rmod_scalar"] = _scalar(_p(3, 4), 2.5)
+CASES["_power_scalar"] = _scalar(_p(3, 4), 1.7)
+CASES["_rpower_scalar"] = _scalar(_a(3, 4), 1.3)
+for _n in ("_equal_scalar", "_not_equal_scalar", "_greater_scalar",
+           "_greater_equal_scalar", "_lesser_scalar", "_lesser_equal_scalar",
+           "_logical_and_scalar", "_logical_or_scalar",
+           "_logical_xor_scalar"):
+    CASES[_n] = _scalar(_rd(3, 4), 1.0)
+for _n in ("abs", "sign", "square", "exp", "expm1", "sin", "cos", "arctan",
+           "sinh", "cosh", "tanh", "arcsinh", "degrees", "radians",
+           "sigmoid", "softsign", "relu", "erf", "negative", "identity",
+           "BlockGrad", "make_loss", "cbrt", "hard_sigmoid"):
+    CASES[_n] = _unary(_a(3, 4))
+for _n in ("rint", "round", "ceil", "floor", "trunc", "fix"):
+    CASES[_n] = _unary(lambda r: A(r, 3, 4) * 3)
+for _n in ("sqrt", "rsqrt", "rcbrt", "log", "log10", "log2", "log1p",
+           "gamma", "gammaln", "reciprocal", "digamma"):
+    CASES[_n] = _unary(_p(3, 4))
+CASES["tan"] = _unary(_u(-1, 1, 3, 4))
+for _n in ("arcsin", "arccos", "arctanh", "erfinv"):
+    CASES[_n] = _unary(_u(-0.9, 0.9, 3, 4))
+CASES["arccosh"] = _unary(_u(1.5, 3, 3, 4))
+CASES["logical_not"] = _unary(_rd(3, 4))
+CASES["polygamma"] = lambda r: ([P(r, 3, 4)], {"n": 1})
+CASES["smooth_l1"] = lambda r: ([A(r, 3, 4)], {"scalar": 1.5})
+CASES["clip"] = lambda r: ([A(r, 3, 4)], {"a_min": -0.5, "a_max": 0.5})
+CASES["Cast"] = lambda r: ([A(r, 3, 4)], {"dtype": "float16"})
+CASES["amp_cast"] = CASES["Cast"]
+CASES["sum"] = lambda r: ([A(r, 2, 3, 4)], {"axis": 1})
+CASES["mean"] = lambda r: ([A(r, 2, 3, 4)], {"axis": (0, 2),
+                                             "keepdims": True})
+CASES["prod"] = lambda r: ([P(r, 2, 3)], {"axis": 1})
+CASES["max"] = lambda r: ([A(r, 2, 3, 4)], {"axis": 1})
+CASES["min"] = lambda r: ([A(r, 2, 3, 4)], {"axis": 0, "exclude": True})
+
+
+def _with_nan(r, data):
+    data = data.copy()
+    data[0, 1] = np.nan
+    return data
+
+
+CASES["nansum"] = lambda r: ([_with_nan(r, A(r, 3, 4))], {"axis": 1})
+CASES["nanprod"] = lambda r: ([_with_nan(r, P(r, 3, 4))], {"axis": 1})
+CASES["norm"] = lambda r: ([A(r, 3, 4)], {"axis": 1})
+CASES["argmax"] = lambda r: ([A(r, 3, 4)], {"axis": 1})
+CASES["argmin"] = lambda r: ([A(r, 3, 4)], {"axis": 0, "keepdims": True})
+CASES["argmax_channel"] = _unary(_a(2, 3, 4))
+CASES["dot"] = lambda r: ([A(r, 3, 4), A(r, 5, 4)], {"transpose_b": True})
+CASES["batch_dot"] = lambda r: ([A(r, 2, 3, 4), A(r, 2, 4, 5)], {})
+CASES["_linalg_gemm2"] = lambda r: ([A(r, 2, 4, 3), A(r, 2, 4, 5)],
+                                    {"transpose_a": True, "alpha": 0.5})
+CASES["_linalg_gemm"] = lambda r: ([A(r, 3, 4), A(r, 4, 5), A(r, 3, 5)],
+                                   {"beta": 0.3})
+CASES["_linalg_potrf"] = lambda r: ([SPD(r, 3)], {})
+CASES["_linalg_potri"] = lambda r: ([LOW(r, 3)], {})
+CASES["_linalg_trsm"] = lambda r: ([LOW(r, 3), A(r, 3, 4)], {"alpha": 2.0})
+CASES["_linalg_trmm"] = lambda r: ([LOW(r, 3), A(r, 4, 3)],
+                                   {"rightside": True})
+CASES["_linalg_syrk"] = lambda r: ([A(r, 3, 4)], {"alpha": 0.5})
+CASES["_linalg_sumlogdiag"] = lambda r: ([LOW(r, 3)], {})
+CASES["_linalg_extractdiag"] = lambda r: ([A(r, 3, 3)], {"offset": 1})
+CASES["_linalg_makediag"] = lambda r: ([A(r, 2, 3)], {"offset": 1})
+CASES["_linalg_gelqf"] = lambda r: ([A(r, 3, 5)], {})
+CASES["_linalg_syevd"] = lambda r: ([SPD(r, 4)], {})
+CASES["Reshape"] = lambda r: ([A(r, 2, 3, 4)], {"shape": (0, -3)})
+CASES["reshape_like"] = lambda r: ([A(r, 2, 3, 4), A(r, 6, 4)], {})
+CASES["Flatten"] = _unary(_a(2, 3, 4))
+CASES["transpose"] = lambda r: ([A(r, 2, 3, 4)], {"axes": (1, 0, 2)})
+CASES["SwapAxis"] = lambda r: ([A(r, 2, 3, 4)], {"dim1": 0, "dim2": 2})
+CASES["expand_dims"] = lambda r: ([A(r, 2, 3)], {"axis": 1})
+CASES["squeeze"] = lambda r: ([A(r, 2, 1, 3)], {"axis": 1})
+CASES["broadcast_to"] = lambda r: ([A(r, 1, 3)], {"shape": (2, 3)})
+CASES["broadcast_like"] = lambda r: ([A(r, 1, 3), A(r, 4, 3)], {})
+CASES["broadcast_axis"] = lambda r: ([A(r, 2, 1, 3)], {"axis": 1,
+                                                       "size": 4})
+CASES["zeros_like"] = _unary(_a(2, 3))
+CASES["ones_like"] = _unary(_a(2, 3))
+CASES["shape_array"] = _unary(_a(2, 3))
+CASES["size_array"] = _unary(_a(2, 3))
+CASES["slice"] = lambda r: ([A(r, 4, 5)], {"begin": (1, 0), "end": (3, 5),
+                                           "step": (1, 2)})
+CASES["slice_axis"] = lambda r: ([A(r, 4, 5)], {"axis": 1, "begin": 1,
+                                                "end": 4})
+CASES["slice_like"] = lambda r: ([A(r, 4, 5), A(r, 2, 3)], {})
+CASES["Concat"] = lambda r: ([A(r, 2, 3), A(r, 2, 2)], {"dim": 1})
+CASES["stack"] = lambda r: ([A(r, 2, 3), A(r, 2, 3)], {"axis": 1})
+CASES["add_n"] = lambda r: ([A(r, 2, 3), A(r, 2, 3), A(r, 2, 3)], {})
+CASES["SliceChannel"] = lambda r: ([A(r, 2, 6)], {"num_outputs": 3,
+                                                  "axis": 1})
+CASES["tile"] = lambda r: ([A(r, 2, 3)], {"reps": (2, 1)})
+CASES["repeat"] = lambda r: ([A(r, 2, 3)], {"repeats": 2, "axis": 1})
+CASES["reverse"] = lambda r: ([A(r, 2, 3)], {"axis": 1})
+CASES["Pad"] = lambda r: ([A(r, 1, 2, 3, 4)],
+                          {"mode": "reflect",
+                           "pad_width": (0, 0, 0, 0, 1, 1, 2, 2)})
+CASES["diag"] = lambda r: ([A(r, 3, 4)], {"k": 1})
+CASES["depth_to_space"] = lambda r: ([A(r, 1, 8, 2, 3)], {"block_size": 2})
+CASES["space_to_depth"] = lambda r: ([A(r, 1, 2, 4, 6)], {"block_size": 2})
+CASES["take"] = lambda r: ([A(r, 5, 3), I([0, 4, 2, 7])], {"axis": 0})
+CASES["batch_take"] = lambda r: ([A(r, 4, 3), I([0, 2, 1, 2])], {})
+CASES["pick"] = lambda r: ([A(r, 4, 5), I([0, 4, 2, 1])], {"axis": 1})
+CASES["Embedding"] = lambda r: ([I([[0, 5, 2], [3, 3, 1]]), A(r, 6, 4)],
+                                {"input_dim": 6, "output_dim": 4})
+CASES["gather_nd"] = lambda r: ([A(r, 3, 4), I([[0, 2], [1, 3]])], {})
+CASES["scatter_nd"] = lambda r: ([A(r, 2), I([[0, 2], [1, 3]])],
+                                 {"shape": (3, 4)})
+CASES["one_hot"] = lambda r: ([I([0, 2, 4, 1])], {"depth": 5,
+                                                  "on_value": 2.0})
+CASES["where"] = lambda r: ([I([[1, 0, 1], [0, 0, 1]]), A(r, 2, 3),
+                             A(r, 2, 3)], {})
+CASES["boolean_mask"] = lambda r: ([A(r, 4, 3), I([1, 0, 1, 1])], {})
+CASES["sort"] = lambda r: ([A(r, 3, 4)], {"axis": 1, "is_ascend": False})
+CASES["argsort"] = lambda r: ([R(r, 3, 5)], {"axis": 1, "is_ascend": False})
+CASES["topk"] = lambda r: ([A(r, 3, 5)], {"k": 2, "ret_typ": "both"})
+CASES["SequenceMask"] = lambda r: ([A(r, 4, 3, 2), I([2, 4, 1])],
+                                   {"use_sequence_length": True,
+                                    "value": -1.0})
+CASES["SequenceLast"] = lambda r: ([A(r, 4, 3, 2), I([2, 4, 1])],
+                                   {"use_sequence_length": True})
+CASES["SequenceReverse"] = lambda r: ([A(r, 4, 3, 2), I([2, 4, 1])],
+                                      {"use_sequence_length": True})
+CASES["_arange_like"] = lambda r: ([A(r, 3, 4)], {"axis": 1, "start": 2.0})
+CASES["histogram"] = lambda r: ([A(r, 40)], {"bin_cnt": 5,
+                                             "range": (-2.0, 2.0)})
+CASES["khatri_rao"] = lambda r: ([A(r, 2, 3), A(r, 4, 3)], {})
+CASES["_ravel_multi_index"] = lambda r: ([I([[0, 1, 2], [1, 0, 3]])],
+                                         {"shape": (3, 4)})
+CASES["_unravel_index"] = lambda r: ([I([0, 5, 11])], {"shape": (3, 4)})
+CASES["_square_sum"] = lambda r: ([A(r, 3, 4)], {"axis": 1})
+CASES["_split_v2"] = lambda r: ([A(r, 6, 2)],
+                                {"indices_or_sections": (2, 5)})
+CASES["_arange"] = lambda r: ([], {"start": 1.0, "stop": 7.0, "step": 1.5,
+                                   "repeat": 2})
+CASES["_eye"] = lambda r: ([], {"N": 3, "M": 4, "k": 1})
+CASES["_full"] = lambda r: ([], {"shape": (2, 3), "value": 0.5})
+CASES["_zeros"] = lambda r: ([], {"shape": (2, 2)})
+CASES["_ones"] = lambda r: ([], {"shape": (2, 3)})
+CASES["_slice_assign"] = lambda r: ([A(r, 4, 5), A(r, 2, 2)],
+                                    {"begin": (1, 1), "end": (3, 3)})
+CASES["_slice_assign_scalar"] = lambda r: ([A(r, 4, 5)],
+                                           {"scalar": 2.0, "begin": (0, 1),
+                                            "end": (2, 4)})
+CASES["_scatter_set_nd"] = lambda r: ([A(r, 3, 4), A(r, 2),
+                                       I([[0, 2], [1, 3]])], {})
+CASES["_identity_with_attr_like_rhs"] = _binary(_a(2, 3))
+CASES["_contrib_bipartite_matching"] = lambda r: (
+    [A(r, 2, 3, 4)], {"threshold": -0.5})
+# nn
+CASES["FullyConnected"] = lambda r: ([A(r, 4, 2, 3), A(r, 5, 6), A(r, 5)],
+                                     {"num_hidden": 5})
+CASES["Convolution"] = lambda r: ([A(r, 2, 3, 6, 6), A(r, 4, 3, 3, 3),
+                                   A(r, 4)],
+                                  {"kernel": (3, 3), "num_filter": 4,
+                                   "pad": (1, 1), "stride": (2, 1)})
+CASES["Deconvolution"] = lambda r: ([A(r, 2, 4, 5, 5), A(r, 4, 1, 3, 3)],
+                                    {"kernel": (3, 3), "stride": (2, 2),
+                                     "num_filter": 2, "pad": (1, 1),
+                                     "adj": (1, 1), "num_group": 2})
+CASES["Pooling"] = lambda r: ([A(r, 2, 3, 7, 7)],
+                              {"kernel": (3, 3), "stride": (2, 2),
+                               "pool_type": "avg", "pad": (1, 1),
+                               "pooling_convention": "full",
+                               "count_include_pad": False})
+CASES["BatchNorm"] = lambda r: ([A(r, 4, 3, 2), P(r, 3), A(r, 3), A(r, 3),
+                                 P(r, 3)], {"fix_gamma": False,
+                                            "eps": 1e-5})
+CASES["LayerNorm"] = lambda r: ([A(r, 3, 4), P(r, 4), A(r, 4)], {})
+CASES["InstanceNorm"] = lambda r: ([A(r, 2, 3, 4), P(r, 3), A(r, 3)], {})
+CASES["GroupNorm"] = lambda r: ([A(r, 2, 4, 3), P(r, 4), A(r, 4)],
+                                {"num_groups": 2})
+CASES["L2Normalization"] = _unary(_a(2, 3, 4))
+CASES["LRN"] = lambda r: ([A(r, 2, 5, 3, 3)], {"nsize": 3})
+CASES["Activation"] = lambda r: ([A(r, 3, 4)], {"act_type": "softrelu"})
+CASES["LeakyReLU"] = lambda r: ([A(r, 2, 3, 4), P(r, 3)],
+                                {"act_type": "prelu"})
+CASES["softmax"] = lambda r: ([A(r, 3, 4)], {"temperature": 2.0})
+CASES["log_softmax"] = lambda r: ([A(r, 3, 4)], {"axis": 0})
+CASES["softmin"] = _unary(_a(3, 4))
+CASES["SoftmaxActivation"] = lambda r: ([A(r, 2, 3, 4)], {"mode": "channel"})
+CASES["softmax_cross_entropy"] = lambda r: ([A(r, 4, 5), I([0, 4, 2, 1])],
+                                            {})
+CASES["SoftmaxOutput"] = lambda r: ([A(r, 4, 5), I([0, 4, 2, 1])],
+                                    {"grad_scale": 2.0,
+                                     "normalization": "batch"})
+for _n in ("LinearRegressionOutput", "LogisticRegressionOutput",
+           "MAERegressionOutput"):
+    CASES[_n] = lambda r: ([A(r, 4, 3), A(r, 4, 3)], {"grad_scale": 0.5})
+CASES["UpSampling"] = lambda r: ([A(r, 1, 2, 3, 3)],
+                                 {"scale": 2, "sample_type": "nearest"})
+CASES["im2col"] = lambda r: ([A(r, 1, 2, 5, 5)],
+                             {"kernel": (3, 3), "stride": (2, 2),
+                              "pad": (1, 1)})
+CASES["col2im"] = lambda r: ([A(r, 1, 18, 9)],
+                             {"output_size": (5, 5), "kernel": (3, 3),
+                              "stride": (2, 2), "pad": (1, 1)})
+CASES["SVMOutput"] = lambda r: ([A(r, 4, 5), I([0, 4, 2, 1])],
+                                {"margin": 0.5})
+
+# an alias whose case differs from its op's (a second path of the op)
+NAME_CASES = {
+    "pad": lambda r: ([A(r, 1, 2, 3, 4)],
+                      {"mode": "constant", "constant_value": 0.5,
+                       "pad_width": (0, 0, 1, 0, 1, 1, 0, 2)}),
+    "flip": lambda r: ([A(r, 2, 3, 4)], {"axis": (0, 2)}),
+    "crop": lambda r: ([A(r, 4, 5)], {"begin": (3, None), "end": (0, None),
+                                      "step": (-1, None)}),
+    "Pooling_v1": lambda r: ([A(r, 2, 3, 7, 7)],
+                             {"kernel": (3, 3), "stride": (2, 2),
+                              "pool_type": "max",
+                              "pooling_convention": "full"}),
+    "Softmax": lambda r: ([A(r, 2, 3, 4), I([[0, 1, 2, 3], [3, 2, 1, 0]])],
+                          {"multi_output": True, "use_ignore": True,
+                           "ignore_label": 3, "normalization": "valid"}),
+    "flatten": lambda r: ([A(r, 2, 3, 4, 1)], {}),
+    "split": lambda r: ([A(r, 2, 6)], {"num_outputs": 2, "axis": 1,
+                                       "squeeze_axis": False}),
+    "eye": lambda r: ([], {"N": 3}),
+    "arange": lambda r: ([], {"start": 5.0}),
+}
+# extra cases of ops with several modes, beside the one per name
+EXTRA = [
+    ("LeakyReLU", lambda r: ([A(r, 3, 4)], {"act_type": "leaky",
+                                            "slope": 0.1})),
+    ("LeakyReLU", lambda r: ([A(r, 3, 4)], {"act_type": "elu"})),
+    ("LeakyReLU", lambda r: ([A(r, 3, 4)], {"act_type": "selu"})),
+    ("LeakyReLU", lambda r: ([A(r, 3, 4)], {"act_type": "gelu"})),
+    ("UpSampling", lambda r: ([A(r, 1, 2, 3, 3)],
+                              {"scale": 2, "sample_type": "bilinear"})),
+    ("Pooling", lambda r: ([A(r, 2, 3, 6, 6)], {"kernel": (2, 2),
+                                                "stride": (2, 2),
+                                                "pool_type": "sum"})),
+    ("Pooling", lambda r: ([A(r, 2, 3, 6, 6)], {"kernel": (2, 2),
+                                                "stride": (2, 2),
+                                                "pool_type": "lp",
+                                                "p_value": 2})),
+    ("Pooling", lambda r: ([A(r, 1, 4, 4, 2)], {"kernel": (2, 2),
+                                                "pool_type": "max",
+                                                "layout": "NHWC",
+                                                "global_pool": True})),
+    ("softmax", lambda r: ([A(r, 3, 4), I([2, 4, 0])], {"use_length": True})),
+    ("Convolution", lambda r: ([A(r, 2, 5, 5, 4), A(r, 6, 2, 3, 3)],
+                               {"kernel": (3, 3), "num_filter": 6,
+                                "num_group": 2, "no_bias": True,
+                                "layout": "NHWC"})),
+    ("LayerNorm", lambda r: ([A(r, 3, 4), P(r, 4), A(r, 4)],
+                             {"output_mean_var": True})),
+    ("SequenceReverse", lambda r: ([A(r, 4, 3)], {})),
+    ("topk", lambda r: ([A(r, 3, 6)], {"k": 3, "is_ascend": True})),
+]
+
+# ops whose gradient is not compared: the sign of each eigenvector is a
+# convention of the LAPACK call (the values are compared up to it)
+NO_GRAD = {"_linalg_syevd"}
+
+
+def _random_name(name):
+    op = OP_REGISTRY[name]
+    return op.needs_rng and op.name != "LeakyReLU"
+
+
+ALL_NAMES = sorted(OP_REGISTRY)
+DETERMINISTIC = [n for n in ALL_NAMES if not _random_name(n)]
+RANDOM = [n for n in ALL_NAMES if _random_name(n)]
+
+
+def _case_of(name):
+    if name in NAME_CASES:
+        return NAME_CASES[name]
+    return CASES.get(OP_REGISTRY[name].name)
+
+
+def _key(name):
+    """The JAX result a name is held to: an alias without a case of its
+    own shares its op's (the same function on the same inputs)."""
+    return f"name:{name if name in NAME_CASES else OP_REGISTRY[name].name}"
+
+
+# key -> (name, case, seed): one per op (and per alias with a case of its
+# own), then the extra modes
+_ALL_CASES = {_key(n): (n if n in NAME_CASES else OP_REGISTRY[n].name,
+                        _case_of(n), 0)
+              for n in DETERMINISTIC if _case_of(n) is not None}
+_ALL_CASES.update({f"extra:{k}": (name, fn, 10 + k)
+                   for k, (name, fn) in enumerate(EXTRA)})
+# names that nd's creation functions shadow, as in the JAX package
+_SHADOWED = {"full", "arange", "eye"}
+
+
+def _heads(shapes, seed):
+    hr = np.random.RandomState(seed)
+    return [np.asarray(hr.randn(*shape), dtype) for shape, dtype in shapes]
+
+
+def _diff(name, inputs):
+    """Positions of the float inputs that are differentiated: all but
+    integer-like ones (`no_grad_inputs`: indices, masks, labels)."""
+    op = OP_REGISTRY[name]
+    skip = ({op.inputs.index(n) for n in op.no_grad_inputs}
+            if not op.variadic else set())
+    return [i for i, a in enumerate(inputs)
+            if a.dtype == np.float32 and i not in skip]
+
+
+def _port(name, inputs, attrs, seed, grad, ctx=CPU):
+    """(values, gradients, inputs after the call) of the port's
+    nd.<name> over `inputs` on `ctx`, in training mode under record()."""
+    arrays = [tnd.array(a, ctx=ctx) for a in inputs]
+    diff = [arrays[i] for i in _diff(name, inputs)]
+    for a in diff:
+        a.attach_grad()
+    kw = dict(attrs)
+    if not inputs:
+        kw["ctx"] = ctx
+    with tag.record():
+        if name in _SHADOWED:
+            out = tnd.register.invoke_by_name(name, arrays, kw)
+        else:
+            out = getattr(tnd, name)(*arrays, **kw)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    values = [o.asnumpy() for o in outs]
+    grads = None
+    if grad and diff and all(o.dtype in (np.float32, np.float16)
+                             for o in outs):
+        heads = _heads([(o.shape, o.dtype) for o in outs], seed)
+        tag.backward(outs, [tnd.array(h, ctx=ctx) for h in heads])
+        grads = [a.grad.asnumpy() for a in diff]
+    return values, grads, [a.asnumpy() for a in arrays]
+
+
+
+def _rows_signed(u):
+    """Eigenvector rows with their largest-magnitude entry positive (the
+    sign of each is the LAPACK call's convention)."""
+    u = np.array(u)
+    pick = np.take_along_axis(u, np.abs(u).argmax(-1)[..., None], -1)
+    return u * np.sign(pick)
+
+
+
+def _zipf(range_max, n=1_000_000):
+    u = np.random.RandomState(0).uniform(size=n)
+    cls = np.floor(np.exp(u * np.log(range_max + 1.0)) - 1.0)
+    return np.clip(cls, 0, range_max - 1)
+
+
+def _multinomial(p):
+    k = np.arange(len(p))
+    mean = float((k * p).sum())
+    return mean, float(np.sqrt(((k - mean) ** 2 * p).sum()))
+
+
+# sampler -> (inputs, attrs, [(mean, std) of each row's distribution])
+RANDOM_CASES = {
+    "_random_uniform": ([], {"low": -1.0, "high": 3.0},
+                        [(1.0, 4 / np.sqrt(12))]),
+    "_random_normal": ([], {"loc": 1.0, "scale": 2.0}, [(1.0, 2.0)]),
+    "_random_gamma": ([], {"alpha": 2.0, "beta": 1.5},
+                      [(3.0, np.sqrt(2) * 1.5)]),
+    "_random_exponential": ([], {"lam": 2.0}, [(0.5, 0.5)]),
+    "_random_poisson": ([], {"lam": 3.0}, [(3.0, np.sqrt(3))]),
+    "_random_negative_binomial": ([], {"k": 3, "p": 0.4},
+                                  [(4.5, np.sqrt(11.25))]),
+    "_random_generalized_negative_binomial": ([], {"mu": 2.0, "alpha": 0.5},
+                                              [(2.0, 2.0)]),
+    "_random_randint": ([], {"low": -3, "high": 7},
+                        [(1.5, np.sqrt(99 / 12))]),
+    "_random_bernoulli": ([], {"p": 0.3}, [(0.3, np.sqrt(0.21))]),
+    "_sample_unique_zipfian": ([], {"range_max": 50},
+                               [(_zipf(50).mean(), _zipf(50).std())]),
+    "_sample_uniform": ([I([0.0, 2.0]), I([1.0, 5.0])], {},
+                        [(0.5, 1 / np.sqrt(12)), (3.5, 3 / np.sqrt(12))]),
+    "_sample_normal": ([I([0.0, 3.0]), I([1.0, 0.5])], {},
+                       [(0.0, 1.0), (3.0, 0.5)]),
+    "_sample_gamma": ([I([1.0, 3.0]), I([2.0, 0.5])], {},
+                      [(2.0, 2.0), (1.5, np.sqrt(3) * 0.5)]),
+    "_sample_exponential": ([I([1.0, 4.0])], {}, [(1.0, 1.0), (0.25, 0.25)]),
+    "_sample_poisson": ([I([1.0, 6.0])], {}, [(1.0, 1.0), (6.0, np.sqrt(6))]),
+    "_sample_negative_binomial": ([I([2.0, 5.0]), I([0.3, 0.6])], {},
+                                  [(2 * 0.7 / 0.3, np.sqrt(2 * 0.7) / 0.3),
+                                   (5 * 0.4 / 0.6, np.sqrt(5 * 0.4) / 0.6)]),
+    "_sample_generalized_negative_binomial": (
+        [I([2.0, 4.0]), I([0.5, 0.2])], {},
+        [(2.0, np.sqrt(2 + 0.5 * 4)), (4.0, np.sqrt(4 + 0.2 * 16))]),
+    "_sample_multinomial": ([I([[0.1, 0.2, 0.7], [0.5, 0.25, 0.25]])], {},
+                            [_multinomial(np.array([0.1, 0.2, 0.7])),
+                             _multinomial(np.array([0.5, 0.25, 0.25]))]),
+}
+N_DRAWS = 4000
+
+
+def sample_moments(name, ctx=CPU):
+    """Draw with sampler `name` on `ctx` and check its moments (see
+    `test_sampling_op_moments_match_the_distribution`); returns the
+    largest |mean - want| in standard errors."""
+    op = OP_REGISTRY[name].name
+    if op == "_shuffle":
+        x = np.arange(50, dtype=np.float32)
+        got = getattr(tnd, name)(tnd.array(x, ctx=ctx)).asnumpy()
+        assert sorted(got) == list(x) and not np.array_equal(got, x), name
+        return 0.0
+    if op == "Dropout":
+        with tag.record():
+            out = getattr(tnd, name)(tnd.ones((N_DRAWS,), ctx=ctx), p=0.3)
+        o = out.asnumpy()
+        assert set(np.unique(o)) <= {0.0, np.float32(1 / 0.7)}, name
+        se = np.sqrt(0.21 / N_DRAWS)
+        z = abs((o == 0).mean() - 0.3) / se
+        assert z < 6, (name, z)
+        return float(z)
+    inputs, attrs, want = RANDOM_CASES[op]
+    got = getattr(tnd, name)(*[tnd.array(a, ctx=ctx) for a in inputs],
+                             shape=(N_DRAWS,), **attrs,
+                             **({} if inputs else {"ctx": ctx})).asnumpy()
+    rows = got.reshape(len(want), N_DRAWS).astype(np.float64)
+    worst = 0.0
+    for row, (mean, std) in zip(rows, want):
+        z = abs(row.mean() - mean) / (std / np.sqrt(N_DRAWS))
+        assert z <= 6, (name, row.mean(), mean)
+        assert abs(row.std() - std) <= 0.1 * std, (name, row.std(), std)
+        worst = max(worst, float(z))
+    return worst
