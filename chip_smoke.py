@@ -143,11 +143,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
    rtol 2e-4, atol 1e-5; images/s of the loop, of its step and of
    `GluonTrainStep` on the same batches, the host's enqueue time per
    step and the device's busy share over 3 steps; (b) gluon_mnist's loop
-   as written, on the card, 2 epochs (epoch-1 accuracy above 0.85);
+   as written, on the card, 2 epochs, cuDNN deterministic, at the
+   example's seed 0 and seeds 1-10: every step loss finite, seed 0
+   repeated bit for bit, epoch-1 accuracy above 0.85 in more than half
+   the draws (one draw is a lottery on rounding at the example's lr);
    (c) every registry op name and extra mode on the card against the
    port's CPU result on tests/torch_op_cases.py's seeded inputs (values
    rtol 1e-5, atol 1e-6; gradients rtol 1e-4, atol 1e-5) and every
    sampler by its moments;
+4d. gluon's recurrent surface (no kernel of the ten runs on it): (a)
+   the reference word LM (example/gluon/word_language_model) at its
+   medium width: embedding 650, 2 LSTM layers of 650, dropout 0.5, the
+   decoder tied to the embedding, vocabulary 33,278 (WikiText-2's),
+   bptt 35, batch 32, tokens drawn as the WikiText-2 stand-in draws
+   them; the RNN op against torch.nn.LSTM with the same weights (outputs
+   and final states at rtol 1e-4, atol 1e-5); step 1 at dropout 0
+   against a float64 run of the port on the CPU (loss rtol 1e-5,
+   gradients before clipping rtol 2e-4, atol 1e-5); 10 steps of the
+   imperative loop (record, backward, clip_global_norm to 0.2 x bptt x
+   batch, Trainer("sgd", lr 20).step) carrying the hidden state
+   detached: the loss must fall; tokens/s, step host and device ms,
+   busy share and CUDA launches a step; (b) examples/speech_ctc.py as
+   written at its defaults (BiLSTM, CTCLoss, Adam through
+   GluonTrainStep, 250 steps) with the port's imports: its greedy
+   decode must recover the digits; the CTCLoss op on the card against
+   float64 on the CPU with and without data and label lengths (rtol
+   1e-4, atol 1e-4); (c) alexnet, vgg16_bn, squeezenet1.1, densenet121,
+   mobilenet1.0, mobilenetv2_1.0 at 224 and inceptionv3 at 299 (1000
+   classes, NCHW, Xavier): batch-2 logits against float64 (rtol 1e-4)
+   and the bfloat16-cast net against float32 (rtol 0.1, atol 0.08),
+   each atol a share of the largest logit; 2 GluonTrainStep steps at
+   batch 32 with finite losses, images/s; (d) the profiler over 2 LM
+   steps (aggregate stats on): its chrome trace names the LM's kernels,
+   dumps() counts RNN, FullyConnected and Embedding once a step and
+   Dropout twice; (e) phase 4c (c) holds the RNN and CTCLoss registry
+   cases;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -205,6 +235,7 @@ import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch.analysis import sanitizers
 from incubator_mxnet_tpu_torch.fused import GluonTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+from incubator_mxnet_tpu_torch.gluon.utils import load_numpy_params
 from incubator_mxnet_tpu_torch.models import transformer as tfm
 from incubator_mxnet_tpu_torch.ops import _build
 from incubator_mxnet_tpu_torch.ops import epilogue as rewrite
@@ -2702,59 +2733,109 @@ def imperative_times(net, loss_fn, trainer, loader, batches, ostep, device,
     return out
 
 
-def imperative_mnist(gpu):
-    """Phase 4c (b): examples/gluon_mnist.py's loop as written, with
+def mnist_run(deterministic=True, seed=0):
+    """examples/gluon_mnist.py's loop as written, with
     incubator_mxnet_tpu_torch in place of incubator_mxnet_tpu, for 2 epochs
     at its defaults (batch 100, lr 0.1, momentum 0.9, Xavier, the default
-    context: the card). Epoch 1's accuracy must exceed 0.85, the bar of
-    tests/test_examples.py's test_gluon_mnist."""
+    context: the card), `seed` for its `mx.random.seed` and
+    `np.random.seed`, under cuDNN's deterministic algorithms or not (the
+    others sum a convolution's weight gradient in an order that changes
+    from run to run). Returns each epoch's accuracy and mean loss, every
+    step's loss, and the count of CPU arrays moved to the card."""
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch import autograd, gluon
     from incubator_mxnet_tpu_torch.gluon import nn
 
-    t0 = time.perf_counter()
     copies0 = gluon.block.input_copies
-    mx.random.seed(0)
-    np.random.seed(0)
-    rng = np.random.RandomState(0)
-    proto = rng.rand(10, 1, 28, 28).astype("float32")
-    y = rng.randint(0, 10, 4000)
-    X = proto[y] + 0.1 * rng.randn(4000, 1, 28, 28).astype("float32")
-    dataset = gluon.data.ArrayDataset(X, y.astype("float32"))
-    loader = gluon.data.DataLoader(dataset, batch_size=100, shuffle=True)
-    net = nn.HybridSequential()
-    net.add(nn.Conv2D(20, 5, activation="relu"), nn.MaxPool2D(2, 2),
-            nn.Conv2D(50, 5, activation="relu"), nn.MaxPool2D(2, 2),
-            nn.Flatten(), nn.Dense(500, activation="relu"), nn.Dense(10))
-    net.initialize(mx.init.Xavier())
-    trainer = gluon.Trainer(net.collect_params(), "sgd",
-                            {"learning_rate": 0.1, "momentum": 0.9})
-    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
-    accs = []
-    for epoch in range(2):
-        total, correct, cum_loss = 0, 0, 0.0
-        for data, label in loader:
-            with autograd.record():
-                out = net(data)
-                loss = loss_fn(out, label)
-            loss.backward()
-            trainer.step(data.shape[0])
-            cum_loss += float(loss.mean().asscalar()) * data.shape[0]
-            correct += int((out.asnumpy().argmax(1)
-                            == label.asnumpy()).sum())
-            total += data.shape[0]
-        accs.append(correct / total)
-        print(f"  (b) gluon_mnist epoch {epoch} loss {cum_loss / total:.4f} "
-              f"acc {correct / total:.4f}")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        mx.random.seed(seed)
+        np.random.seed(seed)
+        rng = np.random.RandomState(0)
+        proto = rng.rand(10, 1, 28, 28).astype("float32")
+        y = rng.randint(0, 10, 4000)
+        X = proto[y] + 0.1 * rng.randn(4000, 1, 28, 28).astype("float32")
+        dataset = gluon.data.ArrayDataset(X, y.astype("float32"))
+        loader = gluon.data.DataLoader(dataset, batch_size=100, shuffle=True)
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(20, 5, activation="relu"), nn.MaxPool2D(2, 2),
+                nn.Conv2D(50, 5, activation="relu"), nn.MaxPool2D(2, 2),
+                nn.Flatten(), nn.Dense(500, activation="relu"), nn.Dense(10))
+        net.initialize(mx.init.Xavier())
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        accs, losses, steps = [], [], []
+        for epoch in range(2):
+            total, correct, cum_loss = 0, 0, 0.0
+            for data, label in loader:
+                with autograd.record():
+                    out = net(data)
+                    loss = loss_fn(out, label)
+                loss.backward()
+                trainer.step(data.shape[0])
+                steps.append(float(loss.mean().asscalar()))
+                cum_loss += steps[-1] * data.shape[0]
+                correct += int((out.asnumpy().argmax(1)
+                                == label.asnumpy()).sum())
+                total += data.shape[0]
+            accs.append(correct / total)
+            losses.append(cum_loss / total)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    return dict(accs=accs, losses=losses, steps=steps,
+                copies=gluon.block.input_copies - copies0,
+                steps_per_epoch=len(loader))
+
+
+MNIST_DRAWS = 11   # the example's seed 0, then seeds 1..10
+MNIST_BAR = 0.85   # tests/test_examples.py's test_gluon_mnist
+
+
+def imperative_mnist(gpu):
+    """Phase 4c (b): `mnist_run` on the card, cuDNN deterministic, at the
+    example's seed 0 and at seeds 1..10. At its defaults (lr 0.1, momentum
+    0.9, inputs in [0, 1] not centred) the example's training kills its
+    ReLUs from some draws, and a rounding difference is such a draw: the
+    same seed lands on either side of the bar on the CPU and on the card,
+    and from run to run under cuDNN's other algorithms
+    (tools/torch_mnist_draws.py). So one draw cannot say whether the loop
+    trains on the card; a majority of reproducible draws can. Each draw's
+    step losses must be finite, seed 0 run twice must repeat bit for bit,
+    and epoch-1 accuracy must exceed 0.85 in more than half the draws."""
+    t0 = time.perf_counter()
+    runs = [mnist_run(deterministic=True, seed=s) for s in range(MNIST_DRAWS)]
+    again = mnist_run(deterministic=True, seed=0)
     seconds = time.perf_counter() - t0
-    copies = gluon.block.input_copies - copies0
-    print(f"  (b) gluon_mnist: 2 epochs of {len(loader)} steps in "
-          f"{seconds:.1f} s, {copies} CPU arrays moved to the card; epoch-1 "
-          f"accuracy {accs[1]:.4f} (bar 0.85) [{gpu}]")
-    if not accs[1] > 0.85:
-        raise AssertionError(f"gluon_mnist epoch-1 accuracy {accs[1]} is "
-                             f"not above 0.85")
-    return dict(accs=accs, seconds=seconds, copies=copies)
+    for seed, run in enumerate(runs):
+        print(f"  (b) gluon_mnist seed {seed}: epoch losses "
+              f"{run['losses'][0]:.6g} {run['losses'][1]:.6g}, accuracies "
+              f"{run['accs'][0]:.5f} {run['accs'][1]:.5f}")
+    above = sum(run["accs"][1] > MNIST_BAR for run in runs)
+    copies = sum(run["copies"] for run in runs + [again])
+    print(f"  (b) gluon_mnist: {MNIST_DRAWS + 1} runs of 2 epochs of "
+          f"{runs[0]['steps_per_epoch']} steps in {seconds:.1f} s, cuDNN "
+          f"deterministic, {copies} CPU arrays moved to the card; epoch-1 "
+          f"accuracy above {MNIST_BAR} in {above} of {MNIST_DRAWS} draws "
+          f"(bar: more than half); seed 0 again: step losses "
+          f"{'equal' if again['steps'] == runs[0]['steps'] else 'differ'} "
+          f"[{gpu}]")
+    bad = [seed for seed, run in enumerate(runs)
+           if not all(math.isfinite(v) for v in run["steps"])]
+    if bad:
+        raise AssertionError(f"gluon_mnist: a step loss is not finite at "
+                             f"seeds {bad}")
+    if again["steps"] != runs[0]["steps"]:
+        raise AssertionError("gluon_mnist: seed 0 under cuDNN's "
+                             "deterministic algorithms did not repeat")
+    if not 2 * above > MNIST_DRAWS:
+        raise AssertionError(
+            f"gluon_mnist: epoch-1 accuracy above {MNIST_BAR} in only "
+            f"{above} of {MNIST_DRAWS} draws: "
+            f"{[run['accs'][1] for run in runs]}")
+    return dict(accs=[run["accs"] for run in runs], above=above,
+                seconds=seconds, copies=copies)
 
 
 def _lq_signed(lq):
@@ -2870,6 +2951,451 @@ def imperative_leg(device, gpu):
     out["ops"] = registry_on_card(gpu)
     out["seconds"] = time.perf_counter() - t0
     print(f"  imperative leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
+# -- phase 4d: gluon's recurrent surface, CTC, the zoo and the profiler ------
+
+LM = dict(vocab=33278, width=650, layers=2, dropout=0.5, bptt=35, batch=32,
+          lr=20.0, clip=0.2, steps=10, seed=0)
+LM_LOSS_TOL = 1e-5               # train tolerances (PERF.md section 2)
+LM_GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
+LSTM_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_rnn_cell.py:131
+CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_operator.py:575
+ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+       ("densenet121", 224), ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+       ("inceptionv3", 299))
+ZOO_BATCH = 32
+
+
+def _ctx(device):
+    """The port's context for `device` (the card in this script; the CPU
+    when its phase functions are rehearsed there)."""
+    return tmx.gpu(0) if torch.device(device).type == "cuda" else tmx.cpu()
+
+
+def rnn_model(vocab, width, layers, dropout):
+    """The reference word LM's RNNModel
+    (example/gluon/word_language_model): embedding, dropout, an LSTM of
+    `layers` layers, dropout, and a decoder tied to the embedding's
+    weight."""
+    nn, rnn = tmx.gluon.nn, tmx.gluon.rnn
+
+    class RNNModel(tmx.gluon.Block):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab, width)
+                self.rnn = rnn.LSTM(width, layers, dropout=dropout,
+                                    input_size=width)
+                self.decoder = nn.Dense(vocab, in_units=width,
+                                        params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, width))), hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel()
+
+
+def lm_corpus():
+    """LM["steps"] + 1 batches of token ids (bptt x batch, batchified as
+    the reference's `batchify`), drawn as the WikiText-2 stand-in draws
+    its corpus (Zipf over the vocabulary, numpy RandomState seeded with
+    the crc32 of "wikitext-2/train") over WikiText-2's 33,278 words."""
+    import zlib
+
+    from incubator_mxnet_tpu_torch.gluon.contrib.data.text import (
+        _synthetic_tokens)
+
+    n = LM["batch"] * (LM["steps"] * LM["bptt"] + 1)
+    seed = zlib.crc32(b"wikitext-2/train") % (2 ** 31)
+    ids = np.array([int(w[1:]) for w in _synthetic_tokens(n, LM["vocab"],
+                                                          seed)], np.int64)
+    return ids.reshape(LM["batch"], -1).T.astype(np.float32)  # (T, B)
+
+
+def lm_step(net, loss_fn, trainer, data, target, hidden):
+    """One step of the reference loop: record, forward, loss, backward,
+    clip_global_norm over every gradient, Trainer.step; returns (loss
+    NDArray, new hidden, norm before clipping)."""
+    with tmx.autograd.record():
+        output, hidden = net(data, hidden)
+        L = loss_fn(output, target.reshape((-1,)))
+        L.backward()
+    grads = [p.grad() for p in net.collect_params().values()]
+    norm = tmx.gluon.utils.clip_global_norm(
+        grads, LM["clip"] * LM["bptt"] * LM["batch"])
+    trainer.step(LM["batch"] * LM["bptt"])
+    return L, [h.detach() for h in hidden], norm
+
+
+def lm_grads(net, data, target, hidden):
+    """(mean loss, {name: gradient}) of one recorded forward and backward
+    (the loss summed over the batch, as the reference's backward)."""
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with tmx.autograd.record():
+        output, _ = net(data, hidden)
+        L = loss_fn(output, target.reshape((-1,)))
+        L.backward()
+    return (float(L.mean().asscalar()),
+            {n[len(net.prefix):]: p.grad().asnumpy()
+             for n, p in net.collect_params().items()})
+
+
+def lstm_oracle(layer, x, h0, c0):
+    """torch.nn.LSTM with `layer`'s weights (TF32 off in cuDNN and
+    matmul): its output and final (h, c) for input x (T, B, I)."""
+    H, L = layer._hidden_size, layer._num_layers
+    ref = torch.nn.LSTM(x.shape[-1], H, L).to(x.device)
+    with torch.no_grad():
+        for k in range(L):
+            for kind in ("i2h_weight", "h2h_weight", "i2h_bias",
+                         "h2h_bias"):
+                name = {"i2h_weight": "weight_ih", "h2h_weight": "weight_hh",
+                        "i2h_bias": "bias_ih", "h2h_bias": "bias_hh"}[kind]
+                getattr(ref, f"{name}_l{k}").copy_(
+                    getattr(layer, f"l{k}_{kind}").tensor())
+        return ref(x, (h0, c0))
+
+
+def word_lm(device, gpu):
+    """Phase 4d (a): the LSTM LM at full width (LM) through the
+    imperative loop, 10 batches with the hidden state carried and
+    detached; the RNN op against torch.nn.LSTM; step 1 at dropout 0
+    against a float64 CPU run through the port; the loss must fall."""
+    t0 = time.perf_counter()
+    source = lm_corpus()
+    V, W = LM["vocab"], LM["width"]
+    card_ctx = _ctx(device)
+    tmx.random.seed(LM["seed"])
+    net = rnn_model(V, W, LM["layers"], LM["dropout"])
+    net.initialize(tmx.init.Xavier(), ctx=card_ctx)
+    weights = {n[len(net.prefix):]: p.data().asnumpy()
+               for n, p in net.collect_params().items()}
+    n_params = sum(w.size for w in weights.values())
+
+    def batch(i, ctx=card_ctx, dtype=None):
+        lo = i * LM["bptt"]
+        return (tmx.nd.array(source[lo:lo + LM["bptt"]], ctx=ctx),
+                tmx.nd.array(source[lo + 1:lo + 1 + LM["bptt"]], ctx=ctx))
+
+    # the RNN op (through the layer's packed parameters) against cuDNN's
+    x = torch.randn(LM["bptt"], LM["batch"], W, device=device,
+                    generator=torch.Generator(device).manual_seed(5))
+    h0, c0 = (0.5 * torch.randn(LM["layers"], LM["batch"], W, device=device,
+                                generator=torch.Generator(device)
+                                .manual_seed(s)) for s in (6, 7))
+    with torch.no_grad():
+        out, (hN, cN) = net.rnn(x, [h0, c0])
+        ref, (rh, rc) = lstm_oracle(net.rnn, x, h0, c0)
+    for label, got, want in (("output", out, ref), ("final h", hN, rh),
+                             ("final c", cN, rc)):
+        err = float((got - want).abs().max())
+        print(f"  (a) RNN op {label} (T {LM['bptt']}, B {LM['batch']}, H "
+              f"{W}, 2 layers) against torch.nn.LSTM: max_abs_err "
+              f"{err:.3e} (rtol {LSTM_TOL['rtol']:g}, atol "
+              f"{LSTM_TOL['atol']:g})")
+        if not torch.allclose(got, want, **LSTM_TOL):
+            raise AssertionError(f"RNN op {label} disagrees with "
+                                 f"torch.nn.LSTM: {err:.3e}")
+
+    # step 1 at dropout 0: the card against float64 on the CPU
+    grads = {}
+    for key, ctx in (("card", card_ctx), ("cpu64", tmx.cpu())):
+        ref_net = rnn_model(V, W, LM["layers"], 0.0)
+        ref_net.initialize(ctx=ctx)
+        load_numpy_params(ref_net, weights)
+        if key == "cpu64":
+            ref_net.cast("float64")
+        data, target = batch(0, ctx)
+        hidden = ref_net.begin_state(batch_size=LM["batch"], ctx=ctx)
+        grads[key] = lm_grads(ref_net, data, target, hidden)
+        del ref_net
+    loss_err = abs(grads["card"][0] - grads["cpu64"][0])
+    print(f"  (a) step 1 at dropout 0: loss {grads['card'][0]:.6f} on the "
+          f"card, {grads['cpu64'][0]:.6f} in float64 on the CPU (rtol "
+          f"{LM_LOSS_TOL:g})")
+    if loss_err > LM_LOSS_TOL * abs(grads["cpu64"][0]):
+        raise AssertionError(f"LM step-1 loss off float64 by {loss_err}")
+    worst = (0.0, "")
+    for name, want in grads["cpu64"][1].items():
+        got = grads["card"][1][name].astype(np.float64)
+        worst = max(worst, (float(np.abs(got - want).max()), name))
+        if not np.allclose(got, want, **LM_GRAD_TOL):
+            raise AssertionError(f"LM step-1 gradient {name} off float64: "
+                                 f"{np.abs(got - want).max():.3e}")
+    print(f"  (a) step-1 gradients before clipping within rtol "
+          f"{LM_GRAD_TOL['rtol']:g}, atol {LM_GRAD_TOL['atol']:g} of float64 "
+          f"(largest diff {worst[0]:.3e} in {worst[1]})")
+
+    # 10 steps at dropout 0.5
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": LM["lr"]})
+    hidden = net.begin_state(func=tmx.nd.zeros, batch_size=LM["batch"],
+                             ctx=card_ctx)
+    losses, norms, times = [], [], []
+    for i in range(LM["steps"]):
+        data, target = batch(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        L, hidden, norm = lm_step(net, loss_fn, trainer, data, target,
+                                  hidden)
+        losses.append(float(L.mean().asscalar()))
+        times.append(time.perf_counter() - t1)
+        norms.append(norm)
+    print(f"  (a) {LM['steps']} steps (dropout {LM['dropout']}, lr {LM['lr']:g}, clip "
+          f"{LM['clip']:g} x bptt x batch): losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; gradient norms before clipping {norms[0]:.1f} .. "
+          f"{norms[-1]:.1f}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"LM loss did not fall: {losses}")
+    step_s = float(np.median(times[2:]))
+    tokens = LM["bptt"] * LM["batch"]
+    data, target = batch(LM["steps"] - 1)
+    state = {"hidden": hidden}
+
+    def one_step():
+        _, state["hidden"], _ = lm_step(net, loss_fn, trainer, data, target,
+                                        state["hidden"])
+        torch.cuda.synchronize()
+
+    stats = {}
+    _, events = busy_share(one_step, "LM step (imperative, 650 x 2, vocab "
+                           "33,278)", gpu, steps=3, top_n=6, kinds=True,
+                           stats=stats)
+    launches = sum(events.values()) / 3
+    device_step = (stats["busy"] * stats["wall_s"] / 3
+                   if stats.get("busy") is not None else None)
+    print(f"  (a) LM at full width ({n_params} parameters, tied): "
+          f"{tokens / step_s:.1f} tokens/s, step {step_s * 1e3:.3f} ms on "
+          f"the host clock (median of steps 3-10, each ending in the "
+          f"loss read-back), device "
+          + (f"{device_step * 1e3:.3f} ms a step (busy "
+             f"{stats['busy']:.1%})" if device_step is not None
+             else "not measured")
+          + f", {launches:.0f} CUDA launches a step; "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return dict(net=net, source=source, losses=losses, step_s=step_s,
+                launches=launches, busy=stats.get("busy"),
+                device_step=device_step, tokens_per_s=tokens / step_s)
+
+
+def speech_ctc(device, gpu):
+    """Phase 4d (b): examples/speech_ctc.py as written, at its defaults
+    (BiLSTM, CTCLoss, Adam through fused.GluonTrainStep, 250 steps, then
+    the greedy decode of 64 held-out utterances, which must recover the
+    digits as the example asserts), its imports replaced by the port's;
+    and the CTCLoss op on the card against float64 on the CPU, with and
+    without data and label lengths."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    path = os.path.join(ROOT, "examples", "speech_ctc.py")
+    with open(path) as f:
+        src = f.read().replace("incubator_mxnet_tpu", "incubator_mxnet_tpu_torch")
+    module = {"__name__": "speech_ctc_port", "__file__": path}
+    exec(compile(src, path, "exec"), module)
+    argv, sys.argv = sys.argv, [path]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            module["main"]()
+    finally:
+        sys.argv = argv
+    log = out.getvalue()
+    for line in log.splitlines():
+        print(f"  (b) {line}")
+    if "speech_ctc OK" not in log:
+        raise AssertionError("speech_ctc did not finish")
+    seconds = time.perf_counter() - t0
+
+    # the op: speech_ctc's shapes (T 16, B 32, 10 classes, 4 labels)
+    rng = np.random.RandomState(3)
+    data = 2 * rng.randn(16, 32, 10)
+    label = rng.randint(1, 10, (32, 4)).astype(np.float64)
+    label[::3, 3] = 0  # padded rows
+    dlen = rng.randint(10, 17, 32).astype(np.float64)
+    llen = (label > 0).sum(1).astype(np.float64)
+    worst = 0.0
+    for ud, ul in ((False, False), (True, False), (False, True),
+                   (True, True)):
+        runs = []
+        for dev, dt in ((device, torch.float32), ("cpu", torch.float64)):
+            x = torch.tensor(data, dtype=dt, device=dev, requires_grad=True)
+            args = [torch.tensor(a, dtype=dt, device=dev)
+                    for a in (label, dlen, llen)]
+            loss = tmx.ndarray.register.F.CTCLoss(
+                x, *args, use_data_lengths=ud, use_label_lengths=ul)
+            loss.sum().backward()
+            runs.append((loss.detach().cpu().double(),
+                         x.grad.cpu().double()))
+        for got, want, what in ((runs[0][0], runs[1][0], "loss"),
+                                (runs[0][1], runs[1][1], "gradient")):
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.allclose(got, want, **CTC_TOL):
+                raise AssertionError(
+                    f"CTCLoss {what} (data lengths {ud}, label lengths "
+                    f"{ul}) on the card off float64: "
+                    f"{float((got - want).abs().max()):.3e}")
+    print(f"  (b) CTCLoss on the card against float64 on the CPU, with and "
+          f"without data / label lengths: loss and gradient within rtol "
+          f"{CTC_TOL['rtol']:g}, atol {CTC_TOL['atol']:g} (largest diff "
+          f"{worst:.3e}); speech_ctc {seconds:.1f} s (250 steps and the "
+          f"decode) [{gpu}]")
+    return dict(seconds=seconds)
+
+
+def zoo_legs(device, gpu):
+    """Phase 4d (c): the zoo nets at full size (ZOO; 1000 classes, NCHW,
+    float32, Xavier from the seeded global generator): batch-2 logits in
+    predict mode against a float64 forward of the same net on the card at
+    rtol 1e-4 (atol 1e-4 of the largest logit); the bfloat16-cast net's
+    logits against float32 at rtol 0.1, atol 0.08 (tests/test_gluon.py:925;
+    the atol as a share of the largest logit, since Xavier nets' logits
+    shrink with depth); 2 GluonTrainStep steps at batch 32 (SGD) with
+    finite losses; images/s of the second step."""
+    out = {}
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for name, size in ZOO:
+        t0 = time.perf_counter()
+        tmx.random.seed(1)
+        net = vision.get_model(name, classes=1000)
+        net.initialize(tmx.init.Xavier(), ctx=_ctx(device))
+        g = torch.Generator(device).manual_seed(2)
+        x = torch.rand(2, 3, size, size, device=device, generator=g)
+        logits = {}
+        for dt in (torch.float32, torch.float64, torch.bfloat16):
+            net.cast({torch.float32: "float32", torch.float64: "float64",
+                      torch.bfloat16: "bfloat16"}[dt])
+            with torch.no_grad():
+                logits[dt] = net(x.to(dt)).double()
+        # Xavier nets shrink their activations layer by layer: the
+        # absolute parts of the tolerances scale with the logits' size
+        scale = float(logits[torch.float64].abs().max())
+        err64 = float((logits[torch.float32] - logits[torch.float64])
+                      .abs().max())
+        err16 = float((logits[torch.bfloat16] - logits[torch.float32])
+                      .abs().max())
+        if not torch.allclose(logits[torch.float32], logits[torch.float64],
+                              rtol=1e-4, atol=1e-4 * scale):
+            raise AssertionError(f"{name}: float32 logits off float64 by "
+                                 f"{err64:.3e} (largest logit {scale:.3e})")
+        if not torch.allclose(logits[torch.bfloat16], logits[torch.float32],
+                              rtol=0.1, atol=0.08 * scale):
+            raise AssertionError(f"{name}: bfloat16 logits off float32 by "
+                                 f"{err16:.3e} (largest logit {scale:.3e})")
+        net.cast("float32")
+        step = GluonTrainStep(net, lambda n, a, b: loss_fn(n(a), b),
+                              tmx.optimizer.SGD(learning_rate=0.01,
+                                                momentum=0.9),
+                              device=device)
+        xb = torch.rand(ZOO_BATCH, 3, size, size, device=device,
+                        generator=g)
+        yb = torch.randint(0, 1000, (ZOO_BATCH,), device=device,
+                           generator=g).float()
+        losses, times = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(step(xb, yb)))
+            times.append(time.perf_counter() - t1)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: train losses {losses}")
+        out[name] = ZOO_BATCH / times[1]
+        print(f"  (c) {name} at {size}x{size}: largest logit "
+              f"{scale:.3e}; float32 logits vs float64 max diff "
+              f"{err64:.3e} (rtol 1e-4, atol 1e-4 x largest), bfloat16 vs "
+              f"float32 {err16:.3e} (rtol 0.1, atol 0.08 x largest); 2 "
+              f"train steps at batch "
+              f"{ZOO_BATCH}, losses {losses[0]:.4f} {losses[1]:.4f}, "
+              f"{out[name]:.1f} images/s (step 2, host clock); "
+              f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+        del net, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def profiler_leg(lm, device, gpu):
+    """Phase 4d (d): the port's profiler over 2 LM steps:
+    set_config(aggregate_stats=True), set_state("run"), the steps,
+    dump(). The window's chrome trace must name the LM's CUDA kernels,
+    and dumps() must count RNN, FullyConnected and Embedding once a step
+    and Dropout twice."""
+    net, source = lm["net"], lm["source"]
+    stem = os.path.join(ROOT, "build", "chip_smoke_profile")
+    shutil.rmtree(stem + "_trace", ignore_errors=True)
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": LM["lr"]})
+    ctx = _ctx(device)
+    hidden = net.begin_state(batch_size=LM["batch"], ctx=ctx)
+    profiler.set_config(filename=stem + ".json", aggregate_stats=True)
+    profiler.reset_stats()
+    profiler.set_state("run")
+    try:
+        for i in range(2):
+            lo = i * LM["bptt"]
+            data = tmx.nd.array(source[lo:lo + LM["bptt"]], ctx=ctx)
+            target = tmx.nd.array(source[lo + 1:lo + 1 + LM["bptt"]],
+                                  ctx=ctx)
+            _, hidden, _ = lm_step(net, loss_fn, trainer, data, target,
+                                   hidden)
+    finally:
+        trace_dir = profiler.dump()
+        profiler.set_config(filename="profile.json", aggregate_stats=False)
+    table = profiler.dumps()
+    counts = {}
+    for line in table.splitlines()[3:]:
+        parts = line.split()
+        if len(parts) == 6 and parts[1].isdigit():
+            counts[parts[0]] = int(parts[1])
+    want = {"RNN": 2, "FullyConnected": 2, "Embedding": 2, "Dropout": 4}
+    got = {k: counts.get(k) for k in want}
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    print(f"  (d) profiler over 2 LM steps: dumps() counts {got} (of "
+          f"{len(counts)} names); trace {trace_dir}/trace.json with "
+          f"{sum(kernels.values())} CUDA kernel events of {len(kernels)} "
+          f"kernels, most launched: "
+          + "; ".join(f"{n[:60]} x{c}" for n, c in top) + f" [{gpu}]")
+    profiler.reset_stats()
+    if got != want:
+        raise AssertionError(f"profiler counts {got}, expected {want}")
+    if not kernels or not any("gemm" in n.lower() or "elementwise" in n
+                              for n in kernels):
+        raise AssertionError("the profiler's trace names no LM kernel")
+
+
+def recurrent_leg(device, gpu):
+    """Phase 4d: parts (a)-(d) ((e) is phase 4c (c): the registry cases
+    cover RNN and CTCLoss); returns the results and the leg's seconds."""
+    t0 = time.perf_counter()
+    out = {"lm": word_lm(device, gpu)}
+    profiler_leg(out["lm"], device, gpu)
+    out["lm"].pop("net")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ctc"] = speech_ctc(device, gpu)
+    out["zoo"] = zoo_legs(device, gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  recurrent leg: {out['seconds']:.1f} s [{gpu}]")
     return out
 
 
@@ -3813,6 +4339,12 @@ def main():
     t_phase = phase_seconds(t_phase)
     print("phase 4c: gluon's imperative surface")
     imperative_leg(device, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
+    print("phase 4d: gluon's recurrent surface, CTC, the zoo, the profiler")
+    recurrent_leg(device, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -10,7 +10,8 @@ endpoints), the runtime sanitizers', resilience's (retry, fault
 injection), the serving fleet's and gateway's, the step statistics',
 the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
 `MXTPU_REMAT_POLICY`, and the imperative surface's (NDArray dtype, the
-trainer's guardrail, the checkpoint walk-back).
+trainer's guardrail, the checkpoint walk-back), and the model zoo's
+`MXTPU_MODELS_ROOT`.
 """
 from __future__ import annotations
 
@@ -328,3 +329,8 @@ _register("MXTPU_CKPT_WALKBACK", 8, int,
           "corrupt/missing checkpoints before giving up (each skipped "
           "epoch is logged to the flight recorder). 0 walks all the way "
           "to epoch 0.")
+
+# model zoo
+_register("MXTPU_MODELS_ROOT", "", str,
+          "Directory of the model zoo's parameter files (default "
+          "~/.mxnet/models); nothing is downloaded.")

@@ -10,7 +10,8 @@ and the optimizer's fused update in place on every parameter whose
 the forward defers their writes (`ops.nn.deferred_moving_writes`) and
 the step makes them after the backward, as the JAX step takes them back
 as aux outputs, so a recomputed forward writes nothing. The step returns
-the loss as a 0-d tensor on the device, without a sync.
+the loss as a 0-d tensor on the device, without a sync (an NDArray when
+the batch comes as NDArrays, as the JAX step answers).
 
 Options, as in the JAX package:
 
@@ -68,6 +69,7 @@ from . import telemetry as _telemetry
 from .config import resolve_device
 from .gluon.block import _ParamSubst, _RematUnits
 from .gluon.parameter import _dtype
+from .ndarray.ndarray import NDArray
 from .ops import nn as _nn
 from .telemetry import compilereg as _compilereg
 from .telemetry import ledger as _ledger
@@ -178,6 +180,18 @@ def resolve_remat_policy(name):
     return RematPolicy(key, how, kept)
 
 
+def _state_tensors(states):
+    """The tensors of optimizer states: each state is None, a tensor or a
+    tuple of them (Adam's (mean, var))."""
+    out = []
+    for s in states:
+        if isinstance(s, tuple):
+            out.extend(s)
+        elif s is not None:
+            out.append(s)
+    return out
+
+
 def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -248,6 +262,8 @@ class GluonTrainStep:
             self._build(x, y)
 
     def _to_device(self, a):
+        if isinstance(a, NDArray):
+            a = a._data
         return torch.as_tensor(a).to(self.device, non_blocking=True)
 
     # -- one step's pieces -------------------------------------------------
@@ -349,6 +365,7 @@ class GluonTrainStep:
     # -- entry points ------------------------------------------------------
 
     def __call__(self, x, y):
+        wrap = isinstance(x, NDArray)
         with _stepstats.phase("h2d"):
             x, y = self._to_device(x), self._to_device(y)
         self._ensure_built(x, y)
@@ -367,7 +384,7 @@ class GluonTrainStep:
                 "GluonTrainStep.step", sig,
                 compile_s=(time.perf_counter() - t0) if first else None)
             _stepstats.step_end()
-        return loss
+        return NDArray._from_data(loss) if wrap else loss
 
     def _scan_fn(self, xs, ys, lrs, ts):
         return torch.stack([self._step(xs[k], ys[k], lrs[k], ts[k])
@@ -375,8 +392,7 @@ class GluonTrainStep:
 
     def _mutable(self):
         """Every tensor a step writes in place."""
-        return (self.weights + self.aux
-                + [s for s in self.states if s is not None])
+        return self.weights + self.aux + _state_tensors(self.states)
 
     def scan_steps(self, xs, ys):
         """K training steps over xs[k], ys[k] (stacked on axis 0) in one
@@ -453,11 +469,14 @@ class GluonTrainStep:
         if not self._built:
             raise RuntimeError("save_states before the first step: "
                                "optimizer states do not exist yet")
-        states = [None if s is None else
-                  s.detach().to("cpu", torch.float32
-                                if s.dtype == torch.bfloat16
-                                else s.dtype).numpy()
-                  for s in self.states]
+        def host(s):
+            if isinstance(s, tuple):
+                return tuple(host(p) for p in s)
+            return s.detach().to("cpu", torch.float32
+                                 if s.dtype == torch.bfloat16
+                                 else s.dtype).numpy()
+
+        states = [None if s is None else host(s) for s in self.states]
         with open(fname, "wb") as f:
             pickle.dump({"n": self._n, "states": states}, f)
 
@@ -483,8 +502,10 @@ class GluonTrainStep:
                 if (s is None) != (a is None):
                     raise ValueError("saved states do not match the "
                                      "optimizer's (momentum or not)")
-                if s is not None:
-                    s.copy_(torch.from_numpy(np.asarray(a)).reshape(s.shape))
+                for part, arr in zip(_state_tensors([s]),
+                                     _state_tensors([a])):
+                    part.copy_(torch.from_numpy(np.asarray(arr))
+                               .reshape(part.shape))
 
     def sync_params(self):
         """A no-op: the port's step updates the net's parameters in place,

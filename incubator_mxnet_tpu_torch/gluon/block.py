@@ -45,7 +45,7 @@ from ..ndarray.register import F as _F
 from . import parameter as _parameter
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "training_mode"]
+__all__ = ["Block", "HybridBlock", "training_mode", "imperative_call"]
 
 # CPU arrays moved to the parameters' device by an imperative call
 input_copies = 0
@@ -67,6 +67,45 @@ def _wrap(out):
     if isinstance(out, (list, tuple)):
         return type(out)(_wrap(o) for o in out)
     return out
+
+
+def _arrays(tree):
+    for a in tree:
+        if isinstance(a, NDArray):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _arrays(a)
+
+
+def _unwrap_array(a, device):
+    global input_copies
+    if isinstance(a, (list, tuple)):
+        return type(a)(_unwrap_array(x, device) for x in a)
+    if not isinstance(a, NDArray):
+        return a
+    a = a._data
+    if device is not None and a.device != device:
+        a = a.to(device, non_blocking=True)
+        input_copies += 1
+    return a
+
+
+def imperative_call(block, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` as an imperative call of `block`: a
+    `HybridBlock` gets the NDArrays' tensors (`Block._unwrap`), the block
+    and its children take their mode from `autograd.is_training()`, the
+    ops record only inside `autograd.record()`, and the result comes back
+    as NDArrays."""
+    if isinstance(block, HybridBlock):
+        args = block._unwrap(args)
+    prev = getattr(_MODE, "training", None)
+    _MODE.training = autograd.is_training()
+    try:
+        with torch.set_grad_enabled(autograd.is_recording()):
+            out = fn(*args, **kwargs)
+    finally:
+        _MODE.training = prev
+    return _wrap(out)
 
 
 class _ParamSubst:
@@ -263,36 +302,17 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if not any(isinstance(a, NDArray) for a in args):
             return super().__call__(*args, **kwargs)
-        if isinstance(self, HybridBlock):
-            args = self._unwrap(args)
-        prev = getattr(_MODE, "training", None)
-        _MODE.training = autograd.is_training()
-        try:
-            with torch.set_grad_enabled(autograd.is_recording()):
-                out = super().__call__(*args, **kwargs)
-        finally:
-            _MODE.training = prev
-        return _wrap(out)
+        return imperative_call(self, super().__call__, *args, **kwargs)
 
     def _unwrap(self, args):
-        """The arrays' tensors, a CPU one moved to the parameters' device
-        (for a block without parameters, a loss: to another input's
-        card)."""
-        global input_copies
+        """The arrays' tensors (in lists too: a cell's states), a CPU one
+        moved to the parameters' device (for a block without parameters,
+        a loss: to another input's card)."""
         device = self._param_device()
         if device is None:
-            device = next((a._data.device for a in args
-                           if isinstance(a, NDArray) and a._data.is_cuda),
-                          None)
-        out = []
-        for a in args:
-            if isinstance(a, NDArray):
-                a = a._data
-                if device is not None and a.device != device:
-                    a = a.to(device, non_blocking=True)
-                    input_copies += 1
-            out.append(a)
-        return out
+            device = next((a._data.device for a in _arrays(args)
+                           if a._data.is_cuda), None)
+        return [_unwrap_array(a, device) for a in args]
 
     def summary(self, *inputs):
         """Run the block once on `inputs` (the JAX package prints nothing

@@ -1,0 +1,147 @@
+"""Contrib basic layers
+(`incubator_mxnet_tpu/gluon/contrib/nn/basic_layers.py`): `Concurrent`,
+`HybridConcurrent`, `Identity`, `SyncBatchNorm` on one device and
+`PixelShuffle{1,2,3}D`. `SparseEmbedding` waits for sparse storage
+(ROADMAP Queue A 5)."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ....ops import nn as _nn
+from ...block import HybridBlock, training_mode
+from ...nn.basic_layers import BatchNorm, HybridSequential, Sequential
+
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
+           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
+
+
+class Concurrent(Sequential):
+    """Run the children on the same input and concatenate their outputs
+    along `axis`."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        from .... import ndarray as nd
+
+        outs = [block(x) for block in self._modules.values()]
+        if torch.is_tensor(outs[0]):
+            return torch.cat(outs, dim=self.axis)
+        return nd.concat(*outs, dim=self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """`Concurrent` over tensors."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        return F.Concat(*[block(x) for block in self._modules.values()],
+                        dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """Returns its input."""
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps,
+                    momentum, fix_gamma, use_global_stats, training):
+    """JAX's `_contrib_SyncBatchNorm` on one device (`ops/contrib_ops.py`):
+    channel axis 1, batch variance E[x^2] - E[x]^2 in the data's dtype;
+    in training mode the new moving stats go to `ops.nn.write_moving`."""
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    dims = tuple(i for i in range(data.dim()) if i != 1)
+    bshape = [1] * data.dim()
+    bshape[1] = data.shape[1]
+    if training and not use_global_stats:
+        mean = data.mean(dim=dims)
+        var = (data * data).mean(dim=dims) - mean * mean
+        out = (data - mean.reshape(bshape)) * torch.rsqrt(
+            var.reshape(bshape) + eps)
+        _nn.write_moving(moving_mean, momentum * moving_mean
+                         + (1 - momentum) * mean.detach())
+        _nn.write_moving(moving_var, momentum * moving_var
+                         + (1 - momentum) * var.detach())
+    else:
+        out = (data - moving_mean.reshape(bshape)) * torch.rsqrt(
+            moving_var.reshape(bshape) + eps)
+    return out * g.reshape(bshape) + beta.reshape(bshape)
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device batch normalization on one device: the statistics are
+    the local batch's (`num_devices` 1). An `axis_name` (statistics
+    averaged across the devices of a mesh axis) raises: multi-device
+    waits for ROADMAP Queue A 4."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, axis_name=None, **kwargs):
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"SyncBatchNorm(axis_name={axis_name!r}): statistics across "
+                "devices wait for the multi-device slice (ROADMAP Queue A 4)")
+        super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
+                         center=center, scale=scale,
+                         use_global_stats=use_global_stats,
+                         in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return sync_batch_norm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats,
+            training=training_mode(self))
+
+
+class _PixelShuffle(HybridBlock):
+    def __init__(self, factor, ndim):
+        super().__init__()
+        self._factor = ((factor,) * ndim if np.isscalar(factor)
+                        else tuple(factor))
+        self._ndim = ndim
+
+    def hybrid_forward(self, F, x):
+        # (N, C_out * f1..fk, d1..dk) -> (N, C_out, d1 * f1, ..., dk * fk)
+        f = self._factor
+        n, c, spatial = x.shape[0], x.shape[1], tuple(x.shape[2:])
+        c_out = c // math.prod(f)
+        x = F.reshape(x, shape=(n, c_out) + f + spatial)
+        perm = [0, 1]
+        for i in range(self._ndim):
+            perm += [2 + self._ndim + i, 2 + i]
+        x = F.transpose(x, axes=tuple(perm))
+        out_spatial = tuple(d * fi for d, fi in zip(spatial, f))
+        return F.reshape(x, shape=(n, c_out) + out_spatial)
+
+
+class PixelShuffle1D(_PixelShuffle):
+    """(N, C f, W) -> (N, C, W f)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 1)
+
+
+class PixelShuffle2D(_PixelShuffle):
+    """(N, C f1 f2, H, W) -> (N, C, H f1, W f2)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 2)
+
+
+class PixelShuffle3D(_PixelShuffle):
+    """(N, C f1 f2 f3, D, H, W) -> (N, C, D f1, H f2, W f3)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 3)

@@ -3,8 +3,7 @@ there: each elementwise loss is one formula in `_LOSS_TABLE` over the
 shared `Loss` protocol (label/pred alignment, sample weighting,
 per-sample mean over the non-batch axes); the structured losses are
 classes over the same protocol. The formulas run through the
-tensor-level `F` namespace. `CTCLoss` waits for its operator (the next
-slice).
+tensor-level `F` namespace.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ __all__ = [
     "SigmoidBCELoss",
     "SoftmaxCrossEntropyLoss", "SoftmaxCELoss", "KLDivLoss",
     "HuberLoss", "HingeLoss", "SquaredHingeLoss", "LogisticLoss",
-    "TripletLoss", "CosineEmbeddingLoss", "PoissonNLLLoss",
+    "TripletLoss", "CosineEmbeddingLoss", "PoissonNLLLoss", "CTCLoss",
 ]
 
 
@@ -193,6 +192,29 @@ class KLDivLoss(Loss):
                 else F.log_softmax(pred, axis=self._axis))
         return self._finish(F, label * (F.log(label + 1e-12) - logp),
                             sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification over the `CTCLoss` op, per
+    sample: `layout` "NTC" or "TNC" for the predictions, `label_layout`
+    "NT" or "TN"; optional `pred_lengths` / `label_lengths`."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None)
+        return self._finish(F, loss, sample_weight, mean=False)
 
 
 class TripletLoss(Loss):

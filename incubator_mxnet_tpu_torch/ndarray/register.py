@@ -10,6 +10,13 @@ and array-likes, never torch tensors: those go through `F.<name>`.
 JAX's eager jit cache (`MXTPU_EAGER_JIT`) has no counterpart: eager
 PyTorch has nothing to compile.
 
+Inside a running profiler window (`profiler.set_state("run")`) both
+dispatch through `profiler.profiled_call`: the op is a named range on
+the trace and, with `aggregate_stats`, a timed row of the aggregate
+table (JAX's hook in `ndarray/register.invoke`; the port's blocks call
+`F`, whose functions the profiler swaps for profiled ones while a window
+runs, `profile_F`).
+
 Both call the op through `_call`, which holds the rules for the hidden
 arguments: an op that draws gets `_rng` (a generator from the global
 random state, on the inputs' device), an op that needs the mode gets
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _profiler
 from .. import random as _random
 from ..context import to_device
 from ..ops import nn as _nn
@@ -101,9 +109,15 @@ def invoke(opdef: OpDef, args, kwargs):
         if tensors[ap] is not None:
             tensors[ap] = tensors[ap].detach()
 
-    results = autograd.invoke_recorded(
-        lambda *ts: _call(opdef, ts, dict(call_attrs), device), tensors,
-        name=opdef.name)
+    def fn(*ts):
+        return _call(opdef, ts, dict(call_attrs), device)
+
+    if _profiler._STATE["running"]:
+        results = _profiler.profiled_call(
+            opdef.name, autograd.invoke_recorded, fn, tensors,
+            name=opdef.name)
+    else:
+        results = autograd.invoke_recorded(fn, tensors, name=opdef.name)
     if not arrays:
         for r in results:
             if r._data.device != device:
@@ -187,3 +201,22 @@ def _tensor_fn(opdef: OpDef):
 
 F = types.SimpleNamespace(**{name: _tensor_fn(opdef)
                              for name, opdef in OP_REGISTRY.items()})
+_PLAIN_F = dict(vars(F))
+
+
+def _profiled(op_name, fn):
+    def call(*args, **kwargs):
+        return _profiler.profiled_call(op_name, fn, *args, **kwargs)
+
+    call.__name__ = fn.__name__
+    call.__doc__ = fn.__doc__
+    return call
+
+
+def profile_F(on):
+    """Route every `F.<name>` through `profiler.profiled_call` (on), or
+    back to the plain functions (off): the profiler turns it on for a
+    running window, so outside one `F` costs nothing."""
+    for name, fn in _PLAIN_F.items():
+        setattr(F, name, _profiled(OP_REGISTRY[name].name, fn) if on
+                else fn)

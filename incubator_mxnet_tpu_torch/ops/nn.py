@@ -1,9 +1,8 @@
 """Neural-network operators on torch tensors, registered under the JAX
 package's names with its attributes and semantics
-(`incubator_mxnet_tpu/ops/nn.py`: 25 of its 27 ops under 30 of its 33
-names; `RNN` waits for `gluon.rnn` and `CTCLoss` / `ctc_loss` for the
-CTC loss; `GroupNorm` is JAX's `ops/contrib_ops.py` op, which the gluon
-layer needs).
+(`incubator_mxnet_tpu/ops/nn.py`: its 27 ops under its 33 names, and
+`GroupNorm`, JAX's `ops/contrib_ops.py` op, which the gluon layer
+needs).
 
 Convolutions, pooling and products go to PyTorch (cuDNN on the card), as
 the JAX package leaves them to XLA; the normalisation is written out in
@@ -24,6 +23,16 @@ tensors through `write_moving`: in place, or, inside
 `deferred_moving_writes(sink)`, into `sink` for the caller to write once
 (a train step whose forward may be recomputed, as the JAX step gets them
 back as aux outputs and a recomputed forward writes nothing).
+
+The fused `RNN` op is a Python loop over time that follows JAX's
+`lax.scan` step for step, with each layer's and direction's input
+projection for all T steps hoisted into one matmul (the same product);
+it never goes through cuDNN's fused RNN, whose dropout would draw from
+cuDNN's generator and which has no state clip. `CTCLoss` is optax's
+log-space forward recursion (the one JAX's op calls), with optax's
+`log_epsilon` floor of -1e5 in place of -inf, in tensor ops, so that
+infeasible alignments and padded positions keep finite gradients as in
+JAX; torch's library CTC loss is not used.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "instance_norm", "group_norm", "l2_normalization", "lrn",
            "leaky_relu", "softmax", "softmin", "softmax_activation",
            "softmax_cross_entropy", "softmax_output", "dropout",
-           "upsampling", "im2col", "col2im", "svm_output"]
+           "upsampling", "im2col", "col2im", "svm_output",
+           "rnn_param_size", "rnn", "ctc_loss"]
 
 _MOVING = threading.local()
 
@@ -662,6 +672,241 @@ def svm_output(data, label, *, margin=1.0, regularization_coefficient=1.0,
     return _SVMOutput.apply(data, label, float(margin),
                             float(regularization_coefficient),
                             bool(use_linear))
+
+
+# -- the fused RNN (JAX ops/nn.py:711-880) -----------------------------------
+# Packed layout: for each layer, for each direction, W_i2h (G*H, in) and
+# W_h2h (G*H, H); then for each layer and direction b_i2h (G*H) and b_h2h
+# (G*H). Gate orders: LSTM [i, f, g, o], GRU [r, z, n].
+
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def rnn_param_size(num_layers, input_size, state_size, bidirectional=False,
+                   mode="lstm"):
+    """Total packed parameter count of the fused RNN op."""
+    G, H, D = _GATES[mode], state_size, 2 if bidirectional else 1
+    size = 0
+    for layer in range(num_layers):
+        inp = input_size if layer == 0 else H * D
+        size += D * (G * H * inp + G * H * H)
+    return size + num_layers * D * 2 * G * H
+
+
+def _rnn_slice_params(params, num_layers, input_size, H, D, G):
+    """The packed vector as per-(layer, direction) weights and biases."""
+    offset = 0
+
+    def take(n, *shape):
+        nonlocal offset
+        out = params[offset:offset + n].view(*shape)
+        offset += n
+        return out
+
+    Wx, Wh = [], []
+    for layer in range(num_layers):
+        inp = input_size if layer == 0 else H * D
+        pairs = [(take(G * H * inp, G * H, inp), take(G * H * H, G * H, H))
+                 for _ in range(D)]
+        Wx.append([p[0] for p in pairs])
+        Wh.append([p[1] for p in pairs])
+    bx, bh = [], []
+    for layer in range(num_layers):
+        pairs = [(take(G * H, G * H), take(G * H, G * H)) for _ in range(D)]
+        bx.append([p[0] for p in pairs])
+        bh.append([p[1] for p in pairs])
+    return Wx, Wh, bx, bh
+
+
+def _rnn_direction(mode, gx, wh, bh, h, c, clip):
+    """One layer's scan over time in one direction: `gx` (T, B, G*H) is
+    the hoisted input projection x_t W_i2h^T + b_i2h of every step.
+    Returns the outputs (T, B, H) and the final h (and c)."""
+    ys = []
+    wht = wh.t()
+    for t in range(gx.shape[0]):
+        if mode == "gru":
+            gh = torch.addmm(bh, h, wht)
+            rx, zx, nx = gx[t].chunk(3, -1)
+            rh, zh, nh = gh.chunk(3, -1)
+            r = torch.sigmoid(rx + rh)
+            z = torch.sigmoid(zx + zh)
+            n = torch.tanh(nx + r * nh)
+            h = (1 - z) * n + z * h
+        else:
+            gates = torch.addmm(gx[t], h, wht) + bh
+            if mode == "lstm":
+                i, f, g, o = gates.chunk(4, -1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                if clip is not None:
+                    # the cell state is bounded before the output gate
+                    # reads it (JAX ops/nn.py:767-770)
+                    c = torch.clamp(c, *clip)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            elif mode == "rnn_tanh":
+                h = torch.tanh(gates)
+            else:
+                h = torch.relu(gates)
+        ys.append(h)
+    return torch.stack(ys), h, c
+
+
+def _rnn_outputs(attrs):
+    if not attrs.get("state_outputs", False):
+        return 1
+    return 3 if attrs.get("mode", "lstm") == "lstm" else 2
+
+
+@register("RNN", optional=("state_cell",), needs_rng=True,
+          needs_training=True, num_outputs=_rnn_outputs)
+def rnn(data, parameters, state, state_cell=None, *, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=False, projection_size=None, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, _rng=None, _training=False):
+    """Fused multi-layer (bidirectional) RNN over packed parameters.
+
+    data (T, B, I); state (L*D, B, H), or (L*D, 1, H) broadcast over the
+    batch; state_cell (LSTM) likewise. Returns the output (T, B, H*D),
+    and with `state_outputs` the final h (and c for LSTM), each
+    (L*D, B, H). Dropout `p` applies to the input of every layer after
+    the first, in training mode only, drawn from `_rng`."""
+    T, B, I = data.shape
+    H, D, G = state_size, 2 if bidirectional else 1, _GATES[mode]
+    if projection_size:
+        raise NotImplementedError(
+            "RNN projection_size: use gluon.contrib.rnn.LSTMPCell (the "
+            "projected-LSTM path); the fused RNN op runs full-rank cells")
+    clip = None
+    if mode == "lstm" and (lstm_state_clip_min is not None
+                           or lstm_state_clip_max is not None):
+        clip = (lstm_state_clip_min, lstm_state_clip_max)
+    Wx, Wh, bx, bh = _rnn_slice_params(parameters, num_layers, I, H, D, G)
+    x = data
+    hs_out, cs_out = [], []
+    for layer in range(num_layers):
+        if p > 0 and _training and layer > 0 and _rng is not None:
+            keep = torch.rand(x.shape, generator=_rng,
+                              device=x.device) < 1.0 - p
+            x = torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+        dir_outs = []
+        for d in range(D):
+            idx = layer * D + d
+            h0 = state[idx].expand(B, H)
+            c0 = state_cell[idx].expand(B, H) if mode == "lstm" else None
+            xs = torch.flip(x, (0,)) if d == 1 else x
+            gx = torch.matmul(xs, Wx[layer][d].t()) + bx[layer][d]
+            ys, hN, cN = _rnn_direction(mode, gx, Wh[layer][d],
+                                        bh[layer][d], h0, c0, clip)
+            dir_outs.append(torch.flip(ys, (0,)) if d == 1 else ys)
+            hs_out.append(hN)
+            if mode == "lstm":
+                cs_out.append(cN)
+        x = torch.cat(dir_outs, -1) if D > 1 else dir_outs[0]
+    if not state_outputs:
+        return x
+    if mode == "lstm":
+        return x, torch.stack(hs_out), torch.stack(cs_out)
+    return x, torch.stack(hs_out)
+
+
+# -- the CTC loss (JAX ops/nn.py:883-927 over optax.ctc_loss) ----------------
+
+_LOG_EPSILON = -1e5  # optax's log(+0)
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) with JAX's forward and derivative: the
+    derivative is exp(a - out), as `jnp.logaddexp`'s jvp has it. The
+    recursion runs near optax's -1e5 floor for infeasible alignments,
+    where float32 rounds `out` to 0.0078; torch's own derivative,
+    1 / (1 + exp(b - a)), rounds otherwise, and the gradients would
+    part from JAX's by 1e-3 there."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b)))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+def _logaddexp(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return _LogAddExp.apply(a, b)
+
+
+def _ctc_forward(logits, logit_paddings, labels, label_paddings, blank_id):
+    """optax's `ctc_loss_with_forward_probs` loss: per-sequence negative
+    log-likelihood of `labels` (B, N) under `logits` (B, T, K)."""
+    B, T, K = logits.shape
+    N = labels.shape[1]
+    eps = _LOG_EPSILON
+    logprobs = torch.log_softmax(logits, -1)
+    labellens = N - label_paddings.sum(1).to(torch.int64)
+    repeat = (labels[:, :-1] == labels[:, 1:]).to(logits.dtype)
+    repeat = tF.pad(repeat, (0, 1))
+    lp_phi = logprobs[:, :, blank_id].t().unsqueeze(-1)      # (T, B, 1)
+    # optax's einsum against one_hot(labels): an id outside [0, K) emits 0
+    valid = ((labels >= 0) & (labels < K)).to(logits.dtype)
+    idx = labels.clamp(0, K - 1).unsqueeze(1).expand(B, T, N)
+    lp_emit = (torch.gather(logprobs, 2, idx) * valid.unsqueeze(1))
+    lp_emit = lp_emit.transpose(0, 1)                          # (T, B, N)
+    pads = logit_paddings.t().unsqueeze(-1).to(logits.dtype)  # (T, B, 1)
+
+    def update_phi(phi, added):
+        return torch.cat([phi[:, :1], _logaddexp(phi[:, 1:], added)], -1)
+
+    phi = torch.full((B, N + 1), eps, dtype=logits.dtype,
+                     device=logits.device)
+    phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], -1)
+    emit = torch.full((B, N), eps, dtype=logits.dtype, device=logits.device)
+    for t in range(T):
+        prev_phi_orig = phi
+        prev_phi = update_phi(phi, emit + eps * repeat)
+        next_emit = _logaddexp(prev_phi[:, :-1] + lp_emit[t],
+                               emit + lp_emit[t])
+        next_phi = update_phi(prev_phi + lp_phi[t],
+                              emit + lp_phi[t] + eps * (1.0 - repeat))
+        pad = pads[t]
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    last = update_phi(phi, emit)
+    return -torch.gather(last, 1, labellens.unsqueeze(1)).squeeze(1)
+
+
+@register("CTCLoss", aliases=("ctc_loss",),
+          optional=("data_lengths", "label_lengths"),
+          no_grad_inputs=("label", "data_lengths", "label_lengths"))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None, *,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """CTC loss per sequence. data (T, B, C) unnormalised scores; label
+    (B, L) padded with 0 or -1. `blank_label` "first": class 0 is the
+    blank and labels are 1-based (0 pads); "last": class C-1 is the
+    blank (-1 pads)."""
+    T, B, C = data.shape
+    dtype = torch.promote_types(data.dtype, torch.float32)
+    logits = data.transpose(0, 1).to(dtype)
+    if use_data_lengths and data_lengths is not None:
+        t = torch.arange(T, device=data.device).unsqueeze(0)
+        logit_paddings = t >= data_lengths.to(torch.int64).unsqueeze(1)
+    else:
+        logit_paddings = torch.zeros((B, T), dtype=torch.bool,
+                                     device=data.device)
+    lbl = label.to(torch.int64)
+    if use_label_lengths and label_lengths is not None:
+        pos = torch.arange(label.shape[1], device=data.device).unsqueeze(0)
+        label_paddings = pos >= label_lengths.to(torch.int64).unsqueeze(1)
+    elif blank_label == "first":
+        label_paddings = lbl <= 0
+    else:
+        label_paddings = lbl < 0
+    blank = 0 if blank_label == "first" else C - 1
+    return _ctc_forward(logits, logit_paddings, lbl, label_paddings, blank)
 
 
 alias("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm")

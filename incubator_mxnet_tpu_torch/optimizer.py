@@ -1,8 +1,8 @@
 """Optimizers (`incubator_mxnet_tpu/optimizer.py`): the registry
 (`register`, `create`), the `Optimizer` base with its learning-rate and
 weight-decay multipliers and update counts, `Updater` / `get_updater`,
-and `SGD`, with the fused update `GluonTrainStep` and `gluon.Trainer`
-apply. The other 15 optimizers are ROADMAP Queue A 3.
+`SGD` and `Adam`, with the fused updates `GluonTrainStep` and
+`gluon.Trainer` apply. The other 14 optimizers are ROADMAP Queue A 3.
 
 `fused_update` follows the JAX package's `_sgd_fused`: g = rescale_grad
 * grad, clipped to +-clip_gradient when set, plus wd * w; with momentum,
@@ -48,12 +48,13 @@ format, so float32 state files are interchangeable both ways.
 from __future__ import annotations
 
 import functools
+import math
 import pickle
 
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
            "register"]
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -227,6 +228,61 @@ class SGD(Optimizer):
             _scatter(ss, mom.to(dt))
         else:
             _scatter(ws, (w.float() - lr * g).to(dt))
+
+
+@register
+class Adam(Optimizer):
+    """Adam with bias-corrected lr (the JAX package's `_adam_fused`): g =
+    rescale_grad * grad (clipped) + wd * w; mean = beta1 * mean + (1 -
+    beta1) * g; var = beta2 * var + (1 - beta2) * g^2; w -= lr * sqrt(1 -
+    beta2^t) / (1 - beta1^t) * mean / (sqrt(var) + epsilon), with 1 -
+    beta^t computed as -expm1(t log beta) and t at least 1. The state is
+    (mean, var); a low-precision weight updates in float32 and rounds
+    once."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, memory_format=torch.preserve_format),
+                torch.zeros_like(weight, memory_format=torch.preserve_format))
+
+    @staticmethod
+    def _one_minus_pow(beta, t):
+        if beta <= 0.0:
+            return torch.ones_like(t)
+        return -torch.expm1(t * math.log(beta))
+
+    @torch.no_grad()
+    def update(self, names, weights, grads, states, lr, t=None):
+        """One step on each weight and its (mean, var), in place; `t` is
+        the update count (a float32 tensor from a train step), else
+        `num_update`."""
+        if not torch.is_tensor(lr):
+            lr = torch.tensor(lr, dtype=torch.float32)
+        if t is None:
+            t = float(self.num_update)
+        t = torch.clamp(torch.as_tensor(t, dtype=torch.float32), min=1.0)
+        coef = (torch.sqrt(self._one_minus_pow(self.beta2, t))
+                / self._one_minus_pow(self.beta1, t))
+        b1, b2 = self.beta1, self.beta2
+        for name, w, g, (mean, var) in zip(names, weights, grads, states):
+            lr_mult, wd = self._mults(name)
+            wf = w.float()
+            g = g.float() * self.rescale_grad
+            if self.clip_gradient:
+                g = g.clamp(-self.clip_gradient, self.clip_gradient)
+            g = g + wd * wf
+            new_mean = b1 * mean.float() + (1 - b1) * g
+            new_var = b2 * var.float() + (1 - b2) * torch.square(g)
+            lr_t = (lr * lr_mult * coef).to(g.device)
+            w.copy_(wf - lr_t * new_mean / (torch.sqrt(new_var)
+                                             + self.epsilon))
+            mean.copy_(new_mean)
+            var.copy_(new_var)
 
 
 def _scatter(targets, flat):

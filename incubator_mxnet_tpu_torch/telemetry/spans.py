@@ -136,6 +136,8 @@ class Span:
             if exc_type is not None:
                 REGISTRY.counter(SPAN_ERRORS, _ERRORS_HELP).inc(
                     1, name=self.name)
+            if _profiler.aggregate_enabled():
+                _profiler.record_duration(self.name, dur)
         if self.span_id is not None:
             record = {
                 "name": self.name,

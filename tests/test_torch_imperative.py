@@ -84,19 +84,21 @@ def _port_block(make, inputs, weights, train):
             grads, _values(net))
 
 
-def _jax_block(make, inputs, train):
+def _jax_block(make, inputs, train, init=None):
     """(pure fn, args, weights) of the JAX package's block: its shapes
     resolved abstractly, its parameters set to seeded values, and the
     forward traced with every parameter substituted (`_ParamSubst`) and
     the mode set, as the JAX package's hybridized call runs it. The fn
-    returns (outputs, new aux values, parameter grads, input grads)."""
+    returns (outputs, new aux values, parameter grads, input grads).
+    `init` (default Xavier) fills the parameters whose shapes are known
+    before the seeded values replace them."""
     import jax
     from incubator_mxnet_tpu.gluon.block import _ParamSubst
     from incubator_mxnet_tpu.gluon.parameter import abstract_init_mode
     from incubator_mxnet_tpu.ndarray.ndarray import NDArray
 
     net = make(jmx)
-    net.initialize(jmx.init.Xavier())
+    net.initialize(init or jmx.init.Xavier())
     specs = [jax.ShapeDtypeStruct(np.shape(a), np.asarray(a).dtype)
              for a in inputs]
 

@@ -43,15 +43,23 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_port_calls_no_library_attention_or_compiler():
     """Nor the library's loss (`cross_entropy`, `nll_loss`) where the
-    softmax-xent kernels belong. Each word is banned as a substring; only
-    the registry op's own name, `softmax_cross_entropy` as a whole token
-    (the JAX package's op, written out in tensor ops), is taken out of
-    the text first."""
+    softmax-xent kernels belong, nor its recurrent or CTC entry points
+    (cuDNN's fused RNN through `torch._VF` or `torch.nn.LSTM` / `GRU` /
+    `RNN`, `functional.ctc_loss` / `torch.ctc_loss`) where the port's
+    `RNN` and `CTCLoss` ops belong. Each word is banned as a substring
+    (the port's own `gluon.rnn.LSTM` and `ctc_loss` alias contain none);
+    only the registry op's own name, `softmax_cross_entropy` as a whole
+    token (the JAX package's op, written out in tensor ops), is taken
+    out of the text first."""
     for path in _sources(include_smoke=False):
         with open(path) as f:
             text = re.sub(r"\bsoftmax_cross_entropy\b", "", f.read())
         for word in ("scaled_dot_product_attention", "torch.compile",
-                     "triton", "cross_entropy", "nll_loss"):
+                     "triton", "cross_entropy", "nll_loss", "torch._VF",
+                     "_VF.", "torch.nn.LSTM", "torch.nn.GRU",
+                     "torch.nn.RNN", "nn.modules.rnn", "cudnn_rnn",
+                     "functional.ctc_loss", "F.ctc_loss",
+                     "torch.ctc_loss"):
             assert word not in text, (os.path.relpath(path, ROOT), word)
 
 
@@ -74,6 +82,23 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
             "trainer, utils; "
             "from incubator_mxnet_tpu_torch.telemetry import compilereg, "
             "distributed, exporters, names, recorder, slo, spans; "
+            "from incubator_mxnet_tpu_torch.ops.nn import rnn, ctc_loss; "
+            "from incubator_mxnet_tpu_torch.gluon import rnn, contrib; "
+            "from incubator_mxnet_tpu_torch.gluon.rnn import rnn_cell, "
+            "rnn_layer; "
+            "from incubator_mxnet_tpu_torch.gluon.contrib import data, nn, "
+            "rnn; "
+            "from incubator_mxnet_tpu_torch.gluon.contrib.rnn import "
+            "conv_rnn_cell; "
+            "from incubator_mxnet_tpu_torch.contrib import text; "
+            "from incubator_mxnet_tpu_torch.gluon.loss import CTCLoss; "
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo import "
+            "model_store; "
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import "
+            "alexnet, densenet, inception, mobilenet, squeezenet, vgg, "
+            "get_model; "
+            "from incubator_mxnet_tpu_torch.profiler import set_config, "
+            "set_state, dump, dumps, Domain, Task, Counter, Marker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -127,9 +152,11 @@ def test_gluon_entry_points_default_to_cuda():
 
 
 def test_imperative_entry_points_default_to_cuda(tmp_path):
-    """`gpu()`, `nd.array`, `nd.zeros`, `nd.load`, a block called with a DataLoader
-    batch and a `Trainer` over card parameters: no context means the
-    card, which raises without CUDA; `cpu()` runs the plain path."""
+    """`gpu()`, `nd.array`, `nd.zeros`, `nd.load`, initializing a layer
+    or a recurrent layer or cell, a cell's `begin_state`, a block called
+    with a DataLoader batch and a `Trainer` over card parameters: no
+    context means the card, which raises without CUDA; `cpu()` runs the
+    plain path."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is valid here")
     import numpy as np
@@ -146,7 +173,10 @@ def test_imperative_entry_points_default_to_cuda(tmp_path):
                  lambda: nd.ones((2,)),
                  lambda: nd.random.uniform(shape=(2,)),
                  lambda: nd.load(path),
-                 lambda: gluon.nn.Dense(2).initialize()):
+                 lambda: gluon.nn.Dense(2).initialize(),
+                 lambda: gluon.rnn.LSTM(4).initialize(),
+                 lambda: gluon.rnn.LSTMCell(4).begin_state(2),
+                 lambda: gluon.contrib.rnn.LSTMPCell(4, 2).initialize()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     with pytest.raises(ValueError, match="gpu"):

@@ -15,6 +15,7 @@ import torch
 import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch import autograd as tag
 from incubator_mxnet_tpu_torch import nd as tnd
+from incubator_mxnet_tpu_torch.ops.nn import rnn_param_size
 from incubator_mxnet_tpu_torch.ops.registry import OP_REGISTRY
 
 CPU = tmx.cpu()
@@ -298,6 +299,25 @@ CASES["col2im"] = lambda r: ([A(r, 1, 18, 9)],
 CASES["SVMOutput"] = lambda r: ([A(r, 4, 5), I([0, 4, 2, 1])],
                                 {"margin": 0.5})
 
+
+def _rnn_case(mode, layers, bidirectional, state_batch, **attrs):
+    """The fused RNN op over T 4, B 2, I 3, H 4: data, packed parameters
+    (scaled 0.3), the initial state (and cell), with `attrs`."""
+    def case(r):
+        d = 2 if bidirectional else 1
+        n = rnn_param_size(layers, 3, 4, bidirectional, mode)
+        states = [A(r, layers * d, state_batch, 4)
+                  for _ in range(2 if mode == "lstm" else 1)]
+        return ([A(r, 4, 2, 3), 0.3 * A(r, n)] + states,
+                dict(state_size=4, num_layers=layers, mode=mode,
+                     bidirectional=bidirectional, **attrs))
+    return case
+
+
+CASES["RNN"] = _rnn_case("lstm", 2, True, 2, state_outputs=True)
+CASES["CTCLoss"] = lambda r: ([2 * A(r, 6, 3, 5),
+                               I([[1, 2, 0], [3, 3, 1], [4, 0, 0]])], {})
+
 # an alias whose case differs from its op's (a second path of the op)
 NAME_CASES = {
     "pad": lambda r: ([A(r, 1, 2, 3, 4)],
@@ -318,6 +338,12 @@ NAME_CASES = {
                                        "squeeze_axis": False}),
     "eye": lambda r: ([], {"N": 3}),
     "arange": lambda r: ([], {"start": 5.0}),
+    "ctc_loss": lambda r: ([2 * A(r, 6, 3, 5),
+                            I([[0, 1, -1], [2, 2, 0], [3, -1, -1]]),
+                            I([6, 4, 5]), I([2, 3, 1])],
+                           {"use_data_lengths": True,
+                            "use_label_lengths": True,
+                            "blank_label": "last"}),
 }
 # extra cases of ops with several modes, beside the one per name
 EXTRA = [
@@ -347,6 +373,14 @@ EXTRA = [
     ("LayerNorm", lambda r: ([A(r, 3, 4), P(r, 4), A(r, 4)],
                              {"output_mean_var": True})),
     ("SequenceReverse", lambda r: ([A(r, 4, 3)], {})),
+    ("RNN", _rnn_case("gru", 1, False, 2)),
+    ("RNN", _rnn_case("rnn_tanh", 2, False, 1, state_outputs=True)),
+    ("RNN", _rnn_case("rnn_relu", 1, True, 2, state_outputs=True)),
+    ("RNN", _rnn_case("lstm", 1, False, 2, state_outputs=True,
+                      lstm_state_clip_min=-0.3, lstm_state_clip_max=0.4)),
+    ("CTCLoss", lambda r: ([2 * A(r, 6, 3, 5),
+                            I([[1, 2, 0], [3, 3, 1], [4, 4, 4]]),
+                            I([6, 3, 5])], {"use_data_lengths": True})),
     ("topk", lambda r: ([A(r, 3, 6)], {"k": 3, "is_ascend": True})),
 ]
 
@@ -356,8 +390,10 @@ NO_GRAD = {"_linalg_syevd"}
 
 
 def _random_name(name):
+    """An op that draws (LeakyReLU draws in one mode and RNN only with
+    dropout: their cases are deterministic)."""
     op = OP_REGISTRY[name]
-    return op.needs_rng and op.name != "LeakyReLU"
+    return op.needs_rng and op.name not in ("LeakyReLU", "RNN")
 
 
 ALL_NAMES = sorted(OP_REGISTRY)
