@@ -178,6 +178,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
    dumps() counts RNN, FullyConnected and Embedding once a step and
    Dropout twice; (e) phase 4c (c) holds the RNN and CTCLoss registry
    cases;
+4e. the training toolkit, ResNet-50 v1 at bench.py's setup with the
+   epilogue on, cuDNN deterministic: (a) the net cast to bfloat16, SGD lr
+   0.05, momentum 0.9, wd 1e-4, multi_precision, MultiFactorScheduler
+   (step [2, 4], factor 0.1), 6 steps through the imperative loop
+   (Trainer, aggregated), through GluonTrainStep eager and through one
+   scan_steps call of K 6: the three losses at rtol 1e-5, the float32
+   masters and momenta within 1e-5 of GluonTrainStep's (gap over
+   movement), weights bfloat16 and masters float32, each step's rate
+   the scheduler's (in float32), 49 launches of each epilogue kernel a
+   step (294 credited to the scan's replay), metric.Accuracy and
+   TopKAccuracy(5) on each step's logits equal to numpy's; (b) from one
+   step's gradients of the float32 net, each case of
+   tests/test_optimizer.py's _FUSED_CASES and SGLD at its defaults, 3
+   updates fused, through the Trainer's aggregated path and per
+   parameter (the registry ops): the three at rtol 1e-5, atol 1e-6, and
+   the fused card result against the same updates on the CPU (the stem,
+   stage 1 and the classifier); Nadam's fused path and SGLD as JAX holds
+   them (SGLD's noise by its moments); 2 GluonTrainStep steps each with
+   finite losses and 49 launches a step; each update's device time
+   beside its byte bound; (c) MXTPU_STOCHASTIC_ROUNDING on the bfloat16
+   net: float32 momenta and no master, 5 updates per parameter,
+   aggregated and fused bit-equal, 5 GluonTrainStep steps with finite
+   losses and 49 launches a step, and the mean rounding error over 4096
+   draws of 1024 values within 4 sigma of 0; (d) at each step boundary
+   of (a)'s loop mxtpu_device_bytes_in_use{device="cuda:0"} equal to
+   torch.cuda.memory_allocated() and the peak no lower,
+   LogTelemetryCallback and Speedometer (injected writer, a log
+   handler) recording each step, and `python3 -m
+   incubator_mxnet_tpu_torch.bench` --dispatch-overhead and
+   --observatory giving ci/perf_baseline.json's deterministic counters;
+   then the bfloat16 step's device and host ms and images/s with plain
+   SGD, float32 masters and stochastic rounding, cuDNN's default
+   algorithms;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -218,6 +251,7 @@ import gc
 import http.client
 import importlib.util
 import json
+import logging
 import math
 import os
 import re
@@ -3399,6 +3433,656 @@ def recurrent_leg(device, gpu):
     return out
 
 
+# -- phase 4e: the training toolkit ------------------------------------------
+
+TK_STEPS = 6      # the imperative loop's, GluonTrainStep's and the scan's
+TK_SCHED = dict(step=[2, 4], factor=0.1)  # fit.py's step schedule, cut
+TK_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+              multi_precision=True)
+TK_GAP = 1e-5     # masters and momenta, gap over movement
+UPD_RTOL, UPD_ATOL = 1e-5, 1e-6   # tests/test_optimizer.py's fused check
+# tests/test_optimizer.py's _FUSED_CASES, then SGLD at its defaults
+OPT_CASES = [
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("sgd", dict(learning_rate=0.1)),
+    ("nag", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("signum", dict(learning_rate=0.1, momentum=0.9, wd_lh=0.01)),
+    ("ftml", dict(learning_rate=0.1, wd=0.01)),
+    ("dcasgd", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("lbsgd", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("adam", dict(learning_rate=0.1, wd=0.01)),
+    ("adagrad", dict(learning_rate=0.1, wd=0.01)),
+    ("rmsprop", dict(learning_rate=0.1, wd=0.01)),
+    ("rmsprop", dict(learning_rate=0.1, centered=True)),
+    ("adadelta", dict(wd=0.01)),
+    ("ftrl", dict(learning_rate=0.1, lamda1=0.01)),
+    ("adamax", dict(learning_rate=0.1, wd=0.01)),
+    ("nadam", dict(learning_rate=0.1, wd=0.01)),
+    ("adamw", dict(learning_rate=0.1, wd=0.01)),
+    ("test", dict(rescale_grad=0.5)),
+    ("sgld", dict()),
+]
+OPT_UPDATES = 3
+SR_STEPS = 5
+SR_DRAWS = 4096
+
+
+class ScalarWriter:
+    """A summary writer for the TensorBoard callbacks: (tag, value,
+    step) in memory (the card's machine has no tensorboard package)."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def flush(self):
+        pass
+
+
+class LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def toolkit_sgd():
+    sched = tmx.lr_scheduler.MultiFactorScheduler(**TK_SCHED)
+    return tmx.optimizer.SGD(lr_scheduler=sched, **TK_SGD)
+
+
+def record_rates(opt):
+    """Wrap `opt.fused_updates` to record the host rate of each call
+    (rates that already live on the card, inside a graph, are not
+    read)."""
+    rates, inner = [], opt.fused_updates
+
+    def fused_updates(names, weights, grads, states, lr, t=None):
+        if not (torch.is_tensor(lr) and lr.is_cuda):
+            rates.append(float(lr))
+        return inner(names, weights, grads, states, lr, t=t)
+
+    opt.fused_updates = fused_updates
+    return rates
+
+
+def count_step(label, k, fn):
+    """fn() with the epilogue counts read around it: each kernel must
+    launch EPI_PER_STEP times."""
+    before = [kern.launches for kern in EPI_KERNELS]
+    out = fn()
+    for kern, b in zip(EPI_KERNELS, before):
+        if kern.launches - b != EPI_PER_STEP:
+            raise AssertionError(f"{label}: {kern.__name__} launched "
+                                 f"{kern.launches - b} times in step "
+                                 f"{k + 1}, expected {EPI_PER_STEP}")
+    return out
+
+
+def group_gap(got, want, start):
+    diff = sum(float((g.double() - w.double()).norm() ** 2)
+               for g, w in zip(got, want))
+    moved = sum(float((w.double() - s.double()).norm() ** 2)
+                for w, s in zip(want, start))
+    return (diff / moved) ** 0.5 if moved else float(diff > 0)
+
+
+def toolkit_telemetry():
+    """Phase 4e (d) hooks: memory sampled at each step boundary against
+    `torch.cuda.memory_allocated()` read there; returns (samples,
+    restore)."""
+    from incubator_mxnet_tpu_torch.telemetry import memory as tmem
+
+    samples, inner = [], tmem.sample_device_memory
+
+    def sample(registry=None):
+        allocated = torch.cuda.memory_allocated()
+        out = inner(registry)
+        reg = registry or telemetry.REGISTRY
+        samples.append((allocated,
+                        reg.get("mxtpu_device_bytes_in_use").value(
+                            device="cuda:0"),
+                        reg.get("mxtpu_device_peak_bytes_in_use").value(
+                            device="cuda:0")))
+        return out
+
+    tmem.sample_device_memory = sample
+
+    def restore():
+        tmem.sample_device_memory = inner
+
+    return samples, restore
+
+
+def toolkit_mp(device, gpu, batch):
+    """Phase 4e (a) and (d): the bfloat16 net with float32 masters, three
+    ways, plus the telemetry of the imperative loop."""
+    x, y = batch
+    xb = x.bfloat16()
+    sched = tmx.lr_scheduler.MultiFactorScheduler(**TK_SCHED)
+    sched.base_lr = TK_SGD["learning_rate"]
+    # the rates as the steps hand them in: float32
+    want_lr = [float(np.float32(sched(n))) for n in range(1, TK_STEPS + 1)]
+    t0 = time.perf_counter()
+    # the imperative loop (Trainer, aggregated), with the telemetry
+    net = resnet_net(batch, device, "bfloat16")
+    opt_i = toolkit_sgd()
+    rates_i = record_rates(opt_i)
+    trainer = tmx.gluon.Trainer(net.collect_params(), opt_i)
+    acc, top5 = tmx.metric.Accuracy(), tmx.metric.TopKAccuracy(5)
+    writer, lines = ScalarWriter(), LogLines()
+    tb = tmx.telemetry.LogTelemetryCallback(interval=1,
+                                            summary_writer=writer)
+    speedo = tmx.callback.Speedometer(RESNET["batch"], frequent=1,
+                                      auto_reset=False)
+    logging.getLogger().addHandler(lines)
+    level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    telemetry.enable()
+    samples, restore = toolkit_telemetry()
+    losses_i, rates_by_step, metric_bad, tb_counts = [], [], [], []
+    data = tmx.nd.NDArray._from_data(xb)
+    label = tmx.nd.NDArray._from_data(y)
+    try:
+        for k in range(TK_STEPS):
+            def one():
+                with tmx.autograd.record():
+                    out = net(data)
+                    loss = RESNET_LOSS(out, label)
+                loss.backward()
+                trainer.step(RESNET["batch"])
+                return out, loss
+            n_rates = len(rates_i)
+            out, loss = count_step("mp imperative", k, one)
+            rates_by_step.append(sorted(set(rates_i[n_rates:])))
+            losses_i.append(float(loss._data.detach().float().mean()))
+            logits = out._data.detach().float().cpu().numpy()
+            yy = y.cpu().numpy().astype(np.int64)
+            a, t5 = tmx.metric.Accuracy(), tmx.metric.TopKAccuracy(5)
+            a.update([label], [out])
+            t5.update([label], [out])
+            acc.update([label], [out])
+            top5.update([label], [out])
+            np_acc = float((logits.argmax(1) == yy).mean())
+            np_top5 = float((np.argsort(logits, axis=-1)[:, -5:]
+                             == yy[:, None]).any(1).mean())
+            if (a.get()[1], t5.get()[1]) != (np_acc, np_top5):
+                metric_bad.append((k, a.get()[1], np_acc, t5.get()[1],
+                                   np_top5))
+            param = tmx.model.BatchEndParam(0, k, acc, locals())
+            tb(param)
+            speedo(param)
+            tb_counts.append(len(writer.scalars))
+    finally:
+        restore()
+        logging.getLogger().removeHandler(lines)
+        logging.getLogger().setLevel(level)
+    bad = []
+    if rates_by_step != [[r] for r in want_lr]:
+        bad.append(f"imperative rates {rates_by_step} against {want_lr}")
+    if metric_bad:
+        bad.append(f"metrics against numpy {metric_bad}")
+    mem_bad = [s for s in samples if s[0] != s[1] or s[2] < s[1]]
+    if len(samples) != TK_STEPS or mem_bad:
+        bad.append(f"memory samples {samples}")
+    tag = "telemetry/mxtpu_device_bytes_in_use/device=cuda:0"
+    per_step = np.diff([0] + tb_counts)
+    if not (per_step > 0).all() or tag not in {t for t, _, _ in
+                                               writer.scalars}:
+        bad.append(f"LogTelemetryCallback scalars per step {per_step}")
+    speeds = [ln for ln in lines.lines if "samples/sec" in ln]
+    if len(speeds) != TK_STEPS - 1:
+        bad.append(f"Speedometer lines {speeds}")
+    masters_i = [trainer._updater.states[i][1]._data
+                 for i in range(len(trainer._params))]
+    moms_i = [trainer._updater.states[i][0]._data
+              for i in range(len(trainer._params))]
+    weights_i = [p.tensor() for p in trainer._params]
+    # GluonTrainStep, eager
+    enet = resnet_net(batch, device, "bfloat16")
+    opt_e = toolkit_sgd()
+    rates_e = record_rates(opt_e)
+    estep = GluonTrainStep(enet, resnet_loss, opt_e, device=device)
+    estep._ensure_built(xb, y)
+    start = [s[1].detach().clone() for s in estep.states]
+    losses_e = [float(count_step("mp GluonTrainStep", k,
+                                 lambda: estep(xb, y)))
+                for k in range(TK_STEPS)]
+    if rates_e != want_lr:
+        bad.append(f"GluonTrainStep rates {rates_e} against {want_lr}")
+    # one scan_steps call of K steps
+    snet = resnet_net(batch, device, "bfloat16")
+    sstep = GluonTrainStep(snet, resnet_loss, toolkit_sgd(), device=device)
+    xs = xb.unsqueeze(0).expand(TK_STEPS, *xb.shape).contiguous()
+    ys = y.unsqueeze(0).expand(TK_STEPS, *y.shape).contiguous()
+    before = [kern.launches for kern in EPI_KERNELS]
+    losses_s = sstep.scan_steps(xs, ys).tolist()
+    credited = sstep._scan.replayed_launches()
+    scan_launches = [kern.launches - b for kern, b in zip(EPI_KERNELS,
+                                                          before)]
+    for kern in EPI_KERNELS:
+        if credited.get(kern.__name__) != EPI_PER_STEP * TK_STEPS:
+            bad.append(f"scan replay credited {credited}")
+    loss_bad = [(k, a, b, c) for k, (a, b, c) in
+                enumerate(zip(losses_i, losses_e, losses_s))
+                if not (np.isclose(a, b, rtol=1e-5, atol=0)
+                        and np.isclose(c, b, rtol=1e-5, atol=0))
+                or not np.isfinite([a, b, c]).all()]
+    if loss_bad:
+        bad.append(f"losses part: {loss_bad}")
+    masters_e = [s[1] for s in estep.states]
+    moms_e = [s[0] for s in estep.states]
+    zeros = [torch.zeros_like(m) for m in moms_e]
+    gaps = {"imperative masters": group_gap(masters_i, masters_e, start),
+            "imperative momenta": group_gap(moms_i, moms_e, zeros),
+            "scan masters": group_gap([s[1] for s in sstep.states],
+                                      masters_e, start),
+            "scan momenta": group_gap([s[0] for s in sstep.states], moms_e,
+                                      zeros)}
+    bad += [f"{k} gap {v:.3e}" for k, v in gaps.items() if not v <= TK_GAP]
+    dts = {str(t.dtype) for t in weights_i + estep.weights + sstep.weights}
+    mdt = {str(t.dtype) for t in masters_i + masters_e + moms_i + moms_e}
+    if dts != {"torch.bfloat16"} or mdt != {"torch.float32"}:
+        bad.append(f"weights {dts}, masters and momenta {mdt}")
+    print(f"  (a) bfloat16 ResNet-50 with float32 masters, SGD lr 0.05 "
+          f"MultiFactorScheduler(step=[2, 4], factor=0.1): losses "
+          f"imperative {[round(v, 6) for v in losses_i]}, GluonTrainStep "
+          f"{[round(v, 6) for v in losses_e]}, one scan_steps call "
+          f"{[round(v, 6) for v in losses_s]}; rates {want_lr}; masters "
+          f"and momenta against GluonTrainStep (gap / movement): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (limit {TK_GAP:g}); accuracy {acc.get()[1]:.6f}, top-5 "
+          f"{top5.get()[1]:.6f} over the steps, each step's equal to "
+          f"numpy's; {EPI_PER_STEP} launches of each epilogue kernel a "
+          f"step eagerly, the scan's first call {scan_launches} with "
+          f"{EPI_PER_STEP * TK_STEPS} credited to its replay")
+    print(f"  (d) at each of the {TK_STEPS} step boundaries "
+          f"mxtpu_device_bytes_in_use{{device=cuda:0}} equals "
+          f"torch.cuda.memory_allocated(): "
+          f"{[s[1] for s in samples]} (peak {samples[-1][2]}); "
+          f"LogTelemetryCallback wrote {[int(v) for v in per_step]} scalars "
+          f"a step, "
+          f"Speedometer {len(speeds)} lines: "
+          f"{(speeds or [''])[-1][:90]!r}")
+    if bad:
+        raise AssertionError(f"phase 4e (a)/(d): {bad}")
+    print(f"  (a) {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return dict(losses=losses_i, gaps=gaps)
+
+
+def step_times(step, x, y, steps=10):
+    """(device ms, host ms, images/s) of one eager step: device time from
+    CUDA events (median of 25), host time per step over `steps` steps
+    closed by a read-back."""
+    dev = device_ms(lambda: step(x, y))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        loss = step(x, y)
+    loss.item()
+    host = (time.perf_counter() - t) / steps * 1e3
+    return dev, host, RESNET["batch"] / host * 1e3
+
+
+def update_bytes(weights, states):
+    """Bytes one update must move: each weight read and written, its
+    gradient read, each state tensor read and written."""
+    n = 0
+    for w, s in zip(weights, states):
+        k = w.numel() * w.element_size()
+        n += 3 * k
+        for part in (s if isinstance(s, tuple) else (s,)):
+            if part is not None and part.dim():
+                n += 2 * part.numel() * part.element_size()
+    return n
+
+
+def _err_text(v):
+    return str(v) if isinstance(v, tuple) else f"{v:.2e}"
+
+
+def toolkit_optimizers(device, gpu, batch):
+    """Phase 4e (b): every optimizer case on the float32 net, from one
+    step's gradients."""
+    x, y = batch
+    t0 = time.perf_counter()
+    net = resnet_net(batch, device)
+    gstep = resnet_step(net, device)
+    gstep._ensure_built(x, y)
+    _, grads, _ = gstep._grads(x, y)
+    names = list(gstep.names)
+    pdict = net.collect_params()
+    params = [pdict[n] for n in names]
+    w0 = [w.detach().clone() for w in gstep.weights]
+    del gstep
+    sub = list(range(40)) + [len(w0) - 2, len(w0) - 1]
+    w0_cpu = [w0[i].cpu() for i in sub]
+    g_cpu = [grads[i].cpu() for i in sub]
+    for p, g in zip(params, grads):
+        p.grad()._data.copy_(g)
+
+    def reset():
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.tensor().copy_(w)
+
+    def fused(device_ws, gs, nm, name, kw):
+        o = tmx.optimizer.create(name, **kw)
+        ws = [w.clone() for w in device_ws]
+        st = [o.create_fused_state(i, w) for i, w in enumerate(ws)]
+        for t in range(1, OPT_UPDATES + 1):
+            o.fused_updates(nm, ws, gs, st, o.lr,
+                            t=torch.tensor(float(t)))
+        return ws, st, o
+
+    def trainer_run(name, kw, knob):
+        os.environ["MXNET_OPTIMIZER_AGGREGATION_SIZE"] = knob
+        reset()
+        rescale = kw.get("rescale_grad", 1.0)
+        tr = tmx.gluon.Trainer(params, name, dict(kw))
+        for _ in range(OPT_UPDATES):
+            tr.step(1.0 / rescale)
+        return [p.tensor().detach().clone() for p in params]
+
+    rows, bad = [], []
+    knob = os.environ.get("MXNET_OPTIMIZER_AGGREGATION_SIZE")
+    try:
+        for name, kw in OPT_CASES:
+            label = f"{name} {kw}"
+            ws, st, o = fused(w0, list(grads), names, name, kw)
+            agg = trainer_run(name, kw, "4096")
+            eager = trainer_run(name, kw, "0")
+            cpu_ws, _, _ = fused(w0_cpu, g_cpu, [names[i] for i in sub],
+                                 name, kw)
+            finite = all(bool(torch.isfinite(w).all())
+                         for w in ws + agg + eager)
+            if not finite:
+                bad.append(f"{label}: non-finite weights")
+            errs = {}
+            if name == "sgld":
+                # the noise of one fused update: w1 - (w0 - lr/2 (g + wd w0))
+                o1 = tmx.optimizer.create(name, **kw)
+                wn = [w.clone() for w in w0]
+                o1.fused_updates(names, wn, list(grads), [None] * len(wn),
+                                 o1.lr, t=torch.tensor(1.0))
+                noise = torch.cat([(a - (w - o1.lr / 2 * g)).reshape(-1)
+                                   for a, w, g in zip(wn, w0, grads)])
+                sd = math.sqrt(o1.lr)
+                m, s = float(noise.mean()), float(noise.std())
+                errs["noise mean / sd"] = (m / sd, s / sd)
+                if abs(m) > 5 * sd / math.sqrt(noise.numel()) or \
+                        abs(s / sd - 1) > 1e-2:
+                    bad.append(f"{label}: noise mean {m}, sd {s} (want 0, "
+                               f"{sd})")
+            else:
+                pairs = [("aggregated", agg, eager)]
+                if name != "nadam":
+                    pairs += [("fused", ws, eager), ("fused", ws, agg)]
+                pairs += [("card fused against CPU", [ws[i] for i in sub],
+                           [w.to(device) for w in cpu_ws])]
+                for what, got, want in pairs:
+                    err = max(float((a - b).abs().max())
+                              for a, b in zip(got, want))
+                    errs[what] = max(errs.get(what, 0.0), err)
+                    if not all(torch.allclose(a, b, rtol=UPD_RTOL,
+                                              atol=UPD_ATOL)
+                               for a, b in zip(got, want)):
+                        bad.append(f"{label}: {what} max abs diff {err:.3e}")
+            # 2 train steps from the start
+            reset()
+            tstep = GluonTrainStep(net, resnet_loss,
+                                   tmx.optimizer.create(name, **kw),
+                                   device=device)
+            losses = [float(count_step(label, k, lambda: tstep(x, y)))
+                      for k in range(2)]
+            if not np.isfinite(losses).all():
+                bad.append(f"{label}: train-step losses {losses}")
+            lr_t = torch.tensor(float(o.lr or 0.0), device=device)
+            t_t = torch.tensor(4.0, device=device)
+            ms = device_ms(lambda: o.fused_updates(names, ws, list(grads),
+                                                   st, lr_t, t=t_t))
+            nbytes = update_bytes(ws, st)
+            bms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append((label, ms, bms, nbytes, losses, errs))
+            print(f"  (b) {label}: one update over ResNet-50's "
+                  f"{sum(w.numel() for w in ws)} parameters {ms:.3f} ms, "
+                  f"bound {bms:.3f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+                  f"{bms / ms:.2f} of it); paths "
+                  + ", ".join(f"{k} {_err_text(v)}" for k, v in errs.items())
+                  + f"; 2 GluonTrainStep losses "
+                  f"{[round(v, 5) for v in losses]} [{gpu}]")
+            del ws, st, o, agg, eager, tstep
+    finally:
+        if knob is None:
+            os.environ.pop("MXNET_OPTIMIZER_AGGREGATION_SIZE", None)
+        else:
+            os.environ["MXNET_OPTIMIZER_AGGREGATION_SIZE"] = knob
+    if bad:
+        raise AssertionError(f"phase 4e (b): {bad}")
+    print(f"  (b) {len(OPT_CASES)} optimizer cases, each {OPT_UPDATES} "
+          f"updates fused, aggregated and per parameter: "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return rows
+
+
+def toolkit_sr(device, gpu, batch):
+    """Phase 4e (c): stochastic rounding on the bfloat16 net."""
+    x, y = batch
+    xb = x.bfloat16()
+    t0 = time.perf_counter()
+    os.environ["MXTPU_STOCHASTIC_ROUNDING"] = "1"
+    knob = os.environ.get("MXNET_OPTIMIZER_AGGREGATION_SIZE")
+    kw = dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+              multi_precision=True)
+    bad = []
+    try:
+        net = resnet_net(batch, device, "bfloat16")
+        step = GluonTrainStep(net, resnet_loss, tmx.optimizer.SGD(**kw),
+                              device=device)
+        step._ensure_built(xb, y)
+        if any(isinstance(s, tuple) or s.dtype != torch.float32
+               for s in step.states):
+            bad.append("stochastic rounding states are not float32 "
+                       "momenta alone")
+        _, grads, _ = step._grads(xb, y)
+        pdict = net.collect_params()
+        params = [pdict[n] for n in step.names]
+        names = [p.name for p in params]
+        w0 = [w.detach().clone() for w in step.weights]
+        for p, g in zip(params, grads):
+            p.grad()._data.copy_(g)
+
+        def reset():
+            with torch.no_grad():
+                for p, w in zip(params, w0):
+                    p.tensor().copy_(w)
+
+        finals = {}
+        for path, knob_v in (("per_param", "0"), ("aggregated", "4096")):
+            os.environ["MXNET_OPTIMIZER_AGGREGATION_SIZE"] = knob_v
+            reset()
+            tr = tmx.gluon.Trainer(params, tmx.optimizer.SGD(**kw))
+            for _ in range(SR_STEPS):
+                tr.step(1)
+            finals[path] = ([p.tensor().detach().clone() for p in params],
+                            [tr._updater.states[i]._data.clone()
+                             for i in range(len(params))])
+        o = tmx.optimizer.SGD(**kw)
+        ws = [w.clone() for w in w0]
+        st = [o.create_fused_state(i, w) for i, w in enumerate(ws)]
+        for t in range(1, SR_STEPS + 1):
+            o.fused_updates(names, ws, list(grads), st,
+                            torch.tensor(0.05), t=torch.tensor(float(t)))
+        finals["fused"] = (ws, st)
+        ref_w, ref_m = finals["fused"]
+        for path in ("per_param", "aggregated"):
+            got_w, got_m = finals[path]
+            same = all(torch.equal(a, b) for a, b in zip(got_w, ref_w)) \
+                and all(torch.equal(a, b) for a, b in zip(got_m, ref_m))
+            if not same:
+                bad.append(f"{path} parts from the fused path's bits")
+        moved = sum(int((a != b).sum()) for a, b in zip(ref_w, w0))
+        # GluonTrainStep, 5 steps from the start
+        reset()
+        tstep = GluonTrainStep(net, resnet_loss, tmx.optimizer.SGD(**kw),
+                               device=device)
+        losses = [float(count_step("SR GluonTrainStep", k,
+                                   lambda: tstep(xb, y)))
+                  for k in range(SR_STEPS)]
+        if not np.isfinite(losses).all():
+            bad.append(f"SR losses {losses}")
+        # unbiasedness over SR_DRAWS draws of a fixed vector: the error
+        # in bfloat16 ulps, against the Bernoulli sigma of its mean
+        vec = torch.randn(1024, generator=torch.Generator().manual_seed(5))
+        vec = (vec * (1 + 2 ** -12)).to(device)
+        tiled = vec.repeat(SR_DRAWS)
+        bits = tmx.optimizer._hash_bits(0, 1, ["sr"], [tiled.numel()],
+                                        device)
+        r = tmx.optimizer.stochastic_round_bf16(tiled, bits).float()
+        ulp = (tiled.view(torch.int32) & 0x7F800000).view(
+            torch.float32) * 2 ** -7
+        lo = (tiled.view(torch.int32) & -65536).view(torch.float32)
+        frac = ((tiled - lo) / ulp).abs()
+        err = float(((r.abs() - tiled.abs()) / ulp).mean())
+        sigma = float((frac * (1 - frac)).mean().sqrt()) / math.sqrt(
+            tiled.numel())
+        if not abs(err) < 4 * sigma:
+            bad.append(f"SR mean error {err} ulp, sigma {sigma}")
+    finally:
+        os.environ.pop("MXTPU_STOCHASTIC_ROUNDING", None)
+        if knob is None:
+            os.environ.pop("MXNET_OPTIMIZER_AGGREGATION_SIZE", None)
+        else:
+            os.environ["MXNET_OPTIMIZER_AGGREGATION_SIZE"] = knob
+    print(f"  (c) stochastic rounding, bfloat16 ResNet-50: float32 momenta, "
+          f"no master; {SR_STEPS} updates per parameter, aggregated and "
+          f"fused bit-equal ({moved} weights moved); {SR_STEPS} "
+          f"GluonTrainStep losses {[round(v, 5) for v in losses]} with "
+          f"{EPI_PER_STEP} launches of each epilogue kernel a step; mean "
+          f"rounding error over {SR_DRAWS} draws of 1024 values "
+          f"{err:.3e} ulp (4 sigma {4 * sigma:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    if bad:
+        raise AssertionError(f"phase 4e (c): {bad}")
+    return dict(losses=losses, err=err, sigma=sigma)
+
+
+def toolkit_times(device, gpu, batch):
+    """Phase 4e's times: the bfloat16 ResNet-50 step of GluonTrainStep,
+    eager, under cuDNN's default algorithms, with plain SGD (bfloat16
+    momenta), with float32 masters and with stochastic rounding, in
+    turn."""
+    x, y = batch
+    xb = x.bfloat16()
+    plain = {k: v for k, v in TK_SGD.items() if k != "multi_precision"}
+    out = {}
+    for label, kw, sr in (("plain SGD", plain, False),
+                          ("float32 masters", TK_SGD, False),
+                          ("stochastic rounding", TK_SGD, True)):
+        if sr:
+            os.environ["MXTPU_STOCHASTIC_ROUNDING"] = "1"
+        try:
+            net = resnet_net(batch, device, "bfloat16")
+            step = GluonTrainStep(net, resnet_loss, tmx.optimizer.SGD(**kw),
+                                  device=device)
+            out[label] = step_times(step, xb, y)
+        finally:
+            os.environ.pop("MXTPU_STOCHASTIC_ROUNDING", None)
+        del net, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        dev, host, ips = out[label]
+        print(f"  bfloat16 ResNet-50 step, {label} (GluonTrainStep, eager, "
+              f"cuDNN's default algorithms): device {dev:.3f} ms, host "
+              f"{host:.3f} ms, {ips:.1f} images/s [{gpu}]")
+    return out
+
+
+def bench_modes_start():
+    """The port's bench in its dispatch-overhead and observatory modes,
+    each a child process on the card, started together."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    env.pop("MXNET_OPTIMIZER_AGGREGATION_SIZE", None)
+    return {mode: subprocess.Popen(
+        [sys.executable, "-m", "incubator_mxnet_tpu_torch.bench", flag],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+        for mode, flag in (("trainer_dispatch", "--dispatch-overhead"),
+                           ("observatory", "--observatory"))}
+
+
+BENCH_COUNTERS = {
+    "trainer_dispatch": dict(params=200, steps=5, per_param_dispatches=1000,
+                             aggregated_dispatches=5, weights_match=True),
+    "observatory": dict(steps=16, retraces_epoch1=0, retraces_epoch2=0,
+                        anomalies=0),
+}
+
+
+def bench_modes_finish(procs, gpu):
+    bad = []
+    for mode, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {mode} exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        want = BENCH_COUNTERS[mode]
+        got = {k: line.get(k) for k in want}
+        if got != want:
+            bad.append(f"{mode}: {got} against {want}")
+        secs = {k: line[k] for k in ("per_param_s", "aggregated_s", "value")
+                if k in line}
+        print(f"  (d) python3 -m incubator_mxnet_tpu_torch.bench, {mode}: "
+              f"{got}; seconds and ratios {secs}; "
+              + (f"phase coverage {line['value']}, ledger peak "
+                 f"{line['hbm_peak_bytes']} B in {line['hbm_peak_span']}, "
+                 f"compiled_fns {line['compiled_fns']}"
+                 if mode == "observatory" else "")
+              + f" [{gpu}]")
+    if bad:
+        raise AssertionError(f"phase 4e (d) bench modes: {bad}")
+
+
+def toolkit_leg(device, gpu):
+    """Phase 4e: parts (a)-(d); returns their results and the leg's
+    seconds."""
+    t0 = time.perf_counter()
+    batch = resnet_batch(device)
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"mp": toolkit_mp(device, gpu, batch)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["optimizers"] = toolkit_optimizers(device, gpu, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["sr"] = toolkit_sr(device, gpu, batch)
+        torch.backends.cudnn.deterministic = deterministic
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["times"] = toolkit_times(device, gpu, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    # alone on the card, after the timed steps
+    bench_modes_finish(bench_modes_start(), gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  training toolkit leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
@@ -4345,6 +5029,12 @@ def main():
     t_phase = phase_seconds(t_phase)
     print("phase 4d: gluon's recurrent surface, CTC, the zoo, the profiler")
     recurrent_leg(device, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
+    print("phase 4e: the training toolkit")
+    toolkit_leg(device, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -19,8 +19,11 @@ BatchNorm -> ReLU (-> add) chains with `MXTPU_FUSED_EPILOGUE` run the
 fused epilogue kernels; and gluon's imperative surface: the `NDArray`
 (`nd`) over the operator registry, `autograd.record` / `backward`, the
 global random state (`random`), device contexts (`cpu()`, `gpu()`),
-`gluon.Trainer`, `gluon.data` and the nn layers and losses, so the
-reference's loop runs as written:
+`gluon.Trainer` (with aggregated updates), `gluon.data` and the nn
+layers and losses; and the training toolkit: the 16 optimizers and their
+registry update ops, `lr_scheduler`, `metric`, `callback`, every
+initializer and the memory and TensorBoard telemetry, so the reference's
+loop runs as written:
 
     with autograd.record():
         loss = loss_fn(net(data), label)
@@ -31,9 +34,10 @@ Entry points take `device=None`, meaning CUDA; without CUDA they raise
 unless the caller passes `device="cpu"`, which runs each kernel's plain
 PyTorch version instead.
 """
-from . import (analysis, autograd, config, context, fused,  # noqa: F401
-               gluon, initializer, model, models, ndarray, ops, optimizer,
-               parallel, random, resilience, serving, telemetry)
+from . import (analysis, autograd, callback, config,  # noqa: F401
+               context, contrib, fused, gluon, initializer, lr_scheduler,
+               metric, model, models, ndarray, ops, optimizer, parallel,
+               random, resilience, serving, telemetry)
 from .context import (Context, cpu, current_context, gpu,  # noqa: F401
                       num_gpus, tpu)
 from .models import loss_fn, make_train_step  # noqa: F401
@@ -42,8 +46,9 @@ from .ndarray.ndarray import NDArray  # noqa: F401
 init = initializer
 nd = ndarray
 
-__all__ = ["analysis", "autograd", "config", "context", "fused", "gluon",
-           "init", "initializer", "model", "models", "nd", "ndarray",
+__all__ = ["analysis", "autograd", "callback", "config", "context",
+           "contrib", "fused", "gluon", "init", "initializer",
+           "lr_scheduler", "metric", "model", "models", "nd", "ndarray",
            "ops", "optimizer", "parallel", "random", "resilience",
            "serving", "telemetry", "loss_fn", "make_train_step", "Context",
            "cpu", "gpu", "tpu", "current_context", "num_gpus", "NDArray"]

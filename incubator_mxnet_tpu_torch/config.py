@@ -10,8 +10,9 @@ endpoints), the runtime sanitizers', resilience's (retry, fault
 injection), the serving fleet's and gateway's, the step statistics',
 the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
 `MXTPU_REMAT_POLICY`, and the imperative surface's (NDArray dtype, the
-trainer's guardrail, the checkpoint walk-back), and the model zoo's
-`MXTPU_MODELS_ROOT`.
+trainer's guardrail, the checkpoint walk-back), the model zoo's
+`MXTPU_MODELS_ROOT`, and the training toolkit's (stochastic rounding,
+the Trainer's update aggregation, the memory sampling interval).
 """
 from __future__ import annotations
 
@@ -334,3 +335,26 @@ _register("MXTPU_CKPT_WALKBACK", 8, int,
 _register("MXTPU_MODELS_ROOT", "", str,
           "Directory of the model zoo's parameter files (default "
           "~/.mxnet/models); nothing is downloaded.")
+
+# the training toolkit: optimizer aggregation, stochastic rounding, memory
+_register("MXTPU_STOCHASTIC_ROUNDING", False, bool,
+          "Master-free bf16 optimizer updates: for bf16 weights under "
+          "multi_precision, skip the f32 master copy and instead "
+          "compute the update in f32 from the bf16 weight, then "
+          "stochastically round the result back to bf16 (seeded per "
+          "(step, param); the unbiased rounding replaces the master's "
+          "role of accumulating sub-ulp updates). Cuts the f32 master "
+          "read+write from optimizer traffic. Opt-in: equivalence to "
+          "the f32-master path is to tolerance, not bit-exact.")
+_register("MXNET_OPTIMIZER_AGGREGATION_SIZE", 4096, int,
+          "Byte cap (in KB) of one aggregated optimizer-update bucket "
+          "on the eager Trainer path: parameters are grouped into "
+          "dtype-homogeneous buckets of at most this many KB and each "
+          "bucket is updated by ONE batched multi-tensor update instead "
+          "of one dispatch per parameter (the reference's knob of the "
+          "same name counts tensors; here the cap is bytes). 0 disables "
+          "aggregation (always per-param dispatch).")
+_register("MXNET_TELEMETRY_MEM_INTERVAL", 1, int,
+          "Trainer steps between device-memory watermark samples at "
+          "step boundaries (0 disables memory sampling; sampling reads "
+          "torch.cuda.memory_stats() per visible card plus host RSS).")

@@ -4,8 +4,14 @@ step on one device (the single-device part of
 
 A step runs the forward in training mode, takes `loss = mean(loss_fn(net,
 x, y))` in at least float32, its gradients with `torch.autograd.grad`,
-and the optimizer's fused update in place on every parameter whose
-`grad_req` is not "null". BatchNorm running stats move once per step
+and the optimizer's batched fused update (`fused_updates`) in place on
+every parameter whose `grad_req` is not "null", with the step's lr and
+update count as float32 tensors. The states come from the optimizer's
+`create_fused_state`: multi-precision SGD's (momentum, float32 master)
+on a low-precision weight, stochastic rounding's float32 momentum,
+Nadam's per-parameter schedule. A user's optimizer that defines only
+`update` runs that, with a warning, as in the JAX package. BatchNorm
+running stats move once per step
 (biased batch variance, `moving * momentum + batch * (1 - momentum)`):
 the forward defers their writes (`ops.nn.deferred_moving_writes`) and
 the step makes them after the backward, as the JAX step takes them back
@@ -65,6 +71,7 @@ import torch
 import torch.utils.checkpoint as _checkpoint
 
 from . import config, graphs, profiler
+from . import optimizer as _optimizer
 from . import telemetry as _telemetry
 from .config import resolve_device
 from .gluon.block import _ParamSubst, _RematUnits
@@ -182,11 +189,12 @@ def resolve_remat_policy(name):
 
 def _state_tensors(states):
     """The tensors of optimizer states: each state is None, a tensor or a
-    tuple of them (Adam's (mean, var))."""
+    tuple of them and None (Adam's (mean, var), multi-precision SGD's
+    (momentum or None, float32 master))."""
     out = []
     for s in states:
         if isinstance(s, tuple):
-            out.extend(s)
+            out.extend(_state_tensors(s))
         elif s is not None:
             out.append(s)
     return out
@@ -223,6 +231,7 @@ class GluonTrainStep:
         self.remat_policy = remat_policy or ""
         self._policy = resolve_remat_policy(self.remat_policy)
         self.remat = bool(remat) or bool(self.remat_policy)
+        _optimizer.warn_if_generic(optimizer)
         self._built = False
         self._n = 0
         self._pending_states = None
@@ -249,7 +258,7 @@ class GluonTrainStep:
         self.weights = [p.tensor() for n, p in params
                         if p.grad_req != "null"]
         self.aux = [p.tensor() for n, p in params if p.grad_req == "null"]
-        self.states = [self.opt.create_state(i, w)
+        self.states = [self.opt.create_fused_state(i, w)
                        for i, w in enumerate(self.weights)]
         if self._pending_states is not None:
             self._load_into_states(self._pending_states)
@@ -348,8 +357,8 @@ class GluonTrainStep:
                 target.copy_(value)
 
     def _update(self, grads, lr, t):
-        self.opt.update(self.names, self.weights, grads, self.states, lr,
-                        t=t)
+        self.opt.fused_updates(self.names, self.weights, grads, self.states,
+                               lr, t=t)
 
     def _step(self, x, y, lr, t):
         loss, grads, moving = self._grads(x, y)
@@ -470,13 +479,15 @@ class GluonTrainStep:
             raise RuntimeError("save_states before the first step: "
                                "optimizer states do not exist yet")
         def host(s):
+            if s is None:
+                return None
             if isinstance(s, tuple):
                 return tuple(host(p) for p in s)
             return s.detach().to("cpu", torch.float32
                                  if s.dtype == torch.bfloat16
                                  else s.dtype).numpy()
 
-        states = [None if s is None else host(s) for s in self.states]
+        states = [host(s) for s in self.states]
         with open(fname, "wb") as f:
             pickle.dump({"n": self._n, "states": states}, f)
 
@@ -548,7 +559,8 @@ class GluonTrainStep:
             torch.cuda.synchronize(self.device)
             temp = torch.cuda.max_memory_allocated(self.device) - base
             del loss, grads
-        state = _nbytes(self.weights + self.aux + self.states)
+        state = _nbytes(self.weights + self.aux
+                        + _state_tensors(self.states))
         return profiler.record_memory(name, {
             "argument_bytes": state + _nbytes([x, y]),
             "output_bytes": state + 4,

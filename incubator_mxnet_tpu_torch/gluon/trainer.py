@@ -4,27 +4,41 @@ device.
 `step(batch_size)` sets the optimizer's `rescale_grad` to
 `scale / batch_size` and updates every parameter whose `grad_req` is
 not "null" from its gradient buffer (`Parameter.grad()`, which
-`autograd.backward` wrote), through the optimizer's batched update
-(`Updater.update` -> `SGD.update`: one `torch._foreach_*` call per
-operation for a float32 group). The JAX Trainer's aggregated and
-per-parameter paths compute the same values (`_aggregation_supported`);
-the port has the one batched path. `allreduce_grads` is a no-op: there
-is no `dist` kvstore on one device, as `_init_kvstore` makes it there.
+`autograd.backward` wrote). `allreduce_grads` is a no-op: there is no
+`dist` kvstore on one device, as `_init_kvstore` makes it there.
 kvstore, ZeRO and the sparse embedding service wait for ROADMAP Queue A
 4-5 (`kvstore` names containing "dist" raise).
+
+Updates go one of two ways, as in the JAX Trainer. The aggregated path
+groups the parameters, in order, into dtype-homogeneous buckets of at
+most `MXNET_OPTIMIZER_AGGREGATION_SIZE` KB (the layout re-derived when
+the parameters' dtypes or shapes change) and updates each bucket with
+one batched call of the optimizer's `fused_updates`, the arithmetic the
+train step runs. The per-parameter path calls the `Updater` once per
+parameter (the optimizer's eager `update`, through the registry's update
+ops). The per-parameter path is taken when the knob is 0, for
+`ignore_stale_grad`, for an optimizer without a batched form of its own
+(a user's, which defines only `update`) and for one whose batched form
+does not reproduce its eager update (`fused_matches_eager` False: Nadam,
+SGLD). Both count `mxtpu_trainer_dispatches_total{kind=
+"optimizer_update", path="aggregated" | "per_param"}` (one per bucket,
+one per parameter) and the aggregated path observes each bucket's bytes
+(`mxtpu_trainer_bucket_bytes`), as JAX counts them. The states live in
+the Updater either way, so `save_states` / `load_states` see one set.
 
 The divergence guardrail (`MXTPU_GUARDRAIL_POLICY`) checks the
 gradients with one fused non-finite sweep (one host read) before they
 reach the optimizer: "skip" drops the update, "rollback" raises
 `GuardrailRollback`; "backoff" needs contrib.amp's loss scaler (Queue A
 6) and raises, naming it. With telemetry on a step is the
-`trainer.step` span, observes `mxtpu_trainer_step_seconds` and closes
-the step statistics (`stepstats.step_end()`).
+`trainer.step` span, observes `mxtpu_trainer_step_seconds`, samples the
+memory watermarks (`telemetry.step_boundary()`) and closes the step
+statistics (`stepstats.step_end()`).
 
 `save_states` / `load_states` use the Updater's pickle ({index: numpy
-array}, the JAX package's format); `save_checkpoint`, `save_bundle` and
-`auto_resume` write and read crash-consistent checkpoints and the
-preemption bundle through `resilience`.
+array | tuple | None}, the JAX package's format); `save_checkpoint`,
+`save_bundle` and `auto_resume` write and read crash-consistent
+checkpoints and the preemption bundle through `resilience`.
 """
 from __future__ import annotations
 
@@ -42,10 +56,28 @@ from .parameter import ParameterDict
 
 __all__ = ["GuardrailRollback", "Trainer"]
 
+_DISPATCHES = "mxtpu_trainer_dispatches_total"
+_DISPATCH_HELP = (
+    "Optimizer-update dispatches issued by the eager Trainer, by kind "
+    "(optimizer_update) and path (aggregated = one per bucket; per_param "
+    "= one per tensor).")
+_BUCKET_BYTES = "mxtpu_trainer_bucket_bytes"
+_BUCKET_HELP = ("Payload bytes of one aggregated-dispatch bucket "
+                "(kind: optimizer_update).")
+
 _GUARDRAIL_METRIC = "mxtpu_guardrail_trips_total"
 _GUARDRAIL_HELP = ("Divergence-guardrail trips in Trainer.step, by policy "
                    "(skip/backoff/rollback) and reason.")
 _GUARDRAIL_POLICIES = ("skip", "backoff", "rollback")
+
+
+def _state_data(state):
+    """An Updater state's tensors, in its layout."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_state_data(s) for s in state)
+    return state._data
 
 
 class GuardrailRollback(RuntimeError):
@@ -80,6 +112,12 @@ class Trainer:
             self._optimizer.idx2name.update(idx2name)
         self._updater = opt.get_updater(self._optimizer)
         self._kvstore = None
+        # the aggregation cap is read once; the bucket layout is derived
+        # again whenever the parameters' signature changes
+        self._agg_bytes = max(
+            0, int(_config.get("MXNET_OPTIMIZER_AGGREGATION_SIZE"))) * 1024
+        self._agg_sig = None
+        self._agg_buckets = []
 
     @property
     def learning_rate(self):
@@ -160,6 +198,8 @@ class Trainer:
                     "mxtpu_trainer_step_seconds", time.perf_counter() - t0,
                     help="End-to-end Trainer.step latency (allreduce + "
                          "optimizer update; excludes forward/backward).")
+                # the step boundary: where memory watermarks are sampled
+                _telemetry.step_boundary()
                 _telemetry.stepstats.step_end()
 
     def _step_impl(self, batch_size, ignore_stale_grad=False):
@@ -184,13 +224,93 @@ class Trainer:
             self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        live = [(i, p) for i, p in enumerate(self._params)
-                if p._data is not None]
-        if not live:
+        if not ignore_stale_grad and self._aggregation_supported():
+            self._update_aggregated()
             return
-        self._updater.update([i for i, _ in live],
-                             [p.grad() for _, p in live],
-                             [p.data() for _, p in live])
+        n = 0
+        for i, p in enumerate(self._params):
+            if p._data is None:
+                continue
+            self._updater(i, p.grad(), p.data())
+            n += 1
+        _telemetry.inc(_DISPATCHES, n, kind="optimizer_update",
+                       path="per_param", help=_DISPATCH_HELP)
+
+    # -- the aggregated multi-tensor update ---------------------------------
+
+    def _aggregation_supported(self):
+        """A batched form of the optimizer's own that reproduces its eager
+        update; a user's optimizer (only `update`) stays per parameter."""
+        o = self._optimizer
+        return (self._agg_bytes > 0
+                and type(o).fused_updates is not opt.Optimizer.fused_updates
+                and o.fused_matches_eager)
+
+    def _bucket_signature(self):
+        return tuple(None if p._data is None else
+                     (p._data.dtype, tuple(p._data.shape))
+                     for p in self._params)
+
+    def _build_update_buckets(self):
+        """Greedy in-order grouping into dtype-homogeneous buckets of at
+        most the byte cap (a parameter larger than the cap is a bucket of
+        its own)."""
+        buckets, cur, cur_bytes, cur_dt = [], [], 0, None
+        for i, p in enumerate(self._params):
+            if p._data is None:
+                continue
+            d = p._data
+            nb = d.numel() * d.element_size()
+            if cur and (d.dtype != cur_dt
+                        or cur_bytes + nb > self._agg_bytes):
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nb
+            cur_dt = d.dtype
+        if cur:
+            buckets.append(cur)
+        return buckets
+
+    def _update_aggregated(self):
+        sig = self._bucket_signature()
+        if sig != self._agg_sig:
+            self._agg_buckets = self._build_update_buckets()
+            self._agg_sig = sig
+        for bucket in self._agg_buckets:
+            self._dispatch_bucket(bucket)
+
+    def _dispatch_bucket(self, bucket):
+        """One batched update of a bucket: every count advances first (so
+        each parameter of step n sees num_update n, as on the eager
+        path), then `fused_updates` per distinct update count (one call
+        when the bucket stepped together)."""
+        o, u = self._optimizer, self._updater
+        weights = [self._params[i].data() for i in bucket]
+        new = [i for i in bucket if i not in u.states]
+        states = [u.state(i, w) for i, w in zip(bucket, weights)]
+        if new:
+            _telemetry.ledger.track(
+                [_state_data(u.states[i]) for i in new], "optimizer_state")
+        for i in bucket:
+            o._update_count(i)
+        lr = torch.tensor(o._base_lr(), dtype=torch.float32)
+        by_t = {}
+        for k, i in enumerate(bucket):
+            by_t.setdefault(o._index_update_count[i], []).append(k)
+        for t, ks in by_t.items():
+            o.fused_updates(
+                [o.idx2name.get(bucket[k], bucket[k]) for k in ks],
+                [weights[k]._data for k in ks],
+                [self._params[bucket[k]].grad()._data for k in ks],
+                [_state_data(states[k]) for k in ks], lr, t=t)
+        _telemetry.inc(_DISPATCHES, 1, kind="optimizer_update",
+                       path="aggregated", help=_DISPATCH_HELP)
+        _telemetry.observe(
+            _BUCKET_BYTES, sum(w._data.numel() * w._data.element_size()
+                               for w in weights),
+            help=_BUCKET_HELP, buckets=_telemetry.BYTES_BUCKETS,
+            kind="optimizer_update")
 
     # -- state --------------------------------------------------------------
 

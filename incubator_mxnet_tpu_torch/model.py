@@ -1,11 +1,13 @@
 """Checkpoint discovery (`incubator_mxnet_tpu/model.py`): the newest
 verified epoch checkpoint under a prefix, the walk-back that
-`gluon.Trainer.auto_resume` starts from. The rest of `model.py` (the
-legacy `FeedForward` and the checkpoint helpers of the symbolic API)
-waits for the symbolic slice.
+`gluon.Trainer.auto_resume` starts from, and `BatchEndParam`, what
+batch-end callbacks receive. The rest of `model.py` (the legacy
+`FeedForward` and the checkpoint helpers of the symbolic API) waits for
+the symbolic slice.
 """
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import re
@@ -14,7 +16,10 @@ from . import config as _config
 from . import resilience as _resilience
 from . import telemetry as _telemetry
 
-__all__ = ["latest_valid_checkpoint"]
+__all__ = ["BatchEndParam", "latest_valid_checkpoint"]
+
+BatchEndParam = collections.namedtuple(
+    "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
 
 logger = logging.getLogger(__name__)
 

@@ -1,8 +1,9 @@
 """Runtime telemetry for the port: the metrics registry, tracing spans,
 request traces, the flight recorder, SLOs, the capture registry, the
 train step's phase statistics (`stepstats`), the memory ledger
-(`ledger`) and the exporters, with the JAX package's names and
-semantics.
+(`ledger`), memory watermarks at step boundaries (`memory`), the
+TensorBoard callback (`tb`) and the exporters, with the JAX package's
+names and semantics.
 
 Off by default. `MXNET_TELEMETRY=1` (or `enable()`) turns it on; while
 off every instrumented site short-circuits: `span()` hands back a shared
@@ -25,6 +26,7 @@ import threading
 from .. import config as _config
 from .metrics import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, REGISTRY, DEFAULT_BUCKETS,
+    BYTES_BUCKETS,
 )
 from .names import (  # noqa: F401
     METRIC_NAMES, SPAN_NAMES, is_registered_metric, is_registered_span,
@@ -41,15 +43,18 @@ from . import compilereg  # noqa: F401
 from . import slo  # noqa: F401
 from . import stepstats  # noqa: F401
 from . import ledger  # noqa: F401
+from .memory import sample_device_memory, step_boundary  # noqa: F401
+from .tb import LogTelemetryCallback  # noqa: F401
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
-    "DEFAULT_BUCKETS",
+    "DEFAULT_BUCKETS", "BYTES_BUCKETS",
     "Span", "NoopSpan", "current_span", "span",
     "distributed", "recorder", "log_event",
     "dump_json", "prometheus_text", "start_http_server", "to_dict",
     "register_debug_handler", "unregister_debug_handler",
     "compilereg", "slo", "stepstats", "ledger",
+    "sample_device_memory", "step_boundary", "LogTelemetryCallback",
     "enabled", "enable", "disable", "refresh_from_env",
     "counter", "gauge", "histogram", "inc", "observe", "set_gauge",
     "METRIC_NAMES", "SPAN_NAMES", "is_registered_metric",

@@ -13,7 +13,7 @@ from ..analysis.sanitizers import san_lock
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
-    "DEFAULT_BUCKETS",
+    "DEFAULT_BUCKETS", "BYTES_BUCKETS",
 ]
 
 # latency-oriented buckets in seconds (Prometheus client defaults, extended
@@ -22,6 +22,8 @@ DEFAULT_BUCKETS = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
+# payload-size buckets, 4 KiB to 1 GiB by powers of 4
+BYTES_BUCKETS = tuple(float(4 * 1024 * 4 ** i) for i in range(10))
 
 
 def _label_key(labels):

@@ -195,8 +195,8 @@ def test_adam_update_matches_jax():
     for t, g in enumerate(grads, 1):
         jw, js = jo.fused_update("w", jw, jmx.nd.array(g)._data, js, 0.01,
                                  t=float(t))
-        to.update(["w"], [tw], [torch.from_numpy(g)], [ts],
-                  torch.tensor(0.01), t=torch.tensor(float(t)))
+        to.fused_updates(["w"], [tw], [torch.from_numpy(g)], [ts],
+                         torch.tensor(0.01), t=torch.tensor(float(t)))
         np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6,
                                    atol=1e-7)
         for a, b in zip(ts, js):

@@ -146,20 +146,25 @@ def _parity(key, name=None):
 
 def test_registry_covers_the_jax_ops():
     """Every name of JAX's ops/tensor.py, ops/nn.py (RNN and the CTC loss
-    among them) and ops/random.py is registered in the port."""
+    among them), ops/random.py and ops/optimizer.py (the 20 update ops)
+    is registered in the port, with JAX's inputs, attributes and
+    non-differentiated inputs."""
     from incubator_mxnet_tpu.ops.registry import OP_REGISTRY as JAX_REG
 
     mods = ("incubator_mxnet_tpu.ops.tensor", "incubator_mxnet_tpu.ops.nn",
-            "incubator_mxnet_tpu.ops.random")
+            "incubator_mxnet_tpu.ops.random",
+            "incubator_mxnet_tpu.ops.optimizer")
     want = {n for n, o in JAX_REG.items() if o.fn.__module__ in mods}
     want.add("GroupNorm")
     assert set(OP_REGISTRY) == want
-    assert len(OP_REGISTRY) == 329
+    assert len(OP_REGISTRY) == 349
     for name in OP_REGISTRY:
         j, t = JAX_REG[name], OP_REGISTRY[name]
         assert (t.name, tuple(t.inputs), t.variadic) == \
             (j.name, tuple(j.inputs), j.variadic), name
         assert set(t.attrs) == set(j.attrs), name
+        if j.fn.__module__ == "incubator_mxnet_tpu.ops.optimizer":
+            assert set(t.no_grad_inputs) == set(j.no_grad_inputs), name
 
 
 @pytest.mark.parametrize("name", DETERMINISTIC)

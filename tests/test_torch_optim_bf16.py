@@ -127,7 +127,7 @@ def test_the_update_keeps_the_weight_and_momentum_objects_and_dtypes():
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", list(CASES))
 def test_a_batched_update_equals_one_update_per_parameter(dtype, case):
-    """`update` over many parameters (groups split by lr_mult, wd_mult and
+    """`fused_updates` over many parameters (groups split by lr_mult, wd_mult and
     dtype, as the train step calls it) gives each parameter the bits of
     its own `fused_update`."""
     tdt = DTYPES[dtype][1]
@@ -153,7 +153,7 @@ def test_a_batched_update_equals_one_update_per_parameter(dtype, case):
               for p, dt in zip(pieces(m, torch.float32), dts)]
         lr = torch.tensor(LR, dtype=torch.float32)
         if batched:
-            opt.update(names, ws, gs, ms, lr)
+            opt.fused_updates(names, ws, gs, ms, lr)
         else:
             for args in zip(names, ws, gs, ms):
                 opt.fused_update(*args, lr)

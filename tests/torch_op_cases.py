@@ -318,6 +318,59 @@ CASES["RNN"] = _rnn_case("lstm", 2, True, 2, state_outputs=True)
 CASES["CTCLoss"] = lambda r: ([2 * A(r, 6, 3, 5),
                                I([[1, 2, 0], [3, 3, 1], [4, 0, 0]])], {})
 
+# the optimizer updates (ops/optimizer.py): weight, gradient and states of
+# (3, 4); positive second moments; rescale, clip and weight decay on
+_OPT = {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5}
+
+
+def _opt_case(*inputs, **attrs):
+    """An update's case: `inputs` drawn in order; `attrs` over _OPT, an
+    attribute given as None left out (the multi-tensor ops take lrs and
+    wds)."""
+    merged = {k: v for k, v in {**_OPT, **attrs}.items() if v is not None}
+    return lambda r: ([f(r) for f in inputs], dict(merged))
+
+
+_W, _PW = _a(3, 4), _p(3, 4)
+CASES["sgd_update"] = _opt_case(_W, _W, clip_gradient=0.4)
+CASES["sgd_mom_update"] = _opt_case(_W, _W, _W, momentum=0.9,
+                                    clip_gradient=0.4)
+CASES["nag_mom_update"] = _opt_case(_W, _W, _W, momentum=0.9)
+CASES["adam_update"] = _opt_case(_W, _W, _W, _PW, clip_gradient=0.4)
+CASES["rmsprop_update"] = _opt_case(_W, _W, _PW, gamma1=0.9,
+                                    clip_weights=0.8)
+CASES["rmspropalex_update"] = _opt_case(
+    _W, _W, _p(3, 4), lambda r: 0.1 * A(r, 3, 4), _W, gamma1=0.9,
+    gamma2=0.8)
+CASES["ftrl_update"] = _opt_case(_W, _W, _W, _PW, lamda1=0.05, beta=1.5)
+CASES["signsgd_update"] = _opt_case(_W, _W)
+CASES["signum_update"] = _opt_case(_W, _W, _W, momentum=0.9, wd_lh=0.01)
+CASES["ftml_update"] = _opt_case(_W, _W, _PW, _PW, _W, t=2,
+                                 clip_grad=0.4)
+CASES["adamw_update"] = _opt_case(_W, _W, _W, _PW, eta=0.7)
+CASES["multi_sgd_update"] = _opt_case(
+    _W, _W, _a(5), _a(5), lrs=(0.1, 0.05), wds=(0.01, 0.0), num_weights=2,
+    lr=None, wd=None)
+CASES["multi_sgd_mom_update"] = _opt_case(
+    _W, _W, _W, _a(5), _a(5), _a(5), lrs=(0.1, 0.05), wds=(0.01, 0.0),
+    num_weights=2, momentum=0.9, lr=None, wd=None)
+CASES["multi_mp_sgd_update"] = _opt_case(
+    _W, _W, _W, _a(5), _a(5), _a(5), lrs=(0.1, 0.05), wds=(0.01, 0.0),
+    num_weights=2, lr=None, wd=None)
+CASES["multi_mp_sgd_mom_update"] = _opt_case(
+    _W, _W, _W, _W, _a(5), _a(5), _a(5), _a(5), lrs=(0.1, 0.05),
+    wds=(0.01, 0.0), num_weights=2, momentum=0.9, lr=None, wd=None)
+CASES["mp_sgd_update"] = _opt_case(_W, _W, _W, clip_gradient=0.4)
+CASES["mp_sgd_mom_update"] = _opt_case(_W, _W, _W, _W, momentum=0.9)
+CASES["_adamw_update"] = lambda r: (
+    [A(r, 3, 4), A(r, 3, 4), A(r, 3, 4), P(r, 3, 4), I([0.5])],
+    {"lr": 0.1, "wd": 0.01, "eta": 0.7, "clip_gradient": 0.4})
+CASES["_mp_adamw_update"] = lambda r: (
+    [A(r, 3, 4), A(r, 3, 4), A(r, 3, 4), P(r, 3, 4), A(r, 3, 4), I([0.5])],
+    {"lr": 0.1, "wd": 0.01})
+CASES["_contrib_group_adagrad_update"] = lambda r: (
+    [A(r, 3, 4), A(r, 3, 4), P(r, 3, 1)], {"lr": 0.1, "rescale_grad": 0.5})
+
 # an alias whose case differs from its op's (a second path of the op)
 NAME_CASES = {
     "pad": lambda r: ([A(r, 1, 2, 3, 4)],
