@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path (through CUDA graphs, and behind
 the fault-tolerant fleet and its HTTP gateway), its transformer train
-step and its ResNet-50 train step on one CUDA card and hold its
+step, its ResNet-50 train step, gluon's surfaces and the recommender
+path (DLRM, the parameter server) on one CUDA card and hold its
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
@@ -211,6 +212,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
    then the bfloat16 step's device and host ms and images/s with plain
    SGD, float32 masters and stochastic rounding, cuDNN's default
    algorithms;
+4f. the recommender path (no kernel of the ten runs on it: gathers,
+   segment sums and lazy updates, plain in the JAX package too): (a)
+   the port's `bench.py --recommender --assert` at its defaults (3
+   fields, 2 shards, batch 32, 6 batches x 2 epochs, naive then opt),
+   its nine exact counters equal to ci/perf_baseline.json's; (b) DLRM
+   at the Criteo Kaggle widths (facebookresearch/dlrm
+   bench/dlrm_s_criteo_kaggle.sh: 26 tables of the Kaggle category
+   counts, 33,762,577 rows x 16 float32 = 2.16 GB on the card, 13 dense
+   features, bottom 512-256-64, top 512-256), local arm, random Xavier
+   weights (seed 42), batch 128 drawn as the bench draws (zipf(1.3)
+   ids, RandomState(11)), SGD lr 0.1 lazy on the tables, 20 steps of
+   `autograd.record` -> `backward` -> `Trainer.step`: the first 3 held
+   to the CPU path from the same weights (losses rtol 1e-5; touched
+   rows and towers rtol 1e-5, atol 1e-6), the 20 rerun from the same
+   start bit-equal; host ms, kernel ms and busy share (profiler window),
+   launches, unique rows, samples/s and peak allocation a step; (c) the
+   same widths through launch_local_fleet(2) with each field capped at
+   20,000 rows (207,398 rows, 13.3 MB; the servers' per-row init costs
+   about 10 us a row), naive then opt, 2 epochs over 6 batches:
+   weights bit-identical, pull RPCs a step opt <= 2 < naive, steady
+   retraces 0, worker embedding bytes below the full table's, the
+   sparse_pull p50s, through the bench's own `recommender_run`; (d)
+   examples/matrix_factorization.py as written, its imports replaced by
+   the port's (lazy Adam, 512 x 256 x 16, 4 epochs): RMSE falls,
+   per-epoch RMSE equal
+   to the CPU's at rtol 1e-5, the user table's gradient row sparse on
+   the card with <= 64 rows;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -4083,6 +4111,374 @@ def toolkit_leg(device, gpu):
     return out
 
 
+# -- phase 4f: the recommender path ------------------------------------------
+
+# the 26 Criteo Kaggle category counts (facebookresearch/dlrm
+# bench/dlrm_s_criteo_kaggle.sh): 33,762,577 rows
+KAGGLE = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+          8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18,
+          15, 286181, 105, 142572)
+DLRM_WIDTHS = dict(num_dense=13, embed_dim=16, bottom_units=(512, 256, 64),
+                   top_units=(512, 256))
+DLRM_BATCH = 128
+DLRM_STEPS = 20
+DLRM_HELD = 3         # steps held against the CPU path
+DLRM_RTOL, DLRM_ATOL = 1e-5, 1e-6
+DLRM_LR = 0.1
+PS_CAP = 20000        # rows a field on the PS leg (the per-row init's cost)
+PS_BATCHES, PS_EPOCHS = 6, 2
+REC_EXACT = ("dedup_factor", "full_table_bytes", "num_servers", "num_tables",
+             "rpc_per_step", "rpc_per_step_naive", "steady_retraces",
+             "weights_match", "worker_embedding_bytes")
+REC_REPORT = ("value", "throughput_naive", "sparse_pull_p50_opt",
+              "sparse_pull_p50_naive", "prefetch_ready")
+# examples/matrix_factorization.py's defaults, which phase 4f (d) runs
+MF = dict(users=512, items=256, factors=16, epochs=4)
+MF_RTOL = 1e-5
+
+
+def recommender_bench(gpu):
+    """(a) the port's `bench.py --recommender --assert` at its defaults;
+    its nine exact counters against ci/perf_baseline.json."""
+    from incubator_mxnet_tpu_torch import bench
+
+    out = bench.recommender_main(assert_mode=True, ctx=tmx.gpu(0))
+    with open(os.path.join(ROOT, "ci", "perf_baseline.json")) as f:
+        base = json.load(f)["metrics"]
+    bad = {k: (out[k], base[f"recommender.{k}"]["value"]) for k in REC_EXACT
+           if out[k] != base[f"recommender.{k}"]["value"]}
+    if bad:
+        raise AssertionError(f"phase 4f (a): counters against "
+                             f"ci/perf_baseline.json: {bad}")
+    print(f"  (a) bench --recommender --assert: "
+          + ", ".join(f"{k} {out[k]}" for k in REC_EXACT)
+          + " (all equal ci/perf_baseline.json); report only: "
+          + ", ".join(f"{k} {out[k]}" for k in REC_REPORT) + f" [{gpu}]")
+    return out
+
+
+def dlrm_batches(vocabs, n, seed=11):
+    """`n` batches drawn as bench.py's recommender draws them: dense
+    `rand`, ids (zipf(1.3) - 1) % vocab per field, labels `randint`."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        xd = rng.rand(DLRM_BATCH, DLRM_WIDTHS["num_dense"]).astype("float32")
+        ids = np.stack([(rng.zipf(1.3, size=DLRM_BATCH) - 1) % v
+                        for v in vocabs], axis=1)
+        y = rng.randint(0, 2, (DLRM_BATCH, 1)).astype("float32")
+        out.append((xd, ids, y))
+    return out
+
+
+def dlrm_step(net, trainer, loss_fn, batch, ctx):
+    """One step of the reference's loop: record, backward, step."""
+    xd, ids, y = batch
+    with ctx:
+        x, lab = tmx.nd.array(xd), tmx.nd.array(y)
+        with tmx.autograd.record():
+            loss = loss_fn(net(x, ids), lab).mean()
+        loss.backward()
+        trainer.step(1)
+    return loss
+
+
+def dlrm_local(ctx, init, batch):
+    """DLRM at the Kaggle widths with the local arm on `ctx`, its deferred
+    tower shapes resolved by a forward of `batch` outside record()."""
+    from incubator_mxnet_tpu_torch.models import DLRM
+
+    net = DLRM(KAGGLE, **DLRM_WIDTHS)
+    net.initialize(init, ctx=ctx)
+    with ctx, tmx.autograd.pause():
+        net(tmx.nd.array(batch[0]), batch[1])
+    return net, net._collect_params_with_prefix()
+
+
+def dlrm_run(net, params, batches, ctx, record_at=None, timed=None):
+    """Steps over `batches` with a fresh Trainer (plain SGD, lazy on the
+    tables); returns the losses and, at step `record_at`, the host state
+    {name: array}; `timed` (a list) gets (host s, device ms) a step."""
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": DLRM_LR})
+    loss_fn = tmx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    losses, held = [], None
+    for i, batch in enumerate(batches):
+        if timed is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+        loss = dlrm_step(net, trainer, loss_fn, batch, ctx)
+        if timed is not None:
+            end.record()
+        losses.append(float(loss.asnumpy()))
+        if timed is not None:
+            timed.append((time.perf_counter() - t0, start.elapsed_time(end)))
+        if record_at is not None and i + 1 == record_at:
+            held = {n: p.data()._data.detach().to("cpu", copy=True)
+                    for n, p in params.items()}
+    return losses, held
+
+
+def touched_rows(batches):
+    """{table param name: the ids `batches` touch}."""
+    return {f"sparse_arm.f{i}.weight": np.unique(np.concatenate(
+        [b[1][:, i] for b in batches])) for i in range(len(KAGGLE))}
+
+
+def dlrm_kaggle_leg(device, gpu):
+    """(b) DLRM at the Criteo Kaggle widths, local arm on the card."""
+    t0 = time.perf_counter()
+    card_ctx, cpu_ctx = tmx.gpu(0), tmx.cpu()
+    batches = dlrm_batches(KAGGLE, DLRM_STEPS)
+    tmx.random.seed(42)
+    torch.cuda.reset_peak_memory_stats()
+    net, params = dlrm_local(card_ctx, tmx.init.Xavier(), batches[0])
+    init_s = time.perf_counter() - t0
+    tables = [p for n, p in params.items() if n.startswith("sparse_arm.")]
+    table_bytes = sum(p.data()._data.numel() * p.data()._data.element_size()
+                      for p in tables)
+    if len(tables) != len(KAGGLE) or not all(
+            p.data()._data.device.type == device.type
+            for p in params.values()):
+        raise AssertionError("phase 4f (b): the tables are not all on the "
+                             "card")
+    start = {n: p.data()._data.detach().clone() for n, p in params.items()}
+    # the CPU path from the same weights: every table carried to the host
+    cpu_net, cpu_params = dlrm_local(cpu_ctx, tmx.init.Zero(), batches[0])
+    for n, p in cpu_params.items():
+        p.set_data(start[n].cpu())
+    cpu_losses, cpu_held = dlrm_run(cpu_net, cpu_params,
+                                    batches[:DLRM_HELD], cpu_ctx,
+                                    record_at=DLRM_HELD)
+    del cpu_net, cpu_params
+    gc.collect()
+    timed = []
+    losses, held = dlrm_run(net, params, batches, card_ctx,
+                            record_at=DLRM_HELD, timed=timed)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.allclose(losses[:DLRM_HELD], cpu_losses, rtol=DLRM_RTOL,
+                       atol=0):
+        raise AssertionError(f"phase 4f (b): card losses "
+                             f"{losses[:DLRM_HELD]} against the CPU's "
+                             f"{cpu_losses}")
+    rows = touched_rows(batches[:DLRM_HELD])
+    worst = 0.0
+    for n in held:
+        got, want = held[n], cpu_held[n]
+        if n in rows:
+            idx = torch.from_numpy(rows[n])
+            got, want = got[idx], want[idx]
+        worst = max(worst, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=DLRM_RTOL, atol=DLRM_ATOL):
+            raise AssertionError(f"phase 4f (b): {n} after {DLRM_HELD} "
+                                 f"steps differs from the CPU path by "
+                                 f"{float((got - want).abs().max()):.3e}")
+    final = {n: p.data()._data.detach().clone() for n, p in params.items()}
+    # the same 20 steps again from the same start: bit-equal
+    with torch.no_grad():
+        for n, p in params.items():
+            p.data()._data.copy_(start[n])
+    again, _ = dlrm_run(net, params, batches, card_ctx)
+    same = again == losses and all(torch.equal(p.data()._data, final[n])
+                                   for n, p in params.items())
+    if not same:
+        raise AssertionError("phase 4f (b): a rerun of the 20 steps from "
+                             "the same start is not bit-equal")
+    del start, final
+    uniq = np.mean([sum(len(np.unique(b[1][:, f])) for f in range(len(
+        KAGGLE))) for b in batches])
+    host = [t for t, _ in timed[DLRM_HELD:]]
+    dev = [d for _, d in timed[DLRM_HELD:]]
+    loss_fn = tmx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": DLRM_LR})
+    stats = {}
+    it = iter(batches * 2)
+    _, events = busy_share(
+        lambda: dlrm_step(net, trainer, loss_fn, next(it), card_ctx)
+        .asnumpy(), "Kaggle DLRM step (local arm)", gpu, steps=5,
+        kinds=True, stats=stats)
+    launches = sum(n for name, n in events.items()
+                   if not name.startswith(("Memcpy", "Memset")))
+    kernel_ms = (stats["busy"] * stats["wall_s"] / 5 * 1e3
+                 if stats.get("busy") is not None else None)
+    out = dict(losses=losses, table_bytes=table_bytes,
+               host_ms=float(np.median(host)) * 1e3,
+               event_ms=float(np.median(dev)), kernel_ms=kernel_ms,
+               samples_per_s=DLRM_BATCH / float(np.median(host)),
+               launches_per_step=launches / 5, uniq_rows=uniq,
+               busy=stats.get("busy"), peak_bytes=peak, init_s=init_s,
+               held_err=worst)
+    print(f"  (b) DLRM at the Criteo Kaggle widths, local arm: 26 tables, "
+          f"{sum(KAGGLE)} rows x 16 float32 = {table_bytes / 1e9:.3f} GB on "
+          f"the card (initialized in {init_s:.1f} s); {DLRM_STEPS} steps at "
+          f"batch {DLRM_BATCH}, losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"the first {DLRM_HELD} equal the CPU path's from the same weights "
+          f"(losses rtol {DLRM_RTOL:g}; touched rows and towers rtol "
+          f"{DLRM_RTOL:g}, atol {DLRM_ATOL:g}, largest gap {worst:.3e}); a "
+          f"rerun from the same start bit-equal")
+    print(f"      a step: host {out['host_ms']:.3f} ms, CUDA events "
+          f"{out['event_ms']:.3f} ms (the step's host syncs included; "
+          f"median of steps {DLRM_HELD + 1}-{DLRM_STEPS}), "
+          + (f"kernels {kernel_ms:.3f} ms, busy {out['busy']:.1%} (the "
+             f"profiler window), " if kernel_ms is not None else
+             "kernel time and busy share not measured, ")
+          + f"{out['launches_per_step']:.0f} kernel launches, "
+          f"{uniq:.1f} unique rows; {out['samples_per_s']:.1f} samples/s "
+          f"(host clock); peak allocation {peak / 2**30:.3f} GiB; leg "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    del net, params, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_leg(gpu):
+    """(c) the Kaggle widths through the PS-sharded service, each field
+    capped at PS_CAP rows, naive then opt, by the bench's own
+    `recommender_run`."""
+    from incubator_mxnet_tpu_torch import bench
+
+    vocabs = [min(v, PS_CAP) for v in KAGGLE]
+    # PS_EPOCHS passes over the same PS_BATCHES batches: the second epoch
+    # is the steady state whose pulls must register no new signature
+    batches = dlrm_batches(vocabs, PS_BATCHES, seed=11) * PS_EPOCHS
+    telemetry.enable()
+    with tmx.gpu(0):
+        runs = {mode: bench.recommender_run(mode, vocabs, batches,
+                                            PS_BATCHES, widths=DLRM_WIDTHS,
+                                            lr=DLRM_LR)
+                for mode in ("naive", "opt")}
+    naive, opt = runs["naive"], runs["opt"]
+    full = sum(vocabs) * DLRM_WIDTHS["embed_dim"] * 4
+    per_step = {m: (r["pull_rpcs_batched"] + r["pull_rpcs_per_key"])
+                / r["steps"] for m, r in runs.items()}
+    problems = []
+    if naive["weights_sha"] != opt["weights_sha"]:
+        problems.append("naive and opt weights differ")
+    if not per_step["opt"] <= 2 < per_step["naive"]:
+        problems.append(f"pull RPCs a step {per_step}")
+    if opt["steady_retraces"] != 0:
+        problems.append(f"steady retraces {opt['steady_retraces']}")
+    emb_bytes = opt["worker_embedding_bytes"]
+    if not 0 < emb_bytes < full:
+        problems.append(f"worker embedding bytes {emb_bytes} against "
+                        f"the full table's {full}")
+    if problems:
+        raise AssertionError(f"phase 4f (c): {problems}")
+    print(f"  (c) the Kaggle widths through 2 PS shards ({sum(vocabs)} rows, "
+          f"{full / 1e6:.1f} MB; each field capped at {PS_CAP} rows), "
+          f"{PS_EPOCHS} x {PS_BATCHES} batches of {DLRM_BATCH}: naive and opt "
+          f"weights bit-identical; pull RPCs a step naive "
+          f"{per_step['naive']:g}, opt {per_step['opt']:g}; steady retraces "
+          f"{opt['steady_retraces']:g}; prefetch ready "
+          f"{opt['prefetch_ready']:g}; worker embedding bytes {emb_bytes} "
+          f"(full table {full}); sparse_pull p50 naive "
+          f"{naive['sparse_pull_p50'] * 1e3:.3f} ms, opt "
+          f"{opt['sparse_pull_p50'] * 1e3:.3f} ms; steps/s naive "
+          f"{naive['steps_per_s']:.2f}, opt {opt['steps_per_s']:.2f} (host "
+          f"clock; server-side init {naive['init_s']:.1f} s and "
+          f"{opt['init_s']:.1f} s) [{gpu}]")
+    return runs
+
+
+def mf_run(ctx):
+    """examples/matrix_factorization.py as written, at its defaults (the
+    sizes of MF), its imports replaced by the port's, on `ctx`; returns
+    the per-epoch RMSE (unrounded, from the example's own log records)
+    and the user table's gradient of its closing 64-sample step."""
+    import contextlib
+    import io
+    import logging
+
+    path = os.path.join(ROOT, "examples", "matrix_factorization.py")
+    with open(path) as f:
+        src = f.read().replace("incubator_mxnet_tpu", "incubator_mxnet_tpu_torch")
+    module = {"__name__": "matrix_factorization_port", "__file__": path}
+    exec(compile(src, path, "exec"), module)
+    nets = []
+
+    class MFBlock(module["MFBlock"]):
+        """The example's block, kept to read its gradient afterwards."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            nets.append(self)
+
+    module["MFBlock"] = MFBlock
+    rmse = []
+
+    class Epochs(logging.Handler):
+        def emit(self, record):  # "epoch %d  rmse %.4f", epoch, rmse
+            rmse.append(float(record.args[1]))
+
+    log, root = logging.getLogger("mf"), logging.getLogger()
+    root_handlers, root_level = root.handlers[:], root.level
+    handler = Epochs()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    argv, sys.argv = sys.argv, [path]
+    out = io.StringIO()
+    try:
+        with ctx, contextlib.redirect_stdout(out):
+            module["main"]()
+    finally:
+        sys.argv = argv
+        log.removeHandler(handler)
+        log.propagate = True
+        log.setLevel(logging.NOTSET)
+        # the example's basicConfig must not leave the root logging
+        root.handlers[:] = root_handlers
+        root.setLevel(root_level)
+    if "matrix_factorization OK" not in out.getvalue():
+        raise AssertionError("phase 4f (d): matrix_factorization did not "
+                             "finish")
+    if len(rmse) != MF["epochs"]:
+        raise AssertionError(f"phase 4f (d): {len(rmse)} epochs logged")
+    return rmse, nets[-1].user.weight.grad()
+
+
+def mf_leg(gpu):
+    """(d) the matrix-factorization loop on the card against the CPU."""
+    t0 = time.perf_counter()
+    rmse, g = mf_run(tmx.gpu(0))
+    card_s = time.perf_counter() - t0
+    cpu_rmse, _ = mf_run(tmx.cpu())
+    if not rmse[-1] < rmse[0]:
+        raise AssertionError(f"phase 4f (d): RMSE did not fall: {rmse}")
+    if not (isinstance(g, tmx.nd.sparse.RowSparseNDArray) and g.data._data
+            .is_cuda and g.indices.shape[0] <= 64):
+        raise AssertionError(f"phase 4f (d): the user table's gradient is "
+                             f"{type(g).__name__}, not row-sparse rows of "
+                             f"the batch on the card")
+    if not np.allclose(rmse, cpu_rmse, rtol=MF_RTOL, atol=0):
+        raise AssertionError(f"phase 4f (d): per-epoch RMSE {rmse} against "
+                             f"the CPU's {cpu_rmse}")
+    print(f"  (d) examples/matrix_factorization.py as written "
+          f"({MF['users']} users x {MF['items']} "
+          f"items x {MF['factors']} factors, lazy Adam, {MF['epochs']} "
+          f"epochs): RMSE {', '.join(f'{x:.5f}' for x in rmse)} equal to "
+          f"the CPU's at rtol {MF_RTOL:g}; the user grad row-sparse, "
+          f"{g.indices.shape[0]} rows; {card_s:.1f} s on the card [{gpu}]")
+    return rmse
+
+
+def recommender_leg(device, gpu):
+    """Phase 4f: parts (a)-(d); returns their results and the leg's
+    seconds."""
+    t0 = time.perf_counter()
+    out = {"bench": recommender_bench(gpu)}
+    out["kaggle"] = dlrm_kaggle_leg(device, gpu)
+    out["ps"] = ps_leg(gpu)
+    out["mf"] = mf_leg(gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  recommender leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
@@ -5035,6 +5431,12 @@ def main():
     t_phase = phase_seconds(t_phase)
     print("phase 4e: the training toolkit")
     toolkit_leg(device, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
+    print("phase 4f: the recommender path (no kernel of the ten runs on it)")
+    recommender_leg(device, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -22,8 +22,11 @@ global random state (`random`), device contexts (`cpu()`, `gpu()`),
 `gluon.Trainer` (with aggregated updates), `gluon.data` and the nn
 layers and losses; and the training toolkit: the 16 optimizers and their
 registry update ops, `lr_scheduler`, `metric`, `callback`, every
-initializer and the memory and TensorBoard telemetry, so the reference's
-loop runs as written:
+initializer and the memory and TensorBoard telemetry; and the
+recommender path: row-sparse storage (`nd.sparse`) with the lazy
+optimizer updates, the parameter server (`ps`, `kvstore_server`),
+`kvstore` (`kv`), the sharded embedding service (`embedding`) and DLRM
+(`models.DLRM`), so the reference's loop runs as written:
 
     with autograd.record():
         loss = loss_fn(net(data), label)
@@ -38,6 +41,7 @@ from . import (analysis, autograd, callback, config,  # noqa: F401
                context, contrib, fused, gluon, initializer, lr_scheduler,
                metric, model, models, ndarray, ops, optimizer, parallel,
                random, resilience, serving, telemetry)
+from . import embedding, kvstore, kvstore_server, ps  # noqa: F401
 from .context import (Context, cpu, current_context, gpu,  # noqa: F401
                       num_gpus, tpu)
 from .models import loss_fn, make_train_step  # noqa: F401
@@ -45,10 +49,16 @@ from .ndarray.ndarray import NDArray  # noqa: F401
 
 init = initializer
 nd = ndarray
+kv = kvstore
 
 __all__ = ["analysis", "autograd", "callback", "config", "context",
            "contrib", "fused", "gluon", "init", "initializer",
            "lr_scheduler", "metric", "model", "models", "nd", "ndarray",
            "ops", "optimizer", "parallel", "random", "resilience",
            "serving", "telemetry", "loss_fn", "make_train_step", "Context",
-           "cpu", "gpu", "tpu", "current_context", "num_gpus", "NDArray"]
+           "cpu", "gpu", "tpu", "current_context", "num_gpus", "NDArray",
+           "embedding", "kv", "kvstore", "kvstore_server", "ps"]
+
+# a process launched in the server role serves here and exits, as the
+# reference's import does (kvstore_server.py:92)
+kvstore_server._init_kvstore_server_module()

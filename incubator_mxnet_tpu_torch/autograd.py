@@ -13,6 +13,16 @@ into the variable's own buffer by its `grad_req`: "write" overwrites,
 "add" accumulates, "null" leaves it alone (torch's own `.grad`
 accumulation is never used). `grad(create_graph=True)` keeps the
 gradient computation recorded, for second derivatives.
+
+`sparse_embedding` is the lookup whose recorded weight gradient is row
+sparse: it gathers the batch's unique rows into a fresh leaf (a "tap" of
+the weight) and looks the ids up in that block, so the gradient torch
+computes is the (unique rows, width) block, with duplicate ids summed by
+the embedding backward (sorted on the card, the same order every run).
+`backward` turns each tap's gradient into a `RowSparseNDArray` over the
+unique ids, and the weight's buffer becomes that array, as in the JAX
+package; a dense gradient of the same weight in the same pass is added
+to it densely.
 """
 from __future__ import annotations
 
@@ -24,11 +34,16 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "get_symbol", "invoke_recorded"]
+           "backward", "grad", "get_symbol", "invoke_recorded",
+           "sparse_embedding"]
 
 _STATE = threading.local()
 # id -> NDArray of every live variable (marked with a gradient buffer)
 _VARIABLES = weakref.WeakValueDictionary()
+# the row-sparse taps of recorded sparse_embedding lookups: (weakref to
+# the weight NDArray, weakref to the gathered-rows leaf, unique ids,
+# weight shape); a tap dies with its graph
+_TAPS = []
 _NDArray = None
 
 
@@ -129,6 +144,62 @@ def _unaliased(outs, datas):
             and o.untyped_storage().data_ptr() in ptrs else o for o in outs]
 
 
+def sparse_embedding(x, weight, input_dim, output_dim):
+    """Look the ids `x` (a tensor) up in `weight` (an NDArray, an autograd
+    variable) and return the (*x.shape, output_dim) tensor. Inside
+    `record()` the weight's gradient is recorded row sparse: only the
+    batch's unique ids appear in it, duplicates summed."""
+    w = weight._data
+    idx = x.reshape(-1).to(device=w.device, dtype=torch.int64)
+    shape = tuple(x.shape) + (int(output_dim),)
+    if not is_recording():
+        with torch.no_grad():
+            return torch.nn.functional.embedding(idx, w).reshape(shape)
+    uniq, inv = torch.unique(idx, sorted=True, return_inverse=True)
+    rows = w.detach()[uniq].requires_grad_(True)
+    _TAPS[:] = [t for t in _TAPS if t[1]() is not None]
+    _TAPS.append((weakref.ref(weight), weakref.ref(rows), uniq,
+                  (int(input_dim), int(output_dim))))
+    with torch.enable_grad():
+        return torch.nn.functional.embedding(inv, rows).reshape(shape)
+
+
+def _live_taps():
+    """[(weight NDArray, rows leaf, unique ids, shape)] of the live taps."""
+    out = []
+    for wref, rref, uniq, shape in _TAPS:
+        w, rows = wref(), rref()
+        if w is not None and rows is not None:
+            out.append((w, rows, uniq, shape))
+    return out
+
+
+def _sparse_grads(taps, got):
+    """{id(weight): RowSparseNDArray} from the taps' block gradients (two
+    taps of one weight add sparsely)."""
+    from .ndarray.sparse import RowSparseNDArray, add as sparse_add
+
+    out = {}
+    for (w, _rows, uniq, shape), g in zip(taps, got):
+        if g is None:
+            continue
+        rsp = RowSparseNDArray(_nd_cls()._from_data(g),
+                               _nd_cls()._from_data(uniq), shape,
+                               unique=True)
+        prev = out.get(id(w))
+        out[id(w)] = rsp if prev is None else sparse_add(prev, rsp)
+    return out
+
+
+def _forget_taps(taps, got):
+    """Drop the taps this backward reached (their gradient came back); a
+    tap of another graph recorded in the same scope stays for its own
+    backward."""
+    used = {id(t[1]) for t, g in zip(taps, got) if g is not None}
+    _TAPS[:] = [t for t in _TAPS if t[1]() is not None
+                and id(t[1]()) not in used]
+
+
 def mark_variables(variables, gradients, grad_reqs="write"):
     """Mark `variables` (NDArrays) as leaves with the gradient buffers
     `gradients`: each tensor is detached and, unless its grad_req is
@@ -182,28 +253,71 @@ def backward(heads, head_grads=None, retain_graph=False,
     variables = [v for v in list(_VARIABLES.values())
                  if v._grad is not None and v._grad_req != "null"
                  and v._data.requires_grad and v._data.is_leaf]
+    live = {id(v) for v in variables}
+    taps = [t for t in _live_taps() if id(t[0]) in live]
     if not variables:
         return
-    got = torch.autograd.grad(outs, [v._data for v in variables],
-                              grad_outputs=grads, retain_graph=retain_graph,
-                              allow_unused=True)
+    got = torch.autograd.grad(
+        outs, [v._data for v in variables] + [t[1] for t in taps],
+        grad_outputs=grads, retain_graph=retain_graph, allow_unused=True)
+    sparse = _sparse_grads(taps, got[len(variables):])
+    if not retain_graph:
+        _forget_taps(taps, got[len(variables):])
     gen = _state().record_gen
     for v, g in zip(variables, got):
+        sp = sparse.get(id(v))
+        if sp is not None:
+            if g is not None:  # a dense use too: the sum is dense
+                g = g + sp.todense()._data
+            else:
+                _write_sparse(v, sp, gen)
+                continue
         if g is None:
             continue
         buf = v._grad
+        if _is_sparse(buf):
+            # a dense gradient displaces the sparse buffer
+            prev = buf.todense()._data if v._grad_req == "add" else None
+            buf = v._grad = _nd_cls()._from_data(
+                prev if prev is not None else torch.zeros_like(v._data))
         if v._grad_req == "add":
             buf._data = buf._data + g.to(buf._data.dtype)
             continue
-        if v._grad_gen == gen:
-            warnings.warn(
-                "gradient overwritten by a second backward() in the "
-                "same record() scope; for sharded losses use "
-                "autograd.backward([loss1, loss2, ...]) (accumulates "
-                "in one pass) or attach_grad(grad_req='add')",
-                RuntimeWarning, stacklevel=2)
+        _warn_overwrite(v, gen)
         buf._data = g.to(buf._data.dtype).reshape(buf._data.shape)
-        v._grad_gen = gen
+
+
+def _is_sparse(x):
+    from .ndarray.sparse import BaseSparseNDArray
+    return isinstance(x, BaseSparseNDArray)
+
+
+def _warn_overwrite(v, gen):
+    """Warn when a "write" gradient replaces one written by an earlier
+    backward of the same record() scope; mark the buffer written."""
+    if v._grad_gen == gen:
+        warnings.warn(
+            "gradient overwritten by a second backward() in the "
+            "same record() scope; for sharded losses use "
+            "autograd.backward([loss1, loss2, ...]) (accumulates "
+            "in one pass) or attach_grad(grad_req='add')",
+            RuntimeWarning, stacklevel=3)
+    v._grad_gen = gen
+
+
+def _write_sparse(v, sp, gen):
+    """Write a row-sparse gradient by the variable's grad_req: "write"
+    makes it the buffer, "add" adds it (sparsely to a sparse buffer)."""
+    from .ndarray.sparse import add as sparse_add
+
+    buf = v._grad
+    if v._grad_req != "add":
+        _warn_overwrite(v, gen)
+        v._grad = sp
+    elif _is_sparse(buf):
+        v._grad = sparse_add(buf, sp)
+    else:
+        buf._data = buf._data + sp.todense()._data.to(buf._data.dtype)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -218,18 +332,29 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if retain_graph is None:
         retain_graph = create_graph
     live = [v for v in variables if v._data.requires_grad]
+    ids = {id(v) for v in live}
+    taps = [t for t in _live_taps() if id(t[0]) in ids]
     got = dict.fromkeys(map(id, variables))
+    sparse = {}
     if outs and live:
         with torch.set_grad_enabled(create_graph):
-            res = torch.autograd.grad(outs, [v._data for v in live],
-                                      grad_outputs=grads,
-                                      retain_graph=retain_graph,
-                                      create_graph=create_graph,
-                                      allow_unused=True)
+            res = torch.autograd.grad(
+                outs, [v._data for v in live] + [t[1] for t in taps],
+                grad_outputs=grads, retain_graph=retain_graph,
+                create_graph=create_graph, allow_unused=True)
         got.update({id(v): g for v, g in zip(live, res)})
-    out = [NDArray._from_data(got[id(v)] if got[id(v)] is not None
-                              else torch.zeros_like(v._data))
-           for v in variables]
+        sparse = _sparse_grads(taps, res[len(live):])
+    out = []
+    for v in variables:
+        g, sp = got[id(v)], sparse.get(id(v))
+        if sp is not None and g is None:
+            out.append(sp)
+            continue
+        if g is None:
+            g = torch.zeros_like(v._data)
+        if sp is not None:
+            g = g + sp.todense()._data
+        out.append(NDArray._from_data(g))
     return out[0] if single else out
 
 

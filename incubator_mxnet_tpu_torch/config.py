@@ -12,7 +12,10 @@ the ResNet train step's `MXTPU_FUSED_EPILOGUE` and
 `MXTPU_REMAT_POLICY`, and the imperative surface's (NDArray dtype, the
 trainer's guardrail, the checkpoint walk-back), the model zoo's
 `MXTPU_MODELS_ROOT`, and the training toolkit's (stochastic rounding,
-the Trainer's update aggregation, the memory sampling interval).
+the Trainer's update aggregation, the memory sampling interval), and
+the recommender path's (the parameter server's address, secret,
+timeouts and dedup window, heartbeats, the embedding shard fleet, row
+prefetch and the sparse nnz grid).
 """
 from __future__ import annotations
 
@@ -358,3 +361,70 @@ _register("MXNET_TELEMETRY_MEM_INTERVAL", 1, int,
           "Trainer steps between device-memory watermark samples at "
           "step boundaries (0 disables memory sampling; sampling reads "
           "torch.cuda.memory_stats() per visible card plus host RSS).")
+
+# the recommender path: the parameter server, kvstore heartbeats, the
+# sharded embedding service and the sparse nnz grid
+_register("MXTPU_COORDINATOR", "", str,
+          "host:port of the job's coordinator (ref role: "
+          "DMLC_PS_ROOT_URI); the parameter server defaults to its host "
+          "and port + 23.")
+_register("MXTPU_PS_ADDR", "", str,
+          "host:port of the parameter server (default: coordinator "
+          "host, coordinator port + 23).")
+_register("MXTPU_PS_SECRET", "", str,
+          "Shared job secret HMAC-authenticating the parameter "
+          "server's optimizer blobs (the only pickled payload on the "
+          "PS wire). Set it identically on every worker; unset, each "
+          "process draws a random one (same-process pairs only).")
+_register("MXTPU_PS_CONNECT_TIMEOUT", 30.0, float,
+          "Seconds one PSClient connect attempt may take before it "
+          "counts as failed and the retry policy redials.")
+_register("MXTPU_PS_SOCKET_TIMEOUT", 320.0, float,
+          "Idle timeout (seconds) on an established PSClient socket; "
+          "must exceed the server-side sync/barrier wait so a blocked "
+          "quorum RPC is not misread as a dead server.")
+_register("MXTPU_PS_SYNC_TIMEOUT", 300.0, float,
+          "Server-side cap (seconds) on one sync-push merge or "
+          "barrier generation wait; heartbeat evictions re-evaluate "
+          "the quorum well before this fires.")
+_register("MXTPU_PS_DEDUP_WINDOW", 128, int,
+          "Mutating RPCs remembered per client for exactly-once "
+          "replay suppression across reconnects; must exceed the "
+          "deepest pipelining a client does (the eager client "
+          "pipelines 1).")
+_register("MXTPU_PS_BUCKET_KB", 1024, int,
+          "Byte cap (KiB) of one push_many/pull_many bucket on "
+          "dist_async_server: list-key pushpulls batch into a single "
+          "RPC pair per bucket. 0 disables batching (one RPC pair per "
+          "key).")
+_register("MXTPU_MAX_WORKERS", 0, int,
+          "Elastic world cap for the parameter server: join RPCs may "
+          "admit brand-new ranks until num_workers reaches this value "
+          "(growth commits at the next barrier boundary). 0 keeps the "
+          "world fixed at the configured size; re-admission of "
+          "already-known ranks is always allowed.")
+_register("MXTPU_HEARTBEAT_INTERVAL", 2.0, float,
+          "Seconds between heartbeat touches.")
+_register("MXTPU_HEARTBEAT_TIMEOUT", 20.0, float,
+          "Heartbeat staleness after which a peer counts as dead "
+          "(ref: ps-lite PS_HEARTBEAT_TIMEOUT).")
+_register("MXTPU_EMBEDDING_SHARDS", "", str,
+          "Comma-separated host:port list of the embedding-shard PS "
+          "fleet (embedding.ShardedEmbeddingService). Row r of every "
+          "sharded table lives only on server r % num_shards, so no "
+          "worker ever materializes a table. Empty (default): the "
+          "service must be handed explicit addresses or in-process "
+          "servers (tests/bench).")
+_register("MXTPU_SPARSE_PREFETCH", True, bool,
+          "Overlap embedding-row pulls with dense compute: the sharded "
+          "embedding service runs pulls and row-sparse grad pushes on "
+          "an ordered background thread, so the next batch's rows "
+          "stream in behind the current step's dense forward/backward "
+          "(the blocking remainder is the sparse_pull stepstats "
+          "phase). Off: every pull is a blocking RPC on the critical "
+          "path; same math, no overlap.")
+_register("MXTPU_SPARSE_NNZ_BUCKETING", False, bool,
+          "Pad sparse (data, indices) buffers and the embedding "
+          "service's pull blocks along nnz to the next power-of-2 "
+          "bucket (floor 16), so a stream of batches sees a few stable "
+          "shapes instead of one per distinct nnz.")

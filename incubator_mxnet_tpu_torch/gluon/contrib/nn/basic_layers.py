@@ -1,8 +1,8 @@
 """Contrib basic layers
 (`incubator_mxnet_tpu/gluon/contrib/nn/basic_layers.py`): `Concurrent`,
-`HybridConcurrent`, `Identity`, `SyncBatchNorm` on one device and
-`PixelShuffle{1,2,3}D`. `SparseEmbedding` waits for sparse storage
-(ROADMAP Queue A 5)."""
+`HybridConcurrent`, `Identity`, `SparseEmbedding` (local, or a table on
+a parameter-server shard fleet), `SyncBatchNorm` on one device and
+`PixelShuffle{1,2,3}D`."""
 from __future__ import annotations
 
 import math
@@ -10,12 +10,15 @@ import math
 import numpy as np
 import torch
 
+from ....embedding import host_ids, lookup_block
 from ....ops import nn as _nn
 from ...block import HybridBlock, training_mode
-from ...nn.basic_layers import BatchNorm, HybridSequential, Sequential
+from ...nn.basic_layers import (BatchNorm, Embedding, HybridSequential,
+                                Sequential)
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
-           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "SyncBatchNorm", "PixelShuffle1D", "PixelShuffle2D",
+           "PixelShuffle3D"]
 
 
 class Concurrent(Sequential):
@@ -52,6 +55,63 @@ class Identity(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return x
+
+
+class SparseEmbedding(Embedding):
+    """An embedding with row-sparse gradients; given a
+    `ShardedEmbeddingService`, a table that lives only on the
+    parameter-server shard fleet.
+
+    Local mode (`service=None`): `Embedding(sparse_grad=True)`.
+
+    Remote mode (`service=` an `embedding.ShardedEmbeddingService`): no
+    weight Parameter exists here. The table is registered on the fleet
+    (rows hash-sharded, initialized by the servers), and each forward
+    pulls only the batch's deduplicated, bucket-padded unique rows into a
+    block on the current context (ledger role `embedding`), looks the
+    ids up in it and, under `autograd.record()`, marks the block as a
+    variable whose gradient the service pushes back row sparse.
+    `per_key=True` takes the naive blocking one-RPC-per-table wire (the
+    recommender bench's baseline); the arithmetic is the same."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=True, service=None,
+                 table=None, scale=0.05, seed=0, per_key=False, **kwargs):
+        if service is None:
+            self._remote = None
+            super().__init__(input_dim, output_dim, dtype=dtype,
+                             weight_initializer=weight_initializer,
+                             sparse_grad=sparse_grad, **kwargs)
+            return
+        HybridBlock.__init__(self, **kwargs)
+        self._input_dim = int(input_dim)
+        self._output_dim = int(output_dim)
+        self._service = service
+        self._per_key = bool(per_key)
+        self._remote = service.table(table or self.name, input_dim,
+                                     output_dim, dtype=dtype, scale=scale,
+                                     seed=seed)
+
+    def prefetch(self, x):
+        """Queue the pull of ids `x` on the service's background worker
+        (a no-op in local and per-key modes)."""
+        if self._remote is None or self._per_key:
+            return
+        self._service.prefetch([(self._remote.name,
+                                 host_ids(x).reshape(-1))])
+
+    def forward(self, x, *args):
+        if self._remote is None:
+            return super().forward(x, *args)
+        raw = host_ids(x).reshape(-1)
+        if self._per_key:
+            block, inv, n_uniq = self._service.pull_per_key(
+                self._remote.name, raw)
+        else:
+            block, inv, n_uniq = self._remote.pull(raw)
+        out = lookup_block(self._service, self._remote.name, raw, block,
+                           inv, n_uniq)
+        return out.reshape(tuple(x.shape) + (self._output_dim,))
 
 
 def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps,

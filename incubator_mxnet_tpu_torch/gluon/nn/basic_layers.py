@@ -1,7 +1,7 @@
 """Gluon basic layers (`incubator_mxnet_tpu/gluon/nn/basic_layers.py`).
 
-`Embedding` takes dense gradients only (`sparse_grad` waits for sparse
-storage, ROADMAP Queue A 5). `Lambda` / `HybridLambda` given an op name
+`Embedding(sparse_grad=True)` records a row-sparse weight gradient on
+the eager tape. `Lambda` / `HybridLambda` given an op name
 call the tensor-level `F` function of that name: blocks called with
 NDArrays hand their forward the tensors."""
 from __future__ import annotations
@@ -9,6 +9,9 @@ from __future__ import annotations
 import functools
 import math
 
+import torch
+
+from ... import autograd
 from ... import initializer as init_mod
 from ...ops import epilogue
 from ..block import Block, HybridBlock, _F, _RematUnits, training_mode
@@ -278,22 +281,41 @@ class GroupNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """A (input_dim, output_dim) lookup table for integer indices."""
+    """A (input_dim, output_dim) lookup table for integer indices.
+
+    With `sparse_grad=True` the weight's gradient is row sparse
+    (`grad_stype="row_sparse"`): inside `autograd.record()` the lookup
+    records only the rows the batch touches (`autograd.sparse_embedding`),
+    and the lazy optimizer paths update only those rows. Called with
+    tensors (a train step's forward, a CUDA graph capture) the lookup is
+    the dense gather, as JAX's jitted path is."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise NotImplementedError("Embedding(sparse_grad=True) waits for "
-                                      "sparse storage (ROADMAP Queue A 5)")
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
+
+    def _sparse_tape(self, weight):
+        """The eager tape records this lookup row sparse: the weight is
+        the parameter's own tensor (no train step's substitute) and no
+        CUDA graph is being captured."""
+        p = self.weight
+        return (p.grad_stype == "row_sparse" and autograd.is_recording()
+                and p._nd is not None and weight is p._nd._data
+                and not (weight.is_cuda
+                         and torch.cuda.is_current_stream_capturing()))
 
     def hybrid_forward(self, F, x, weight):
+        if self._sparse_tape(weight):
+            return autograd.sparse_embedding(x, self.weight.data(),
+                                             self._input_dim,
+                                             self._output_dim)
         return F.Embedding(x, weight, input_dim=self._input_dim,
                            output_dim=self._output_dim)
 

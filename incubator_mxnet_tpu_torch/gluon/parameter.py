@@ -16,6 +16,12 @@ block.
 `cast` rebinds the data to a new `torch.nn.Parameter` (in the same
 NDArray): a holder of the old tensor (a train step built before the
 cast) no longer sees it.
+
+A parameter with `grad_stype="row_sparse"` (an embedding table) starts
+with an empty `RowSparseNDArray` gradient instead of a table-sized zero
+buffer; `autograd.backward` replaces it with the rows a batch touched
+(or a dense gradient, when the table is used densely), and `zero_grad`
+empties it again.
 """
 from __future__ import annotations
 
@@ -52,8 +58,11 @@ class DeferredInitializationError(Exception):
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
+        self.stype = stype
+        self.grad_stype = grad_stype
         self._grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
@@ -140,12 +149,19 @@ class Parameter:
             self._nd = NDArray._from_data(data)
         self._nd._data = data
         if self._grad_req != "null":
-            autograd.mark_variables(
-                [self._nd], [NDArray._from_data(torch.zeros_like(tensor))],
-                self._grad_req)
+            autograd.mark_variables([self._nd], [self._empty_grad(tensor)],
+                                    self._grad_req)
             self._nd._data = data  # mark_variables detached it
         else:
             self._nd._grad = None
+
+    def _empty_grad(self, tensor):
+        """A zero dense buffer, or an empty row_sparse one."""
+        if self.grad_stype == "row_sparse":
+            from ..ndarray import sparse
+            return sparse.zeros("row_sparse", tuple(tensor.shape),
+                                ctx=tensor.device, dtype=tensor.dtype)
+        return NDArray._from_data(torch.zeros_like(tensor))
 
     def _check(self):
         if self._nd is None:
@@ -191,10 +207,17 @@ class Parameter:
         return [self._nd.context] if self._nd is not None else []
 
     def zero_grad(self):
-        """Zero the gradient buffer in place."""
-        if self._nd is not None and self._nd._grad is not None:
-            with torch.no_grad():
-                self._nd._grad._data.zero_()
+        """Zero the gradient buffer in place (a row_sparse gradient, or a
+        dense one that displaced it, starts again from the empty buffer
+        of the parameter's grad_stype)."""
+        if self._nd is None or self._nd._grad is None:
+            return
+        g = self._nd._grad
+        if self.grad_stype == "row_sparse" or not isinstance(g, NDArray):
+            self._nd._grad = self._empty_grad(self._nd._data)
+            return
+        with torch.no_grad():
+            g._data.zero_()
 
     def _device(self):
         """The device of the data, or the one `initialize` gave a deferred

@@ -1,16 +1,29 @@
-"""The gluon Trainer (`incubator_mxnet_tpu/gluon/trainer.py`), on one
-device.
+"""The gluon Trainer (`incubator_mxnet_tpu/gluon/trainer.py`).
 
 `step(batch_size)` sets the optimizer's `rescale_grad` to
 `scale / batch_size` and updates every parameter whose `grad_req` is
 not "null" from its gradient buffer (`Parameter.grad()`, which
-`autograd.backward` wrote). `allreduce_grads` is a no-op: there is no
-`dist` kvstore on one device, as `_init_kvstore` makes it there.
-kvstore, ZeRO and the sparse embedding service wait for ROADMAP Queue A
-4-5 (`kvstore` names containing "dist" raise).
+`autograd.backward` wrote; a `RowSparseNDArray` for a row-sparse
+embedding, which the optimizer's lazy path takes).
+
+The kvstore (`_init_kvstore`, at the first step): `kvstore=
+"dist_async_server"` (or `update_on_kvstore=True` with a local store, or
+a `kvstore.KVStore` given with it) makes the store apply the optimizer:
+the Trainer ships the optimizer and the weights once, then each step
+pushes the gradients and pulls the updated weights, with no local
+update. A `KVStore` given without `update_on_kvstore` is an allreduce
+buffer: `allreduce_grads` push-pulls each dense gradient through it (on
+one worker the sum of one); a row-sparse gradient stays as it is. Other
+strings ("device", "local") mean one device and no store. The
+collective 'dist_sync' / 'dist_async' stores are ROADMAP Queue A 4
+(`kvstore.create` raises). `attach_sparse_service` wires a
+`ShardedEmbeddingService` into the step: its stashed row-sparse
+gradients are pushed after the dense work. ZeRO waits for Queue A 4.
 
 Updates go one of two ways, as in the JAX Trainer. The aggregated path
-groups the parameters, in order, into dtype-homogeneous buckets of at
+groups the dense-typed parameters (a parameter with a row-sparse
+`stype` or `grad_stype` goes to the per-parameter rest), in order, into
+dtype-homogeneous buckets of at
 most `MXNET_OPTIMIZER_AGGREGATION_SIZE` KB (the layout re-derived when
 the parameters' dtypes or shapes change) and updates each bucket with
 one batched call of the optimizer's `fused_updates`, the arithmetic the
@@ -49,8 +62,10 @@ import time
 import torch
 
 from .. import config as _config
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from .. import telemetry as _telemetry
+from ..ndarray.ndarray import NDArray
 from ..resilience import fault as _fault
 from .parameter import ParameterDict
 
@@ -69,6 +84,18 @@ _GUARDRAIL_METRIC = "mxtpu_guardrail_trips_total"
 _GUARDRAIL_HELP = ("Divergence-guardrail trips in Trainer.step, by policy "
                    "(skip/backoff/rollback) and reason.")
 _GUARDRAIL_POLICIES = ("skip", "backoff", "rollback")
+
+
+def _grad_tensor(g):
+    """The values of a gradient: a dense one's tensor, a row-sparse
+    one's rows."""
+    from ..ndarray.sparse import BaseSparseNDArray
+    return g.data._data if isinstance(g, BaseSparseNDArray) else g._data
+
+
+def _sparse_typed(p):
+    return (getattr(p, "stype", "default") != "default"
+            or getattr(p, "grad_stype", "default") != "default")
 
 
 def _state_data(state):
@@ -93,13 +120,6 @@ class Trainer:
                  update_on_kvstore=None):
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
-        if isinstance(kvstore, str) and "dist" in kvstore:
-            raise NotImplementedError(
-                f"kvstore={kvstore!r}: distributed kvstores are not ported "
-                "yet (ROADMAP Queue A 4)")
-        if update_on_kvstore:
-            raise NotImplementedError("update_on_kvstore needs a "
-                                      "parameter server (ROADMAP Queue A 5)")
         self._params = [p for p in params if p.grad_req != "null"]
         self._all_params = list(params)
         self._scale = 1.0
@@ -111,13 +131,19 @@ class Trainer:
             self._optimizer = optimizer
             self._optimizer.idx2name.update(idx2name)
         self._updater = opt.get_updater(self._optimizer)
+        self._kvstore_arg = kvstore
         self._kvstore = None
+        self._kv_initialized = False
+        self._update_on_kvstore = update_on_kvstore
+        self._kv_shipped_rescale = None
+        self._sparse_service = None
         # the aggregation cap is read once; the bucket layout is derived
         # again whenever the parameters' signature changes
         self._agg_bytes = max(
             0, int(_config.get("MXNET_OPTIMIZER_AGGREGATION_SIZE"))) * 1024
         self._agg_sig = None
         self._agg_buckets = []
+        self._agg_rest = []
 
     @property
     def learning_rate(self):
@@ -129,12 +155,74 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+        self._ship_optimizer_attrs(lr=lr)
+
+    def attach_sparse_service(self, service):
+        """Push the row-sparse gradients `service` (a
+        `ShardedEmbeddingService`) stashed during the forward at each
+        step, after the dense work: with prefetch on, the push only
+        queues on the service's ordered worker, ahead of the next step's
+        pull."""
+        self._sparse_service = service
+        return service
+
+    def _ship_optimizer_attrs(self, **attrs):
+        """Live optimizer changes reach a server's copy (a snapshot of the
+        one shipped; a local store updates with this optimizer itself)."""
+        if self._update_on_kvstore and isinstance(
+                self._kvstore, kvs.KVStoreDistAsyncServer):
+            self._kvstore.set_optimizer_attrs(attrs)
+
+    def _init_kvstore(self):
+        """Create (or adopt) the store at the first step; with
+        update_on_kvstore, ship the optimizer and the weights to it."""
+        if self._kv_initialized:
+            return
+        arg = self._kvstore_arg
+        if isinstance(arg, kvs.KVStore):
+            kv = arg
+        elif isinstance(arg, str) and ("dist" in arg
+                                       or self._update_on_kvstore):
+            kv = kvs.create(arg)
+        else:
+            kv = None
+        server = isinstance(kv, kvs.KVStoreDistAsyncServer)
+        if self._update_on_kvstore is None:
+            self._update_on_kvstore = server
+        if server and not self._update_on_kvstore:
+            raise ValueError("dist_async_server requires "
+                             "update_on_kvstore=True (the server applies "
+                             "the optimizer)")
+        if kv is not None and self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+            self._kv_shipped_rescale = self._optimizer.rescale_grad
+            for i, p in enumerate(self._params):
+                kv.init(i, p.data())
+        self._update_on_kvstore = bool(self._update_on_kvstore
+                                       and kv is not None)
+        self._kvstore = kv
+        self._kv_initialized = True
 
     def allreduce_grads(self):
-        """A no-op on one device (no dist kvstore)."""
+        """Sum each dense gradient over the store's workers (a no-op
+        without a store)."""
         with _telemetry.span("trainer.allreduce_grads"), \
                 _telemetry.stepstats.phase("allreduce"):
-            pass
+            self._init_kvstore()
+            if self._update_on_kvstore:
+                raise ValueError(
+                    "allreduce_grads() is not supported when the optimizer "
+                    "runs on the kvstore; call step()")
+            if self._kvstore is None:
+                return
+            n = 0
+            for i, p in enumerate(self._params):
+                g = p.grad()
+                if isinstance(g, NDArray):
+                    self._kvstore.pushpull(i, g, out=g)
+                    n += 1
+            _telemetry.inc(_DISPATCHES, n, kind="allreduce",
+                           path="per_key", help=_DISPATCH_HELP)
 
     # -- the guardrail ------------------------------------------------------
 
@@ -143,7 +231,8 @@ class Trainer:
 
     def _grads_nonfinite(self):
         """One fused non-finite sweep over every gradient, one host read."""
-        flags = [~torch.isfinite(p.grad()._data).all() for p in self._live()]
+        flags = [~torch.isfinite(_grad_tensor(p.grad())).all()
+                 for p in self._live()]
         return bool(torch.stack(flags).any()) if flags else False
 
     def _guardrail_check(self, where):
@@ -166,7 +255,10 @@ class Trainer:
             live = self._live()
             if live:  # poison one gradient at a reproducible step
                 g = live[0].grad()
-                g._data = g._data * float("nan")
+                if isinstance(g, NDArray):
+                    g._data = g._data * float("nan")
+                else:
+                    g.data._data = g.data._data * float("nan")
         if not self._grads_nonfinite():
             return False
         from ..telemetry import recorder as _recorder
@@ -208,15 +300,53 @@ class Trainer:
             # deterministic preemption: the drain handler only flags it,
             # the step completes and the loop's boundary poll bundles
             os.kill(os.getpid(), signal.SIGTERM)
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        rescale = self._scale / batch_size
+        self._optimizer.rescale_grad = rescale
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            self._step_on_kvstore(rescale)
+            return
+        if self._kvstore is not None:
+            self.allreduce_grads()
+        if self._sparse_service is not None:
+            self._sparse_service.push_grads()
         if self._guardrail_check("local_update"):
             return
         with _telemetry.stepstats.phase("optimizer_update"):
             self._update(ignore_stale_grad)
 
+    def _step_on_kvstore(self, rescale):
+        """Push the gradients and pull the weights the store updated."""
+        if rescale != self._kv_shipped_rescale:
+            self._ship_optimizer_attrs(rescale_grad=rescale)
+            self._kv_shipped_rescale = rescale
+        if self._guardrail_check("server_push"):
+            return
+        kv = self._kvstore
+        with _telemetry.stepstats.phase("pushpull"):
+            if getattr(kv, "supports_hierarchical_pushpull", False) and \
+                    not any(_sparse_typed(p) for p in self._params):
+                kv.pushpull(list(range(len(self._params))),
+                            [p.grad() for p in self._params],
+                            out=[p.data() for p in self._params])
+                _telemetry.inc(_DISPATCHES, 1, kind="server_pushpull",
+                               path="hierarchical", help=_DISPATCH_HELP)
+            else:
+                for i, p in enumerate(self._params):
+                    kv.push(i, p.grad())
+                    kv.pull(i, out=p.data())
+                _telemetry.inc(_DISPATCHES, len(self._params),
+                               kind="server_pushpull", path="per_key",
+                               help=_DISPATCH_HELP)
+        if self._sparse_service is not None:
+            self._sparse_service.push_grads()
+
     def update(self, batch_size, ignore_stale_grad=False):
         """The update of `step` without the allreduce."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise ValueError("update() is not supported when the optimizer "
+                             "runs on the kvstore; call step()")
         self._optimizer.rescale_grad = self._scale / batch_size
         if self._guardrail_check("update"):
             return
@@ -248,16 +378,21 @@ class Trainer:
 
     def _bucket_signature(self):
         return tuple(None if p._data is None else
-                     (p._data.dtype, tuple(p._data.shape))
+                     (p._data.dtype, tuple(p._data.shape),
+                      _sparse_typed(p))
                      for p in self._params)
 
     def _build_update_buckets(self):
         """Greedy in-order grouping into dtype-homogeneous buckets of at
         most the byte cap (a parameter larger than the cap is a bucket of
-        its own)."""
-        buckets, cur, cur_bytes, cur_dt = [], [], 0, None
+        its own); sparse-typed parameters go to the per-parameter rest.
+        Returns (buckets, rest)."""
+        buckets, rest, cur, cur_bytes, cur_dt = [], [], [], 0, None
         for i, p in enumerate(self._params):
             if p._data is None:
+                continue
+            if _sparse_typed(p):
+                rest.append(i)
                 continue
             d = p._data
             nb = d.numel() * d.element_size()
@@ -270,15 +405,29 @@ class Trainer:
             cur_dt = d.dtype
         if cur:
             buckets.append(cur)
-        return buckets
+        return buckets, rest
 
     def _update_aggregated(self):
         sig = self._bucket_signature()
         if sig != self._agg_sig:
-            self._agg_buckets = self._build_update_buckets()
+            self._agg_buckets, self._agg_rest = self._build_update_buckets()
             self._agg_sig = sig
+        per_param = list(self._agg_rest)
         for bucket in self._agg_buckets:
+            if any(not isinstance(self._params[i].grad(), NDArray)
+                   for i in bucket):
+                # a dense-typed parameter with a sparse gradient: the lazy
+                # update exists on the per-parameter path only
+                per_param += bucket
+                continue
             self._dispatch_bucket(bucket)
+        for i in per_param:
+            p = self._params[i]
+            self._updater(i, p.grad(), p.data())
+        if per_param:
+            _telemetry.inc(_DISPATCHES, len(per_param),
+                           kind="optimizer_update", path="per_param",
+                           help=_DISPATCH_HELP)
 
     def _dispatch_bucket(self, bucket):
         """One batched update of a bucket: every count advances first (so

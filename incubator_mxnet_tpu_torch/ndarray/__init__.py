@@ -10,9 +10,9 @@ NDArrays; torch tensors go through the tensor-level namespace
 `save` / `load` write and read the JAX package's container (magic
 `MXTPU001`) byte for byte; reference-format `.params` files are read
 through `legacy_io`. Loaded arrays live on `ctx`, by default the
-current context, as every array the port makes does. Not ported here:
-sparse storage, DLPack and the `image` / `linalg` / `contrib`
-namespaces.
+current context, as every array the port makes does. Sparse storage is
+the `sparse` namespace (`nd.sparse`, `nd.cast_storage`). Not ported
+here: DLPack and the `image` / `linalg` / `contrib` namespaces.
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ _register.install_ops(globals())
 
 from . import legacy_io  # noqa: E402,F401
 from . import random  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import cast_storage  # noqa: E402,F401
 
 
 def _default_dtype():

@@ -12,8 +12,10 @@ model-zoo downloads (ref: python/mxnet/ndarray/utils.py:222 load).
 
 The port's copy of the JAX package's module. numpy has no bfloat16
 here (no `ml_dtypes`), so bfloat16 payloads are read into and written
-from torch tensors; sparse entries (row_sparse, csr) raise until sparse
-storage is ported (ROADMAP Queue A 5). Loaded arrays live on the CPU.
+from torch tensors. Sparse entries load as `RowSparseNDArray` /
+`CSRNDArray`; a sparse array saved here is written dense (its
+`asnumpy()`), as the JAX package writes it. Loaded arrays live on
+`ctx`.
 """
 from __future__ import annotations
 
@@ -134,6 +136,7 @@ def load_mxnet_params(path_or_bytes, ctx=None):
     ndarray.cc:1788 NDArray::Load)."""
     from ..context import to_device
     from .ndarray import NDArray
+    from .sparse import CSRNDArray, RowSparseNDArray
 
     device = to_device(ctx)
 
@@ -154,9 +157,15 @@ def load_mxnet_params(path_or_bytes, ctx=None):
         if item is None:
             arrays.append(None)
         elif isinstance(item, tuple) and item[0] == "sparse":
-            raise NotImplementedError(
-                "sparse NDArray entries are not ported yet (ROADMAP Queue "
-                "A 5)")
+            _, stype, shape, data, aux = item
+            data = NDArray._from_data(torch.as_tensor(data, device=device))
+            ids = [NDArray._from_data(torch.as_tensor(
+                a.astype(np.int64), device=device)) for a in aux]
+            if stype == _STYPE_ROW_SPARSE:
+                arrays.append(RowSparseNDArray(data, ids[0], shape))
+            else:
+                # CSR aux order on disk: kIndPtr=0, kIdx=1
+                arrays.append(CSRNDArray(data, ids[0], ids[1], shape))
         else:
             arrays.append(NDArray._from_data(torch.as_tensor(
                 item, device=device)))

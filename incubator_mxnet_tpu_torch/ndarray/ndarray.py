@@ -12,8 +12,8 @@ its input (a reshape, a basic index) hands back a copy outside
 `record()`, and the in-place operators (`x[k] = v`, `x += y`) write in
 place outside `record()` and rebind the array to a new tensor inside
 it, so a recorded graph never sees a later write. `wait_to_read`
-synchronises the array's stream. Not ported here: sparse storage,
-`tostype` and DLPack (ROADMAP Queue A 5).
+synchronises the array's stream. `tostype("row_sparse" | "csr")` converts
+through `ndarray.sparse`. Not ported here: DLPack.
 """
 from __future__ import annotations
 
@@ -186,10 +186,11 @@ class NDArray:
         return self._apply(lambda d: d.clone())
 
     def tostype(self, stype):
+        """This array in storage type `stype` ("default" is itself)."""
         if stype == "default":
             return self
-        raise NotImplementedError("sparse storage is not ported yet "
-                                  "(ROADMAP Queue A 5)")
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     def as_nd_ndarray(self):
         return self

@@ -63,6 +63,14 @@ the per-parameter path.
 tuple of them and None); its `get_states` pickles {index: numpy array |
 tuple | None}, the JAX package's format (a bfloat16 state as float32),
 so float32 state files are interchangeable both ways.
+
+A row-sparse gradient (`ndarray.sparse.RowSparseNDArray`) takes the lazy
+paths of SGD (with and without momentum), Adam and AdaGrad: only the
+gradient's rows of the weight and the states move (duplicate row ids
+summed first, `_sparse_grad_prep`). SGD with `lazy_update=False`, its
+multi-precision and stochastic-rounding paths, and Adam with
+`lazy_update=False` densify the gradient; the `Updater` densifies it
+for an optimizer without a sparse path.
 """
 from __future__ import annotations
 
@@ -139,6 +147,29 @@ def _writeback(targets, results):
         results = [results]
     for t, r in zip(targets, results):
         t._data.copy_(r._data)
+
+
+def _is_row_sparse(grad):
+    from .ndarray.sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray)
+
+
+def _sparse_grad_prep(opt, grad, device):
+    """(rows, rescaled and clipped gradient block) of a row-sparse
+    gradient for a lazy update, on `device`; duplicate row ids are summed
+    into unique rows first (the state writes below are last-write-wins on
+    repeats), unless the gradient is marked unique (a recorded lookup's
+    is), which spares a sort and a host sync."""
+    from .ndarray.sparse import _segment_sum
+
+    idx = grad.indices._data.to(device)
+    g = grad.data._data.to(device) * opt.rescale_grad
+    if idx.numel() and not grad.unique:
+        uniq, inv = torch.unique(idx, sorted=True, return_inverse=True)
+        if uniq.numel() != idx.numel():
+            g = _segment_sum(g, inv, uniq.numel())
+            idx = uniq
+    return idx, _clip(g, opt.clip_gradient)
 
 
 def _clip(g, clip):
@@ -298,6 +329,9 @@ class Optimizer:
     # the fused path reproduces `update` step for step: the aggregated
     # Trainer path relies on it (SGLD and Nadam turn it off)
     fused_matches_eager = True
+    # `update` takes a RowSparseNDArray gradient (the Updater densifies
+    # one for an optimizer without that path)
+    row_sparse_update = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -527,6 +561,7 @@ class SGD(Optimizer):
         return self.create_state(index, weight)
 
     create_fused_state = create_state_multi_precision
+    row_sparse_update = True
 
     def update_multi_precision(self, index, weight, grad, state):
         if not isinstance(state, tuple):
@@ -538,6 +573,8 @@ class SGD(Optimizer):
         mom, w32 = state
         self._update_count(index)
         attrs = self._common_attrs(index)
+        if _is_row_sparse(grad):
+            grad = grad.todense()  # the master-copy path has no lazy form
         if mom is not None:
             _writeback([weight, mom, w32], _call(
                 "mp_sgd_mom_update", [weight, grad, mom, w32],
@@ -549,12 +586,33 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         attrs = self._common_attrs(index)
+        if _is_row_sparse(grad):
+            if self.lazy_update:
+                self._lazy_update(weight, grad, state, attrs["lr"],
+                                  attrs["wd"])
+                return
+            grad = grad.todense()
         if state is not None:
             _writeback([weight, state], _call(
                 "sgd_mom_update", [weight, grad, state],
                 {**attrs, "momentum": self.momentum}))
         else:
             _writeback([weight], _call("sgd_update", [weight, grad], attrs))
+
+    @torch.no_grad()
+    def _lazy_update(self, weight, grad, state, lr, wd):
+        """Only the gradient's rows of the weight (and the momentum)
+        move."""
+        w = weight._data
+        rows, g = _sparse_grad_prep(self, grad, w.device)
+        g = g + wd * w[rows]
+        if state is not None:
+            m = state._data
+            m_rows = self.momentum * m[rows] - lr * g
+            m[rows] = m_rows
+            w[rows] = w[rows] + m_rows
+        else:
+            w[rows] = w[rows] + (-lr * g)
 
     @torch.no_grad()
     def _sr_update(self, index, weight, grad, state):
@@ -564,6 +622,8 @@ class SGD(Optimizer):
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
         name = self.idx2name.get(index, index)
+        if _is_row_sparse(grad):
+            grad = grad.todense()  # no lazy stochastic-rounding form
         w = weight._data
         new_w, new_m = self._sgd_sr_math(
             [name], w.reshape(-1), grad._data.reshape(-1),
@@ -857,6 +917,7 @@ class LBSGD(SGD):
     create_fused_state = SGD.create_state
     fused_updates = _Fused.fused_updates
     _run = _Fused._run
+    row_sparse_update = False
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
@@ -903,6 +964,8 @@ class Adam(_Fused):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
         self.lazy_update = lazy_update
 
+    row_sparse_update = True
+
     def create_state(self, index, weight):
         return (_zeros(weight), _zeros(weight))
 
@@ -913,10 +976,30 @@ class Adam(_Fused):
         attrs["lr"] = (attrs["lr"] * math.sqrt(1.0 - self.beta2 ** t)
                        / (1.0 - self.beta1 ** t))
         mean, var = state
+        if _is_row_sparse(grad):
+            if self.lazy_update:
+                self._lazy_update(weight, grad, mean, var, attrs["lr"],
+                                  attrs["wd"])
+                return
+            grad = grad.todense()
         _writeback([weight, mean, var], _call(
             "adam_update", [weight, grad, mean, var],
             {**attrs, "beta1": self.beta1, "beta2": self.beta2,
              "epsilon": self.epsilon}))
+
+    @torch.no_grad()
+    def _lazy_update(self, weight, grad, mean, var, lr, wd):
+        """Moments and weight move only at the gradient's rows."""
+        w = weight._data
+        rows, g = _sparse_grad_prep(self, grad, w.device)
+        g = g + wd * w[rows]
+        m_rows = self.beta1 * mean._data[rows] + (1 - self.beta1) * g
+        v_rows = (self.beta2 * var._data[rows]
+                  + (1 - self.beta2) * torch.square(g))
+        mean._data[rows] = m_rows
+        var._data[rows] = v_rows
+        w[rows] = w[rows] + (-lr * m_rows
+                             / (torch.sqrt(v_rows) + self.epsilon))
 
     def _step(self, names, sizes, w, g, s, lr, wd, t):
         t = _t_or_eager(self, t)
@@ -937,6 +1020,8 @@ class AdaGrad(_Fused):
         super().__init__(**kwargs)
         self.float_stable_eps = eps
 
+    row_sparse_update = True
+
     def create_state(self, index, weight):
         return _zeros(weight)
 
@@ -944,6 +1029,16 @@ class AdaGrad(_Fused):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if _is_row_sparse(grad):
+            # history and weight move only at the gradient's rows
+            w, h = weight._data, state._data
+            rows, g = _sparse_grad_prep(self, grad, w.device)
+            g = g + wd * w[rows]
+            h_rows = h[rows] + torch.square(g)
+            h[rows] = h_rows
+            w[rows] = w[rows] + (-lr * g / (torch.sqrt(h_rows)
+                                            + self.float_stable_eps))
+            return
         new_w, new_h = self._step(None, None, weight._data, grad._data,
                                   state._data, lr, wd, None)
         state._data.copy_(new_h)
@@ -1260,6 +1355,9 @@ class Updater:
         optimizer rebinds instead of writing in place (a user's `update`)
         is copied back into the tensors the weight and the state held."""
         state = self.state(index, weight)
+        if _is_row_sparse(grad) and not getattr(
+                self.optimizer, "row_sparse_update", False):
+            grad = grad.todense()
         before = [weight] + _arrays(state)
         held = [a._data for a in before]
         self.optimizer.update_multi_precision(index, weight, grad, state)

@@ -99,6 +99,12 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
             "get_model; "
             "from incubator_mxnet_tpu_torch.profiler import set_config, "
             "set_state, dump, dumps, Domain, Task, Counter, Marker; "
+            "from incubator_mxnet_tpu_torch import bench, embedding, kv, "
+            "kvstore, kvstore_server, ps; "
+            "from incubator_mxnet_tpu_torch.ndarray import sparse; "
+            "from incubator_mxnet_tpu_torch.models import dlrm, DLRM; "
+            "from incubator_mxnet_tpu_torch.gluon.contrib.nn import "
+            "SparseEmbedding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -149,6 +155,37 @@ def test_gluon_entry_points_default_to_cuda():
     net.initialize(tmx.init.Xavier(), device="cpu")
     GluonTrainStep(net, lambda n, x, y: loss(n(x), y), tmx.optimizer.SGD(),
                    device="cpu")
+
+
+def test_recommender_entry_points_default_to_cuda():
+    """Sparse arrays, a sparse-gradient embedding, DLRM (local arm) and
+    the recommender bench with no context mean the card, which raises
+    without CUDA; the parameter server's store is host memory by design
+    and needs none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    import numpy as np
+
+    import incubator_mxnet_tpu_torch as tmx
+    from incubator_mxnet_tpu_torch import bench, gluon, nd
+    from incubator_mxnet_tpu_torch.models import DLRM
+
+    for call in (lambda: nd.sparse.zeros("row_sparse", (4, 2)),
+                 lambda: nd.sparse.row_sparse_array(
+                     (np.ones((1, 2), np.float32), [1]), shape=(4, 2)),
+                 lambda: nd.sparse.csr_matrix(np.eye(3, dtype=np.float32)),
+                 lambda: gluon.nn.Embedding(5, 2,
+                                            sparse_grad=True).initialize(),
+                 lambda: gluon.contrib.nn.SparseEmbedding(5, 2).initialize(),
+                 lambda: DLRM([5, 6], num_dense=2, embed_dim=2).initialize(),
+                 lambda: bench.recommender_main()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with tmx.cpu():
+        rsp = nd.sparse.zeros("row_sparse", (4, 2))
+        assert rsp.context == tmx.cpu()
+    srv = tmx.ps.ParameterServer(num_workers=1, host="127.0.0.1", port=0)
+    srv.shutdown()
 
 
 def test_imperative_entry_points_default_to_cuda(tmp_path):

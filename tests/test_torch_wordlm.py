@@ -286,4 +286,5 @@ def test_contrib_layer_matches_jax(name):
 def test_sync_batch_norm_on_one_device_only():
     with pytest.raises(NotImplementedError, match="Queue A 4"):
         tmx.gluon.contrib.nn.SyncBatchNorm(axis_name="dp")
-    assert not hasattr(tmx.gluon.contrib.nn, "SparseEmbedding")
+    # SparseEmbedding is served now (tests/test_torch_embedding.py)
+    assert hasattr(tmx.gluon.contrib.nn, "SparseEmbedding")
