@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path (through CUDA graphs, and behind
 the fault-tolerant fleet and its HTTP gateway), its transformer train
-step, its ResNet-50 train step, gluon's surfaces and the recommender
-path (DLRM, the parameter server) on one CUDA card and hold its
-hand-written kernels against their plain PyTorch versions.
+step, its ResNet-50 train step, gluon's surfaces, the recommender path
+(DLRM, the parameter server) and a Faster R-CNN detection pass on one
+CUDA card and hold its hand-written kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -239,6 +240,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    per-epoch RMSE equal
    to the CPU's at rtol 1e-5, the user table's gradient row sparse on
    the card with <= 64 rows;
+4g. the vision and contrib op families (no kernel of the ten runs on
+   them: the JAX package's vision ops are plain jnp too): (a) the
+   two-stage detector of examples/rcnn_proposal.py at the widths of the
+   reference's Faster R-CNN (Apache MXNet v1.4 example/rcnn, --network
+   resnet50, test settings): one 600 x 1000 image (RandomState(0), NCHW),
+   ResNet-50 v1 features[:7] as C4 (stride 16, a 38 x 63 x 1024 map),
+   an RPN (3 x 3 conv 512 + ReLU, 1 x 1 convs to 18 scores and 36
+   deltas), `nd.softmax` over each anchor's pair, `nd._contrib_Proposal`
+   (scales 8, 16, 32, ratios 0.5, 1, 2: 21,546 anchors; pre-NMS 6000,
+   post-NMS 300, NMS 0.7, min size 16), `nd.ROIPooling` and
+   `nd.contrib.ROIAlign` (14 x 14 at 1/16, sample ratio 2),
+   features[7] + global pooling + Dense(21) / Dense(84), `nd.softmax`,
+   `nd.contrib.box_decode` and `nd.contrib.box_nms` per class (NMS 0.3,
+   top 100), Xavier weights (seed 42), float32; each stage held to the
+   CPU on the card's own inputs: the Proposal's rois and the final
+   NMS's rows at rtol 1e-5, atol 1e-5, or else every decision of the
+   card's NMS the greedy rule's under the CPU's IoU but for pairs within
+   1e-5 of the threshold (near ties), ROIPooling exactly, ROIAlign at
+   rtol 1e-4, atol 1e-5, and one backward through each pooler at rtol
+   1e-4, atol 1e-5; the forward's, the Proposal's and each pooler's ms
+   (CUDA events, median of 5 after a warm-up), the NMS pass counts and
+   the peak allocation; (b) examples/rcnn_proposal.py (recall >= 0.7),
+   custom_op_numpy.py and svrg_regression.py as written with the port's
+   imports, each printing its OK line; (c) is phase 4c (c), whose
+   registry cases include the vision and contrib ops;
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -305,6 +331,7 @@ from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
 from incubator_mxnet_tpu_torch.ops.kernels import epilogue as ep
 from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
+from incubator_mxnet_tpu_torch.ops import vision as tv
 from incubator_mxnet_tpu_torch.parallel import moe
 from incubator_mxnet_tpu_torch import profiler, telemetry
 from incubator_mxnet_tpu_torch.serving import (
@@ -3252,21 +3279,16 @@ def word_lm(device, gpu):
                 device_step=device_step, tokens_per_s=tokens / step_s)
 
 
-def speech_ctc(device, gpu):
-    """Phase 4d (b): examples/speech_ctc.py as written, at its defaults
-    (BiLSTM, CTCLoss, Adam through fused.GluonTrainStep, 250 steps, then
-    the greedy decode of 64 held-out utterances, which must recover the
-    digits as the example asserts), its imports replaced by the port's;
-    and the CTCLoss op on the card against float64 on the CPU, with and
-    without data and label lengths."""
+def run_example(name):
+    """examples/<name>.py as written, its imports replaced by the port's;
+    returns its stdout."""
     import contextlib
     import io
 
-    t0 = time.perf_counter()
-    path = os.path.join(ROOT, "examples", "speech_ctc.py")
+    path = os.path.join(ROOT, "examples", f"{name}.py")
     with open(path) as f:
         src = f.read().replace("incubator_mxnet_tpu", "incubator_mxnet_tpu_torch")
-    module = {"__name__": "speech_ctc_port", "__file__": path}
+    module = {"__name__": f"{name}_port", "__file__": path}
     exec(compile(src, path, "exec"), module)
     argv, sys.argv = sys.argv, [path]
     out = io.StringIO()
@@ -3275,7 +3297,18 @@ def speech_ctc(device, gpu):
             module["main"]()
     finally:
         sys.argv = argv
-    log = out.getvalue()
+    return out.getvalue()
+
+
+def speech_ctc(device, gpu):
+    """Phase 4d (b): examples/speech_ctc.py as written, at its defaults
+    (BiLSTM, CTCLoss, Adam through fused.GluonTrainStep, 250 steps, then
+    the greedy decode of 64 held-out utterances, which must recover the
+    digits as the example asserts), its imports replaced by the port's;
+    and the CTCLoss op on the card against float64 on the CPU, with and
+    without data and label lengths."""
+    t0 = time.perf_counter()
+    log = run_example("speech_ctc")
     for line in log.splitlines():
         print(f"  (b) {line}")
     if "speech_ctc OK" not in log:
@@ -4479,6 +4512,325 @@ def recommender_leg(device, gpu):
     return out
 
 
+# -- phase 4g: the vision and contrib op families ----------------------------
+
+# the reference's Faster R-CNN (Apache MXNet v1.4 example/rcnn, --network
+# resnet50, test settings): a 600 x 1000 image, ResNet-50 v1 C4 at stride
+# 16 (1024 channels, a 38 x 63 map), anchors at scales (8, 16, 32) and
+# ratios (0.5, 1, 2), RPN pre-NMS top 6000, post-NMS top 300, NMS 0.7, min
+# size 16, ROIPooling 14 x 14 at 1/16, stage 5 as the ROI head, 21 classes
+DET = dict(image=(600, 1000), depth=50, stride=16, scales=(8, 16, 32),
+           ratios=(0.5, 1, 2), pre=6000, post=300, nms=0.7, min_size=16,
+           pooled=14, classes=21, final_nms=0.3, final_top=100,
+           image_seed=0, weight_seed=42)
+# Proposal / final NMS rows: rtol 1e-5, and 1e-5 of the image's extent
+# absolute (an edge coordinate cy - (h - 1) / 2 loses digits: the first
+# card run read y1 0.3265076 against the CPU's 0.3264923, from one ulp of
+# exp in a 400-pixel height)
+DET_ROIS = dict(rtol=1e-5, atol=1e-5 * max(DET["image"]))
+DET_ALIGN = dict(rtol=1e-4, atol=1e-5)   # ROIAlign, tests/test_vision.py
+DET_GRAD = dict(rtol=1e-4, atol=1e-5)    # the poolers' backward
+NEAR_IOU = 1e-5   # a pair this close to the NMS threshold is a near tie
+EXAMPLES_4G = ("rcnn_proposal", "custom_op_numpy", "svrg_regression")
+
+
+class Detector:
+    """The two-stage detector of examples/rcnn_proposal.py at `cfg`'s
+    widths, from the port's public pieces: ResNet v1 features[:7] as C4,
+    an RPN (3 x 3 conv 512 + ReLU, 1 x 1 convs to 2A scores and 4A
+    deltas), `nd.softmax` over each anchor's score pair,
+    `nd._contrib_Proposal`, `nd.ROIPooling` (and `nd.contrib.ROIAlign`
+    beside it), features[7] + global pooling + Dense(classes) /
+    Dense(4 classes), `nd.softmax`, `nd.contrib.box_decode` and
+    `nd.contrib.box_nms` per class."""
+
+    def __init__(self, cfg, ctx):
+        vision_zoo = tmx.gluon.model_zoo.vision
+        nn = tmx.gluon.nn
+        self.cfg, self.ctx = cfg, ctx
+        self.anchors = len(cfg["scales"]) * len(cfg["ratios"])
+        tmx.random.seed(cfg["weight_seed"])
+        base = vision_zoo.get_model(f"resnet{cfg['depth']}_v1")
+        self.c4, self.stage5 = base.features[:7], base.features[7]
+        self.rpn = nn.HybridSequential()
+        self.rpn.add(nn.Conv2D(512, 3, padding=1, activation="relu"))
+        self.rpn_cls = nn.Conv2D(2 * self.anchors, 1)
+        self.rpn_reg = nn.Conv2D(4 * self.anchors, 1)
+        self.pool = nn.GlobalAvgPool2D()
+        self.cls = nn.Dense(cfg["classes"])
+        self.reg = nn.Dense(4 * cfg["classes"])
+        for block in (base, self.rpn, self.rpn_cls, self.rpn_reg, self.cls,
+                      self.reg):
+            block.initialize(tmx.init.Xavier(), ctx=ctx)
+
+    def image(self):
+        h, w = self.cfg["image"]
+        return np.random.RandomState(self.cfg["image_seed"]).rand(
+            1, 3, h, w).astype(np.float32)
+
+    def rpn_out(self, x):
+        nd = tmx.nd
+        feat = self.c4(x)
+        r = self.rpn(feat)
+        scores, deltas = self.rpn_cls(r), self.rpn_reg(r)
+        _, _, fh, fw = scores.shape
+        prob = nd.softmax(scores.reshape((1, 2, self.anchors, fh, fw)),
+                          axis=1).reshape((1, 2 * self.anchors, fh, fw))
+        return feat, prob, deltas
+
+    def proposal(self, prob, deltas):
+        c = self.cfg
+        h, w = c["image"]
+        info = tmx.nd.array(np.array([[h, w, 1.0]], np.float32),
+                            ctx=prob.context)
+        return tmx.nd._contrib_Proposal(
+            prob, deltas, info, scales=c["scales"], ratios=c["ratios"],
+            feature_stride=c["stride"], rpn_pre_nms_top_n=c["pre"],
+            rpn_post_nms_top_n=c["post"], threshold=c["nms"],
+            rpn_min_size=c["min_size"])
+
+    def roi_pool(self, feat, rois):
+        p = self.cfg["pooled"]
+        return tmx.nd.ROIPooling(feat, rois, pooled_size=(p, p),
+                                 spatial_scale=1.0 / self.cfg["stride"])
+
+    def roi_align(self, feat, rois):
+        p = self.cfg["pooled"]
+        return tmx.nd.contrib.ROIAlign(feat, rois, pooled_size=(p, p),
+                                       spatial_scale=1.0 / self.cfg["stride"],
+                                       sample_ratio=2)
+
+    def head(self, pooled):
+        h = self.pool(self.stage5(pooled)).reshape((pooled.shape[0], -1))
+        return self.cls(h), self.reg(h)
+
+    def rows(self, logits, deltas, rois):
+        """(1, R * classes, 6) rows [class, score, x1, y1, x2, y2] of
+        every ROI and class: softmax scores and the decoded boxes."""
+        nd = tmx.nd
+        r, k = logits.shape
+        prob = nd.softmax(logits)
+        anchors = nd.repeat(rois[:, 1:5], repeats=k, axis=0).reshape(
+            (1, r * k, 4))
+        boxes = nd.contrib.box_decode(deltas.reshape((1, r * k, 4)),
+                                      anchors)
+        ids = nd.array(np.tile(np.arange(k, dtype=np.float32), r),
+                       ctx=logits.context).reshape((1, r * k, 1))
+        return nd.concat(ids, prob.reshape((1, r * k, 1)), boxes, dim=2)
+
+    def final_nms(self, rows):
+        c = self.cfg
+        return tmx.nd.contrib.box_nms(rows, overlap_thresh=c["final_nms"],
+                                      topk=c["final_top"], id_index=0,
+                                      background_id=0, valid_thresh=0.0)
+
+    def forward(self, x):
+        feat, prob, deltas = self.rpn_out(x)
+        rois = self.proposal(prob, deltas)
+        pooled = self.roi_pool(feat, rois)
+        aligned = self.roi_align(feat, rois)
+        logits, box_deltas = self.head(pooled)
+        dets = self.final_nms(self.rows(logits, box_deltas, rois))
+        return dict(feat=feat, prob=prob, deltas=deltas, rois=rois,
+                    pooled=pooled, aligned=aligned, logits=logits,
+                    box_deltas=box_deltas, dets=dets)
+
+
+def _cpu(arr):
+    return tmx.nd.array(arr.asnumpy(), ctx=tmx.cpu())
+
+
+def nms_near_ties(label, trace, thresh):
+    """Hold the card's NMS decisions to the greedy rule under the CPU's
+    IoU of the card's own candidates: candidate j is kept iff it is
+    valid and no kept candidate before it (of its class) overlaps it
+    above `thresh`. A decision that parts from the rule must hinge on a
+    pair whose IoU lies within NEAR_IOU of `thresh` (a near tie), else
+    the check fails. Returns the number of near-tie decisions."""
+    boxes, valid, keep = trace["boxes"], trace["valid"], trace["keep"]
+    n = boxes.shape[0]
+    idx = torch.arange(n)
+    pairs = idx[:, None] < idx[None, :]
+    if trace["ids"] is not None:
+        pairs &= trace["ids"][:, None] == trace["ids"][None, :]
+    iou = tv._pair_iou(boxes, boxes)
+    above = (iou > thresh) & pairs
+    near = ((iou - thresh).abs() <= NEAR_IOU) & pairs
+    rule = valid & ~(keep[:, None] & above).any(0)
+    parted = rule != keep
+    hinged = (keep[:, None] & near).any(0)
+    if (parted & ~hinged).any():
+        j = int(torch.nonzero(parted & ~hinged)[0])
+        raise AssertionError(
+            f"phase 4g (a) {label}: candidate {j} of {n} kept "
+            f"{bool(keep[j])} on the card, {bool(rule[j])} by the CPU's IoU, "
+            f"with no pair within {NEAR_IOU:g} of IoU {thresh}")
+    return int(parted.sum())
+
+
+def rows_or_near_ties(label, got, want, trace, thresh):
+    """The card's NMS output `got` equal to the CPU's `want` at DET_ROIS,
+    or the card's decisions each the greedy rule's but for near ties
+    (`nms_near_ties`). Returns (rows that part, near-tie decisions)."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    n_near = nms_near_ties(label, trace, thresh)
+    close = np.isclose(g, w, **DET_ROIS).all(-1)
+    if close.all():
+        return 0, n_near
+    if n_near == 0:
+        raise AssertionError(
+            f"phase 4g (a) {label}: {int((~close).sum())} rows part from the "
+            f"CPU's, and no decision of the card's NMS hinges on a near tie")
+    print(f"  (a) {label}: {int((~close).sum())} rows part from the CPU's; "
+          f"{n_near} decision(s) of the card's NMS hinge on a pair within "
+          f"{NEAR_IOU:g} of IoU {thresh}: near ties")
+    return int((~close).sum()), n_near
+
+
+def detection_pass(device, gpu, cfg=DET):
+    """Phase 4g (a): the two-stage detector at `cfg`'s widths, each stage
+    held to the CPU on the card's own inputs, one backward through each
+    pooler against the CPU, and times (CUDA events, median of 5 after a
+    warm-up), NMS passes and the peak allocation."""
+    t0 = time.perf_counter()
+    ctx = tmx.gpu(0) if device.type == "cuda" else tmx.cpu()
+    det = Detector(cfg, ctx)
+    x = tmx.nd.array(det.image(), ctx=ctx)
+    torch.cuda.reset_peak_memory_stats()
+    tv.NMS_PASSES.clear()
+    tv.NMS_TRACE = []
+    try:
+        with torch.no_grad():
+            out = det.forward(x)
+            torch.cuda.synchronize()
+    finally:
+        traces, tv.NMS_TRACE = tv.NMS_TRACE, None
+    passes = list(tv.NMS_PASSES)
+    peak = torch.cuda.max_memory_allocated()
+    rois = out["rois"].asnumpy()
+    dets = out["dets"].asnumpy()
+    if rois.shape != (cfg["post"], 5) or not np.isfinite(rois).all():
+        raise AssertionError(f"phase 4g (a): rois {rois.shape}")
+    kept = dets[0][dets[0, :, 0] >= 0]
+    for k in ("logits", "box_deltas", "pooled", "aligned"):
+        if not np.isfinite(out[k].asnumpy()).all():
+            raise AssertionError(f"phase 4g (a): {k} not finite")
+
+    # each stage on the CPU from the card's own inputs
+    cpu_rois = det.proposal(_cpu(out["prob"]), _cpu(out["deltas"]))
+    part_p, near_p = rows_or_near_ties("Proposal rois", rois,
+                                       cpu_rois.asnumpy(), traces[0],
+                                       cfg["nms"])
+    feat_cpu, rois_cpu = _cpu(out["feat"]), _cpu(out["rois"])
+    cpu_pool = det.roi_pool(feat_cpu, rois_cpu).asnumpy()
+    if not np.array_equal(out["pooled"].asnumpy(), cpu_pool):
+        raise AssertionError("phase 4g (a): ROIPooling on the card is not "
+                             "the CPU's exactly")
+    cpu_align = det.roi_align(feat_cpu, rois_cpu).asnumpy()
+    align_err = float(np.abs(out["aligned"].asnumpy() - cpu_align).max())
+    if not np.allclose(out["aligned"].asnumpy(), cpu_align, **DET_ALIGN):
+        raise AssertionError(f"phase 4g (a): ROIAlign on the card off the "
+                             f"CPU's by {align_err:.3e}")
+    with torch.no_grad():
+        rows = det.rows(out["logits"], out["box_deltas"], out["rois"])
+    cpu_dets = det.final_nms(_cpu(rows)).asnumpy()
+    part_f, near_f = rows_or_near_ties("final NMS", dets[0], cpu_dets[0],
+                                       traces[1], cfg["final_nms"])
+
+    # one backward through each pooler, card against CPU
+    head = np.random.RandomState(7).randn(
+        *out["pooled"].shape).astype(np.float32)
+    grad_err = {}
+    for name, fn in (("ROIPooling", det.roi_pool), ("ROIAlign",
+                                                    det.roi_align)):
+        grads = []
+        for f, r in ((out["feat"], out["rois"]), (feat_cpu, rois_cpu)):
+            f = f.copy()
+            f.attach_grad()
+            with tmx.autograd.record():
+                y = fn(f, r)
+            y.backward(tmx.nd.array(head, ctx=f.context))
+            grads.append(f.grad.asnumpy())
+        grad_err[name] = float(np.abs(grads[0] - grads[1]).max())
+        if not np.allclose(grads[0], grads[1], **DET_GRAD):
+            raise AssertionError(f"phase 4g (a): {name}'s backward on the "
+                                 f"card off the CPU's by "
+                                 f"{grad_err[name]:.3e}")
+
+    # times: the whole forward, the Proposal and each pooler
+    def timed(fn, reps=5):
+        fn()
+        ms = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return float(np.median(ms))
+
+    with torch.no_grad():
+        t_fwd = timed(lambda: det.forward(x))
+        t_prop = timed(lambda: det.proposal(out["prob"], out["deltas"]))
+        t_pool = timed(lambda: det.roi_pool(out["feat"], out["rois"]))
+        t_align = timed(lambda: det.roi_align(out["feat"], out["rois"]))
+    fh, fw = out["feat"].shape[2:]
+    print(f"  (a) detection pass at {cfg['image'][0]} x {cfg['image'][1]} "
+          f"(ResNet-{cfg['depth']} v1 C4, map {fh} x {fw} x "
+          f"{out['feat'].shape[1]}, {fh * fw * det.anchors} anchors, pre "
+          f"{cfg['pre']} / post {cfg['post']}, pooled {cfg['pooled']}, "
+          f"{cfg['classes']} classes): {len(kept)} detections after the "
+          f"per-class NMS; Proposal rois the CPU's ({part_p} rows part, "
+          f"{near_p} near-tie decisions), ROIPooling exact, ROIAlign within "
+          f"rtol {DET_ALIGN['rtol']:g} (largest diff {align_err:.3e}), final "
+          f"NMS the CPU's ({part_f} rows part, {near_f} near-tie "
+          f"decisions); backward ROIPooling / ROIAlign "
+          f"largest diff {grad_err['ROIPooling']:.3e} / "
+          f"{grad_err['ROIAlign']:.3e}")
+    print(f"  (a) NMS passes (Proposal, final): {passes}; forward "
+          f"{t_fwd:.3f} ms, Proposal {t_prop:.3f} ms, ROIPooling "
+          f"{t_pool:.3f} ms, ROIAlign {t_align:.3f} ms (CUDA events, median "
+          f"of 5 after a warm-up); peak allocation {peak / 2**30:.3f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return dict(passes=passes, fwd_ms=t_fwd, proposal_ms=t_prop,
+                pool_ms=t_pool, align_ms=t_align, peak=peak,
+                detections=len(kept))
+
+
+def examples_4g(gpu):
+    """Phase 4g (b): rcnn_proposal, custom_op_numpy and svrg_regression as
+    written, on the card; each must print its OK line, rcnn_proposal a
+    recall of at least 0.7."""
+    for name in EXAMPLES_4G:
+        t0 = time.perf_counter()
+        log = run_example(name)
+        lines = log.strip().splitlines()
+        if f"{name} OK" not in log:
+            raise AssertionError(f"phase 4g (b): {name} did not finish: "
+                                 f"{lines[-3:]}")
+        if name == "rcnn_proposal":
+            recall = float(re.search(r"recall@0.5: ([0-9.]+)",
+                                     log).group(1))
+            if recall < 0.7:
+                raise AssertionError(f"phase 4g (b): recall {recall}")
+        print(f"  (b) {name}: {' | '.join(lines[-2:])} "
+              f"({time.perf_counter() - t0:.1f} s) [{gpu}]")
+
+
+def vision_leg(device, gpu):
+    """Phase 4g: (a) the detection pass, (b) the three examples; (c) is
+    phase 4c (c), which holds the vision and contrib registry cases on
+    the card."""
+    t0 = time.perf_counter()
+    out = {"detection": detection_pass(device, gpu)}
+    examples_4g(gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  vision leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
@@ -5437,6 +5789,13 @@ def main():
     t_phase = phase_seconds(t_phase)
     print("phase 4f: the recommender path (no kernel of the ten runs on it)")
     recommender_leg(device, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
+    print("phase 4g: the vision and contrib op families (no kernel of the "
+          "ten runs on them)")
+    vision_leg(device, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -26,7 +26,11 @@ initializer and the memory and TensorBoard telemetry; and the
 recommender path: row-sparse storage (`nd.sparse`) with the lazy
 optimizer updates, the parameter server (`ps`, `kvstore_server`),
 `kvstore` (`kv`), the sharded embedding service (`embedding`) and DLRM
-(`models.DLRM`), so the reference's loop runs as written:
+(`models.DLRM`); and the vision and contrib op families (detection:
+NMS, `Proposal`, `ROIPooling`, `ROIAlign`, the MultiBox ops, samplers;
+`nd.contrib`, `nd.image`, `nd.linalg`), Python custom ops (`operator`),
+`contrib` control flow, graph sampling and SVRG, and
+`gluon.data.vision`, so the reference's loop runs as written:
 
     with autograd.record():
         loss = loss_fn(net(data), label)
@@ -42,6 +46,7 @@ from . import (analysis, autograd, callback, config,  # noqa: F401
                metric, model, models, ndarray, ops, optimizer, parallel,
                random, resilience, serving, telemetry)
 from . import embedding, kvstore, kvstore_server, ps  # noqa: F401
+from . import operator, runtime, test_utils, util  # noqa: F401
 from .context import (Context, cpu, current_context, gpu,  # noqa: F401
                       num_gpus, tpu)
 from .models import loss_fn, make_train_step  # noqa: F401
@@ -57,7 +62,8 @@ __all__ = ["analysis", "autograd", "callback", "config", "context",
            "ops", "optimizer", "parallel", "random", "resilience",
            "serving", "telemetry", "loss_fn", "make_train_step", "Context",
            "cpu", "gpu", "tpu", "current_context", "num_gpus", "NDArray",
-           "embedding", "kv", "kvstore", "kvstore_server", "ps"]
+           "embedding", "kv", "kvstore", "kvstore_server", "ps",
+           "operator", "runtime", "test_utils", "util"]
 
 # a process launched in the server role serves here and exits, as the
 # reference's import does (kvstore_server.py:92)

@@ -24,7 +24,8 @@ import os
 
 import torch
 
-__all__ = ["Knob", "KNOBS", "get", "resolve_device"]
+__all__ = ["Knob", "KNOBS", "describe", "get", "register_knob",
+           "resolve_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +39,13 @@ class Knob:
 KNOBS: dict[str, Knob] = {}
 
 
-def _register(name, default, type_, doc):
+def register_knob(name, default, type_, doc):
+    """Register knob `name` (its default, type and documentation)."""
     KNOBS[name] = Knob(name, default, type_, doc)
+    return KNOBS[name]
+
+
+_register = register_knob
 
 
 def get(name, default=None):
@@ -55,6 +61,16 @@ def get(name, default=None):
     if knob.type is bool:
         return raw.lower() not in ("0", "false", "off", "")
     return knob.type(raw)
+
+
+def describe():
+    """The environment-variable reference of every registered knob, as
+    markdown."""
+    lines = ["# Environment variables", ""]
+    for knob in sorted(KNOBS.values(), key=lambda k: k.name):
+        lines.append(f"- `{knob.name}` (default `{knob.default}`, "
+                     f"{knob.type.__name__}): {knob.doc}")
+    return "\n".join(lines)
 
 
 def resolve_device(device=None) -> torch.device:

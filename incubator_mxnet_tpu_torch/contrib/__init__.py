@@ -1,6 +1,13 @@
 """Contrib modules (`incubator_mxnet_tpu/contrib/`): `text` (vocabularies
-and token embeddings) and `tensorboard` (the TensorBoard callbacks). The
-rest (quantization, amp, onnx, ...) is not ported yet (ROADMAP Queue A
-6)."""
+and token embeddings), `tensorboard` (the TensorBoard callbacks),
+`control_flow` (`foreach`, `while_loop`, `cond`), `autograd` (the legacy
+experimental API), `graph` (DGL sampling over CSR arrays) and `svrg`
+(`SVRGTrainer`). The rest (quantization, amp, onnx, ...) is not ported
+yet (ROADMAP Queue A 6)."""
+from . import autograd  # noqa: F401
+from . import control_flow  # noqa: F401
+from .control_flow import cond, foreach, while_loop  # noqa: F401
+from . import graph  # noqa: F401
+from . import svrg  # noqa: F401
 from . import tensorboard  # noqa: F401
 from . import text  # noqa: F401

@@ -3,8 +3,8 @@
 the data API, the recurrent layers and cells (`rnn`), `contrib` and the
 vision model zoo. Not ported yet: `SymbolBlock` / `export` (the symbolic
 slice)."""
-from .parameter import (DeferredInitializationError, Parameter,  # noqa: F401
-                        ParameterDict)
+from .parameter import (Constant, DeferredInitializationError,  # noqa: F401
+                        Parameter, ParameterDict)
 from .block import Block, HybridBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import data, loss, model_zoo, nn, rnn, utils  # noqa: F401

@@ -11,7 +11,6 @@ import numpy as np
 import torch
 
 from ....embedding import host_ids, lookup_block
-from ....ops import nn as _nn
 from ...block import HybridBlock, training_mode
 from ...nn.basic_layers import (BatchNorm, Embedding, HybridSequential,
                                 Sequential)
@@ -114,30 +113,6 @@ class SparseEmbedding(Embedding):
         return out.reshape(tuple(x.shape) + (self._output_dim,))
 
 
-def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps,
-                    momentum, fix_gamma, use_global_stats, training):
-    """JAX's `_contrib_SyncBatchNorm` on one device (`ops/contrib_ops.py`):
-    channel axis 1, batch variance E[x^2] - E[x]^2 in the data's dtype;
-    in training mode the new moving stats go to `ops.nn.write_moving`."""
-    g = torch.ones_like(gamma) if fix_gamma else gamma
-    dims = tuple(i for i in range(data.dim()) if i != 1)
-    bshape = [1] * data.dim()
-    bshape[1] = data.shape[1]
-    if training and not use_global_stats:
-        mean = data.mean(dim=dims)
-        var = (data * data).mean(dim=dims) - mean * mean
-        out = (data - mean.reshape(bshape)) * torch.rsqrt(
-            var.reshape(bshape) + eps)
-        _nn.write_moving(moving_mean, momentum * moving_mean
-                         + (1 - momentum) * mean.detach())
-        _nn.write_moving(moving_var, momentum * moving_var
-                         + (1 - momentum) * var.detach())
-    else:
-        out = (data - moving_mean.reshape(bshape)) * torch.rsqrt(
-            moving_var.reshape(bshape) + eps)
-    return out * g.reshape(bshape) + beta.reshape(bshape)
-
-
 class SyncBatchNorm(BatchNorm):
     """Cross-device batch normalization on one device: the statistics are
     the local batch's (`num_devices` 1). An `axis_name` (statistics
@@ -158,11 +133,11 @@ class SyncBatchNorm(BatchNorm):
         self._num_devices = num_devices
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
-        return sync_batch_norm(
+        return F._contrib_SyncBatchNorm(
             x, gamma, beta, running_mean, running_var, eps=self._epsilon,
             momentum=self._momentum, fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats,
-            training=training_mode(self))
+            ndev=self._num_devices or 1, _training=training_mode(self))
 
 
 class _PixelShuffle(HybridBlock):

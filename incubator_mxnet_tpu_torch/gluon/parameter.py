@@ -28,6 +28,7 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import autograd
@@ -258,6 +259,17 @@ def _shape_compatible(old, new):
     return all(o == n or o in (0, -1) for o, n in zip(old, new))
 
 
+class Constant(Parameter):
+    """A parameter that holds `value` and takes no gradient."""
+
+    def __init__(self, name, value):
+        value = np.asarray(value, dtype=np.float32)
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         init=init_mod.Constant(value),
+                         differentiable=False)
+
+
 class ParameterDict:
     """Parameters by full name, in registration order, with a shared
     name prefix."""
@@ -310,6 +322,15 @@ class ParameterDict:
         param = Parameter(name, **kwargs)
         self._params[name] = param
         return param
+
+    def get_constant(self, name, value=None):
+        """The constant `prefix + name`, created holding `value` if new."""
+        name = self._prefix + name
+        if name in self._params:
+            return self._params[name]
+        c = Constant(name, value)
+        self._params[name] = c
+        return c
 
     def update(self, other):
         for k, v in other.items():

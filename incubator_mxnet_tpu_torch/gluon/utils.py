@@ -1,7 +1,10 @@
 """Gluon utilities (`incubator_mxnet_tpu/gluon/utils.py`): splitting a
-batch over contexts, clipping gradients by their global norm, and
-carrying weights between nets."""
+batch over contexts, clipping gradients by their global norm, carrying
+weights between nets and checking a file's SHA-1. `download` raises:
+the port fetches nothing."""
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -9,7 +12,7 @@ import torch
 from ..ndarray.ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
-           "load_numpy_params"]
+           "load_numpy_params", "check_sha1", "download"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -77,3 +80,21 @@ def load_numpy_params(net, arrays, prefix=""):
                 tuple(p.shape) != a.shape:
             raise ValueError(f"{name}: shape {a.shape}, expected {p.shape}")
         p.set_data(torch.tensor(a))
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the SHA-1 of the file's bytes is `sha1_hash` (hex)."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1048576)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    raise RuntimeError("download: the port fetches nothing over the "
+                       "network; place the file locally instead")

@@ -11,8 +11,10 @@ NDArrays; torch tensors go through the tensor-level namespace
 `MXTPU001`) byte for byte; reference-format `.params` files are read
 through `legacy_io`. Loaded arrays live on `ctx`, by default the
 current context, as every array the port makes does. Sparse storage is
-the `sparse` namespace (`nd.sparse`, `nd.cast_storage`). Not ported
-here: DLPack and the `image` / `linalg` / `contrib` namespaces.
+the `sparse` namespace (`nd.sparse`, `nd.cast_storage`); `image`,
+`linalg` and `contrib` are the registry's families under short names.
+DLPack exchange goes through `torch.utils.dlpack` (`from_dlpack`,
+`to_dlpack_for_read`, `to_dlpack_for_write`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ from . import legacy_io  # noqa: E402,F401
 from . import random  # noqa: E402,F401
 from . import sparse  # noqa: E402,F401
 from .sparse import cast_storage  # noqa: E402,F401
+from . import contrib  # noqa: E402,F401
+from . import image  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 
 
 def _default_dtype():
@@ -88,6 +93,45 @@ def moveaxis(data, source, destination):
 def stack_arrays(*arrays, axis=0):
     return autograd.invoke_recorded(lambda *xs: torch.stack(xs, dim=axis),
                                     list(arrays))[0]
+
+
+def Custom(*inputs, op_type=None, **kwargs):
+    """`nd.Custom(data, ..., op_type='my_op')`: a custom op registered
+    with `operator.register`."""
+    from ..operator import Custom as _dispatch
+
+    return _dispatch(*inputs, op_type=op_type, **kwargs)
+
+
+# -- DLPack ------------------------------------------------------------------
+
+
+def from_dlpack(obj):
+    """An NDArray over any DLPack exporter (a torch tensor, a numpy array,
+    another framework's tensor) or a legacy 'dltensor' capsule, sharing
+    the producer's memory."""
+    from torch.utils import dlpack
+
+    return NDArray._from_data(dlpack.from_dlpack(obj))
+
+
+def to_dlpack_for_read(arr):
+    """A legacy DLPack capsule of `arr`'s buffer, on its device, after
+    pending work on it has finished."""
+    from torch.utils import dlpack
+
+    arr.wait_to_read()
+    return dlpack.to_dlpack(arr._data.detach())
+
+
+def to_dlpack_for_write(arr):
+    """A legacy DLPack capsule that aliases `arr`'s buffer: a consumer's
+    writes show in `arr` (torch buffers are mutable; the JAX package
+    raises here)."""
+    from torch.utils import dlpack
+
+    arr.wait_to_read()
+    return dlpack.to_dlpack(arr._data.detach())
 
 
 # -- serialization: the JAX package's container, byte for byte --------------

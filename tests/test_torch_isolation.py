@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, calls no library attention, loss or compiler in place of its
-kernels, and never falls back to the CPU on its own."""
+package (nor `torchvision`, which the card's machine lacks), calls no
+library attention, loss or compiler in place of its kernels, and never
+falls back to the CPU on its own."""
 import ast
 import os
 import re
@@ -12,7 +13,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "incubator_mxnet_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "incubator_mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "incubator_mxnet_tpu", "torchvision")
 
 
 def _sources(include_smoke=True):
@@ -105,6 +106,16 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
             "from incubator_mxnet_tpu_torch.models import dlrm, DLRM; "
             "from incubator_mxnet_tpu_torch.gluon.contrib.nn import "
             "SparseEmbedding; "
+            "from incubator_mxnet_tpu_torch.ops import contrib_ops, vision; "
+            "from incubator_mxnet_tpu_torch.ndarray import contrib, image, "
+            "linalg; "
+            "from incubator_mxnet_tpu_torch import operator, runtime, "
+            "test_utils, util; "
+            "from incubator_mxnet_tpu_torch.contrib import autograd, "
+            "control_flow, graph, svrg; "
+            "from incubator_mxnet_tpu_torch.gluon.data.vision import "
+            "datasets, transforms; "
+            "from incubator_mxnet_tpu_torch.gluon import Constant; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -238,3 +249,33 @@ def test_imperative_entry_points_default_to_cuda(tmp_path):
     with tmx.cpu():
         assert nd.zeros((1,)).context == tmx.cpu()
         assert nd.load(path)["x"].context == tmx.cpu()
+
+
+def test_vision_entry_points_default_to_cuda():
+    """The vision and contrib ops over arrays with no context, a Constant
+    initialized with none and a loaded epoch mean the card, which raises
+    without CUDA; the vision transforms and datasets make host arrays."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    import numpy as np
+
+    import incubator_mxnet_tpu_torch as tmx
+    from incubator_mxnet_tpu_torch import gluon, nd
+
+    rows = np.array([[[0, 0.9, 0, 0, 2, 2], [0, 0.8, 0, 0, 2, 2]]],
+                    np.float32)
+    for call in (lambda: nd.contrib.box_nms(rows),
+                 lambda: nd.ROIPooling(np.ones((1, 1, 4, 4), np.float32),
+                                       np.array([[0, 0, 0, 3, 3]],
+                                                np.float32),
+                                       pooled_size=2, spatial_scale=1.0),
+                 lambda: gluon.Constant("c", [1.0, 2.0]).initialize(),
+                 lambda: tmx.model.load_params("no_such_prefix", 0)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with tmx.cpu():
+        kept = nd.contrib.box_nms(nd.array(rows)).asnumpy()
+    assert kept[0, 1, 0] == -1
+    t = gluon.data.vision.transforms.ToTensor()(np.zeros((2, 2, 3),
+                                                         np.uint8))
+    assert t.context == tmx.cpu()

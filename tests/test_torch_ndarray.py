@@ -21,7 +21,7 @@ from incubator_mxnet_tpu import nd as jnd
 from incubator_mxnet_tpu_torch import autograd as tag
 from incubator_mxnet_tpu_torch import nd as tnd
 from incubator_mxnet_tpu_torch.ops.registry import OP_REGISTRY
-from torch_op_cases import (DETERMINISTIC, EXTRA, NO_GRAD, RANDOM,
+from torch_op_cases import (DETERMINISTIC, EXTRA, FAMILY, NO_GRAD, RANDOM,
                             _ALL_CASES, _diff, _heads, _key, _port,
                             _rows_signed, sample_moments)
 
@@ -94,16 +94,29 @@ def _jax_case(name, inputs, attrs, seed, grad, eager=False):
 _JAX = {}
 
 
-def _jax_results():
-    """{key: (values, gradients, n primary outputs)} of every case, the
-    jittable ones compiled as one program (one compile, not one per op
-    and primitive); a data-dependent shape (boolean_mask) runs eagerly."""
-    if _JAX:
+def family_keys(family):
+    """The case keys of one family of the registry (`FAMILY`): one per
+    name of the family and each extra mode of its ops."""
+    names = [n for n in DETERMINISTIC if FAMILY[n] == family]
+    return ({_key(n) for n in names}
+            | {f"extra:{k}" for k, (n, _) in enumerate(EXTRA)
+               if FAMILY[n] == family})
+
+
+def _jax_results(keys=None):
+    """{key: (values, gradients, n primary outputs)} of the cases `keys`
+    (by default the core family's), the jittable ones compiled as one
+    program (one compile, not one per op and primitive); a
+    data-dependent shape (boolean_mask) runs eagerly."""
+    keys = family_keys("core") if keys is None else set(keys)
+    if keys <= set(_JAX):
         return _JAX
     import jax
 
     fns, args, eager = {}, {}, {}
     for key, (name, case_fn, seed) in _ALL_CASES.items():
+        if key not in keys or key in _JAX:
+            continue
         inputs, attrs = case_fn(np.random.RandomState(seed))
         grad = OP_REGISTRY[name].name not in NO_GRAD
         eager_op = OP_REGISTRY[name].name == "boolean_mask"
@@ -122,17 +135,23 @@ def _jax_results():
     return _JAX
 
 
-def _parity(key, name=None):
+def _parity(key, name=None, family="core"):
+    """The port's case `key` (of `family`, whose JAX cases compile
+    together) against JAX's: values and the inputs after the call at
+    RTOL / ATOL, gradients at GRTOL / GATOL."""
     case_name, case_fn, seed = _ALL_CASES[key]
     name = name or case_name
     inputs, attrs = case_fn(np.random.RandomState(seed))
     grad = OP_REGISTRY[name].name not in NO_GRAD
-    jvals, jgrads, n = _jax_results()[key]
+    jvals, jgrads, n = _jax_results(family_keys(family))[key]
     jvals = [np.asarray(v) for v in jvals]
     vals, grads, after = _port(name, inputs, attrs, seed + 1, grad)
     if OP_REGISTRY[name].name == "_linalg_syevd":
         vals[0], jvals[0] = _rows_signed(vals[0]), _rows_signed(jvals[0])
-    _close(vals, jvals[:n], RTOL, ATOL, f"{name} values")
+    # JAX's outputs past num_outputs are new aux values, or (box_encode)
+    # outputs of an op registered with fewer
+    n_vals = n if OP_REGISTRY[name].aux else len(jvals)
+    _close(vals, jvals[:n_vals], RTOL, ATOL, f"{name} values")
     if jgrads is not None or grads is not None:
         _close(grads, [np.asarray(x) for x in jgrads], GRTOL, GATOL,
                f"{name} gradients")
@@ -146,34 +165,50 @@ def _parity(key, name=None):
 
 def test_registry_covers_the_jax_ops():
     """Every name of JAX's ops/tensor.py, ops/nn.py (RNN and the CTC loss
-    among them), ops/random.py and ops/optimizer.py (the 20 update ops)
-    is registered in the port, with JAX's inputs, attributes and
-    non-differentiated inputs."""
+    among them), ops/random.py, ops/optimizer.py (the 20 update ops),
+    ops/vision.py and ops/contrib_ops.py is registered in the port, with
+    JAX's inputs, attributes and non-differentiated inputs (and, for the
+    vision and contrib ops, its aux and optional inputs and output
+    counts). Only ops/quantized.py's 9 ops are missing."""
     from incubator_mxnet_tpu.ops.registry import OP_REGISTRY as JAX_REG
 
-    mods = ("incubator_mxnet_tpu.ops.tensor", "incubator_mxnet_tpu.ops.nn",
-            "incubator_mxnet_tpu.ops.random",
-            "incubator_mxnet_tpu.ops.optimizer")
+    pre = "incubator_mxnet_tpu.ops."
+    mods = tuple(pre + m for m in ("tensor", "nn", "random", "optimizer",
+                                   "vision", "contrib_ops"))
     want = {n for n, o in JAX_REG.items() if o.fn.__module__ in mods}
-    want.add("GroupNorm")
     assert set(OP_REGISTRY) == want
-    assert len(OP_REGISTRY) == 349
+    assert len(OP_REGISTRY) == 401
+    assert {o.fn.__module__ for n, o in JAX_REG.items()
+            if n not in OP_REGISTRY} == {pre + "quantized"}
     for name in OP_REGISTRY:
         j, t = JAX_REG[name], OP_REGISTRY[name]
         assert (t.name, tuple(t.inputs), t.variadic) == \
             (j.name, tuple(j.inputs), j.variadic), name
         assert set(t.attrs) == set(j.attrs), name
-        if j.fn.__module__ == "incubator_mxnet_tpu.ops.optimizer":
+        if j.fn.__module__ in (pre + "optimizer", pre + "vision",
+                               pre + "contrib_ops"):
             assert set(t.no_grad_inputs) == set(j.no_grad_inputs), name
+        if j.fn.__module__ in (pre + "vision", pre + "contrib_ops"):
+            assert (tuple(t.aux), tuple(t.optional), t.needs_training) == \
+                (tuple(j.aux), tuple(j.optional), j.needs_training), name
+            for attrs in ({}, {"output_score": True}):
+                assert _n_outputs(t, attrs) == _n_outputs(j, attrs), name
 
 
-@pytest.mark.parametrize("name", DETERMINISTIC)
+def _n_outputs(op, attrs):
+    n = op.num_outputs
+    return n(attrs) if callable(n) else n
+
+
+@pytest.mark.parametrize("name", [n for n in DETERMINISTIC
+                                  if FAMILY[n] == "core"])
 def test_op_matches_jax(name):
     assert _key(name) in _ALL_CASES, f"no case for {name}"
     _parity(_key(name), name)
 
 
-@pytest.mark.parametrize("k", range(len(EXTRA)))
+@pytest.mark.parametrize("k", [k for k, (n, _) in enumerate(EXTRA)
+                               if FAMILY[n] == "core"])
 def test_op_mode_matches_jax(k):
     _parity(f"extra:{k}")
 

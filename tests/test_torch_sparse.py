@@ -532,3 +532,27 @@ def test_legacy_io_sparse_both_ways():
             "r": tsp.row_sparse_array((data, idx), shape=(5, 3)),
             "c": tsp.csr_matrix((cdata, cidx, indptr), shape=(3, 4))})
     assert tsave == jsave
+
+
+def test_matrix_factorization_loop_repeats_bit_for_bit():
+    """examples/matrix_factorization.py's loop (lazy Adam, 512 x 256 x 16,
+    4 epochs; `chip_smoke.mf_run`) run twice on the CPU gives the same
+    per-epoch RMSEs and the same row-sparse gradient of the user table,
+    bit for bit: the port's sparse sums add in one order every run."""
+    import chip_smoke
+
+    runs = []
+    threads = torch.get_num_threads()
+    # one intra-op thread: beside the suite's other workers the default
+    # pool made the loop's small ops 40x slower
+    torch.set_num_threads(1)
+    try:
+        for _ in range(2):
+            rmse, grad = chip_smoke.mf_run(tmx.cpu())
+            runs.append((rmse, grad.indices.asnumpy(), grad.data.asnumpy()))
+    finally:
+        torch.set_num_threads(threads)
+    (r0, i0, d0), (r1, i1, d1) = runs
+    assert r0 == r1
+    np.testing.assert_array_equal(i0, i1)
+    assert d0.tobytes() == d1.tobytes()

@@ -371,6 +371,209 @@ CASES["_mp_adamw_update"] = lambda r: (
 CASES["_contrib_group_adagrad_update"] = lambda r: (
     [A(r, 3, 4), A(r, 3, 4), P(r, 3, 1)], {"lr": 0.1, "rescale_grad": 0.5})
 
+
+
+# -- ops/vision.py and ops/contrib_ops.py -----------------------------------
+
+
+def BOX(rng, *lead, lo=0.0, hi=10.0, size=(1.0, 5.0)):
+    """Corner boxes (..., 4): x1, y1 in [lo, hi), sides in `size`."""
+    xy = rng.uniform(lo, hi, lead + (2,))
+    wh = rng.uniform(size[0], size[1], lead + (2,))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def DETS(rng, n, ids=3, ties=False):
+    """(1, n, 6) detection rows [id, score, x1, y1, x2, y2] over a small
+    area (many overlaps); `ties` draws the scores from 4 values."""
+    ident = rng.randint(0, ids, (1, n, 1)).astype(np.float32)
+    score = (rng.randint(0, 4, (1, n, 1)) * 0.25 + 0.1 if ties
+             else rng.uniform(0, 1, (1, n, 1)))
+    return np.concatenate([ident, score.astype(np.float32),
+                           BOX(rng, 1, n, hi=6.0, size=(2.0, 5.0))], -1)
+
+
+def ROIS(rng, r, batch, extent):
+    """(r, 5) rows [batch index, x1, y1, x2, y2] inside `extent` (h, w)."""
+    b = rng.randint(0, batch, (r, 1)).astype(np.float32)
+    h, w = extent
+    x1 = rng.uniform(-1, w * 0.6, (r, 1))
+    y1 = rng.uniform(-1, h * 0.6, (r, 1))
+    x2 = x1 + rng.uniform(1, w * 0.5, (r, 1))
+    y2 = y1 + rng.uniform(1, h * 0.5, (r, 1))
+    return np.concatenate([b, x1, y1, x2, y2], 1).astype(np.float32)
+
+
+def PRIOR_ANCHORS(rng, n):
+    """(1, n, 4) normalized corner anchors."""
+    return BOX(rng, 1, n, lo=0.0, hi=0.7, size=(0.1, 0.3))
+
+
+def GT_LABELS(rng, b, m):
+    """(b, m, 5) rows [cls, x1, y1, x2, y2], the last row padding."""
+    cls = rng.randint(0, 3, (b, m, 1)).astype(np.float32)
+    lab = np.concatenate([cls, BOX(rng, b, m, lo=0.0, hi=0.7,
+                                   size=(0.1, 0.3))], -1)
+    lab[:, -1] = -1.0
+    return lab
+
+
+def RPN(rng, a, h, w):
+    """Proposal inputs: cls_prob (1, 2a, h, w) of foreground scores in
+    the second half, deltas (1, 4a, h, w), im_info [[8h, 8w, 1]]."""
+    prob = U(rng, 0, 1, 1, 2 * a, h, w)
+    return [prob, 0.3 * A(rng, 1, 4 * a, h, w),
+            I([[8.0 * h, 8.0 * w, 1.0]])]
+
+
+def _proposal_case(**attrs):
+    base = dict(scales=(2, 4), ratios=(0.5, 1, 2), feature_stride=8,
+                rpn_pre_nms_top_n=50, rpn_post_nms_top_n=10,
+                threshold=0.7, rpn_min_size=4)
+    base.update(attrs)
+    return lambda r: (RPN(r, 6, 4, 4), base)
+
+
+CASES["_contrib_box_iou"] = lambda r: ([BOX(r, 2, 3), BOX(r, 5)], {})
+CASES["_contrib_box_nms"] = lambda r: ([DETS(r, 20)],
+                                       {"overlap_thresh": 0.5})
+CASES["_contrib_box_encode"] = lambda r: (
+    [I(np.where(r.rand(2, 6) > 0.4, 1.0, -1.0)),
+     I(r.randint(0, 3, (2, 6))), BOX(r, 2, 6), BOX(r, 2, 3)], {})
+CASES["_contrib_box_decode"] = lambda r: ([0.5 * A(r, 2, 6, 4),
+                                           BOX(r, 1, 6)], {})
+CASES["_contrib_MultiBoxPrior"] = lambda r: (
+    [A(r, 1, 3, 4, 5)], {"sizes": (0.5, 0.25), "ratios": (1.0, 2.0, 0.5)})
+CASES["_contrib_MultiBoxTarget"] = lambda r: (
+    [PRIOR_ANCHORS(r, 12), GT_LABELS(r, 2, 3), A(r, 2, 4, 12)], {})
+CASES["_contrib_MultiBoxDetection"] = lambda r: (
+    [U(r, 0, 1, 2, 4, 12), 0.3 * A(r, 2, 48), PRIOR_ANCHORS(r, 12)],
+    {"nms_threshold": 0.4})
+CASES["ROIPooling"] = lambda r: ([R(r, 2, 3, 8, 10), ROIS(r, 5, 2, (16, 20))],
+                                 {"pooled_size": (3, 2),
+                                  "spatial_scale": 0.5})
+CASES["Crop"] = lambda r: ([A(r, 2, 3, 6, 7)], {"h_w": (3, 4),
+                                                "offset": (1, 2)})
+CASES["_contrib_PSROIPooling"] = lambda r: (
+    [A(r, 2, 8, 6, 6), ROIS(r, 3, 2, (12, 12))],
+    {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 2})
+CASES["_contrib_DeformablePSROIPooling"] = lambda r: (
+    [A(r, 2, 8, 6, 6), ROIS(r, 3, 2, (12, 12)), A(r, 3, 2, 2, 2)],
+    {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 2,
+     "part_size": 2, "sample_per_part": 2, "trans_std": 0.1})
+CASES["_contrib_ROIAlign"] = lambda r: (
+    [A(r, 2, 3, 8, 10), ROIS(r, 5, 2, (16, 20))],
+    {"pooled_size": (3, 3), "spatial_scale": 0.5, "sample_ratio": 2})
+CASES["BilinearSampler"] = lambda r: ([A(r, 2, 3, 5, 6),
+                                       U(r, -1.1, 1.1, 2, 2, 4, 4)], {})
+CASES["GridGenerator"] = lambda r: ([A(r, 2, 6)], {"target_shape": (3, 4)})
+CASES["SpatialTransformer"] = lambda r: (
+    [A(r, 2, 3, 5, 6), I([[1, 0, 0, 0, 1, 0]]) + 0.2 * A(r, 2, 6)],
+    {"target_shape": (4, 4)})
+CASES["Correlation"] = lambda r: ([A(r, 1, 3, 6, 6), A(r, 1, 3, 6, 6)],
+                                  {"max_displacement": 1})
+CASES["_contrib_BilinearResize2D"] = lambda r: (
+    [A(r, 1, 2, 4, 5)], {"height": 7, "width": 3})
+CASES["_contrib_AdaptiveAvgPooling2D"] = lambda r: (
+    [A(r, 1, 2, 5, 7)], {"output_size": (2, 3)})
+CASES["_contrib_DeformableConvolution"] = lambda r: (
+    [A(r, 1, 4, 5, 5), 0.7 * A(r, 1, 36, 5, 5), 0.3 * A(r, 4, 2, 3, 3),
+     A(r, 4)],
+    {"kernel": (3, 3), "num_filter": 4, "pad": (1, 1), "num_group": 2,
+     "num_deformable_group": 2})
+CASES["_contrib_Proposal"] = _proposal_case()
+CASES["_image_to_tensor"] = lambda r: ([U(r, 0, 255, 4, 5, 3)], {})
+CASES["_image_normalize"] = lambda r: ([A(r, 3, 4, 5)],
+                                       {"mean": (0.1, 0.2, 0.3),
+                                        "std": (1.0, 2.0, 0.5)})
+CASES["_image_resize"] = lambda r: ([A(r, 6, 8, 3)], {"size": (4, 3)})
+CASES["_contrib_fft"] = _unary(_a(3, 8))
+CASES["_contrib_ifft"] = _unary(_a(3, 16))
+CASES["_contrib_count_sketch"] = lambda r: (
+    [A(r, 4, 6), I(r.randint(0, 5, 6)), I(np.where(r.rand(6) > 0.5, 1, -1))],
+    {"out_dim": 5})
+CASES["_contrib_quadratic"] = lambda r: ([A(r, 3, 4)],
+                                         {"a": 0.5, "b": -1.0, "c": 2.0})
+CASES["_contrib_hawkesll"] = lambda r: (
+    [P(r, 2, 3), U(r, 0.1, 0.5, 3), P(r, 3), 0.1 * P(r, 2, 3), P(r, 2, 5),
+     I(r.randint(0, 3, (2, 5))), I([5, 3])], {})
+CASES["_contrib_SyncBatchNorm"] = lambda r: (
+    [A(r, 4, 3, 2), P(r, 3), A(r, 3), A(r, 3), P(r, 3)],
+    {"fix_gamma": False, "eps": 1e-5})
+CASES["_contrib_div_sqrt_dim"] = _unary(_a(3, 4))
+CASES["_contrib_gradientmultiplier"] = lambda r: ([A(r, 3, 4)],
+                                                  {"scalar": -0.5})
+CASES["_contrib_index_copy"] = lambda r: ([A(r, 5, 3), I([3, 0]),
+                                           A(r, 2, 3)], {})
+CASES["_contrib_getnnz"] = _unary(_rd(3, 4))
+CASES["IdentityAttachKLSparseReg"] = lambda r: (
+    [A(r, 4, 3)], {"sparseness_target": 0.2, "penalty": 0.01})
+
+# the modes of the vision and contrib ops beside their one case each
+FAMILY_EXTRA = [
+    ("_contrib_box_iou", lambda r: ([BOX(r, 4), BOX(r, 3)],
+                                    {"format": "center"})),
+    ("_contrib_box_nms", lambda r: ([DETS(r, 24)],
+                                    {"overlap_thresh": 0.3, "id_index": 0,
+                                     "topk": 10, "valid_thresh": 0.2})),
+    ("_contrib_box_nms", lambda r: ([DETS(r, 24)],
+                                    {"id_index": 0, "background_id": 1,
+                                     "out_format": "center"})),
+    ("_contrib_box_nms", lambda r: ([DETS(r, 32, ties=True)],
+                                    {"overlap_thresh": 0.4, "id_index": 0,
+                                     "force_suppress": True})),
+    ("_contrib_box_decode", lambda r: ([0.5 * A(r, 2, 6, 4), BOX(r, 1, 6)],
+                                       {"clip": 5.0, "format": "center"})),
+    ("_contrib_MultiBoxPrior", lambda r: (
+        [A(r, 1, 3, 3, 4)], {"sizes": (0.6,), "ratios": (1.0, 3.0),
+                             "clip": True, "steps": (0.3, 0.25),
+                             "offsets": (0.2, 0.7)})),
+    ("_contrib_MultiBoxTarget", lambda r: (
+        [PRIOR_ANCHORS(r, 12), GT_LABELS(r, 2, 3), A(r, 2, 4, 12)],
+        {"negative_mining_ratio": 2.0, "negative_mining_thresh": 0.3,
+         "overlap_threshold": 0.3, "minimum_negative_samples": 1})),
+    ("_contrib_MultiBoxDetection", lambda r: (
+        [U(r, 0, 1, 2, 4, 12), 0.3 * A(r, 2, 48), PRIOR_ANCHORS(r, 12)],
+        {"force_suppress": True, "nms_topk": 5, "clip": False,
+         "threshold": 0.3})),
+    ("ROIPooling", lambda r: ([A(r, 2, 3, 8, 10), ROIS(r, 5, 2, (16, 20))],
+                              {"pooled_size": 3, "spatial_scale": 0.5})),
+    ("Crop", lambda r: ([A(r, 2, 3, 6, 7), A(r, 1, 1, 4, 3)],
+                        {"num_args": 2, "center_crop": True})),
+    ("_contrib_DeformablePSROIPooling", lambda r: (
+        [A(r, 2, 8, 6, 6), ROIS(r, 3, 2, (12, 12))],
+        {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 2,
+         "sample_per_part": 3, "no_trans": True})),
+    ("_contrib_ROIAlign", lambda r: (
+        [A(r, 2, 3, 8, 10), ROIS(r, 5, 2, (16, 20))],
+        {"pooled_size": (2, 3), "spatial_scale": 0.5, "aligned": True})),
+    ("_contrib_ROIAlign", lambda r: (
+        [A(r, 2, 8, 8, 10), ROIS(r, 4, 2, (16, 20))],
+        {"pooled_size": 2, "spatial_scale": 0.5, "sample_ratio": 3,
+         "position_sensitive": True})),
+    ("GridGenerator", lambda r: ([A(r, 2, 2, 3, 4)],
+                                 {"transform_type": "warp"})),
+    ("Correlation", lambda r: ([A(r, 1, 3, 6, 6), A(r, 1, 3, 6, 6)],
+                               {"kernel_size": 3, "max_displacement": 2,
+                                "stride2": 2, "pad_size": 2,
+                                "is_multiply": False})),
+    ("_contrib_Proposal", _proposal_case(output_score=True,
+                                         rpn_pre_nms_top_n=-1,
+                                         rpn_post_nms_top_n=30)),
+    ("_contrib_Proposal", _proposal_case(rpn_pre_nms_top_n=8,
+                                         rpn_post_nms_top_n=12,
+                                         threshold=0.3)),
+    ("_image_to_tensor", lambda r: ([U(r, 0, 255, 2, 4, 5, 3)], {})),
+    ("_image_resize", lambda r: ([A(r, 2, 4, 6, 3)],
+                                 {"size": 9, "keep_ratio": True})),
+    ("_image_resize", lambda r: ([A(r, 6, 8, 3)], {"size": (5, 9),
+                                                   "interp": 0})),
+    ("_contrib_getnnz", lambda r: ([R(r, 3, 4)], {"axis": 1})),
+    ("_contrib_SyncBatchNorm", lambda r: (
+        [A(r, 4, 3, 2), P(r, 3), A(r, 3), A(r, 3), P(r, 3)],
+        {"use_global_stats": True})),
+]
+
 # an alias whose case differs from its op's (a second path of the op)
 NAME_CASES = {
     "pad": lambda r: ([A(r, 1, 2, 3, 4)],
@@ -437,6 +640,8 @@ EXTRA = [
     ("topk", lambda r: ([A(r, 3, 6)], {"k": 3, "is_ascend": True})),
 ]
 
+EXTRA += FAMILY_EXTRA
+
 # ops whose gradient is not compared: the sign of each eigenvector is a
 # convention of the LAPACK call (the values are compared up to it)
 NO_GRAD = {"_linalg_syevd"}
@@ -450,6 +655,11 @@ def _random_name(name):
 
 
 ALL_NAMES = sorted(OP_REGISTRY)
+# the registry's families by the port's module: `vision` and `contrib`
+# (ops/vision.py, ops/contrib_ops.py) have test files of their own
+FAMILY = {n: {"vision": "vision", "contrib_ops": "contrib"}.get(
+    OP_REGISTRY[n].fn.__module__.rsplit(".", 1)[1], "core")
+    for n in ALL_NAMES}
 DETERMINISTIC = [n for n in ALL_NAMES if not _random_name(n)]
 RANDOM = [n for n in ALL_NAMES if _random_name(n)]
 
