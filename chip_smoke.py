@@ -47,8 +47,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    epilogue forward and backward kernels at a ragged R 1001 with C 64 and
    2048, at C 67 (one-element loads), on unaligned views and at ResNet-50's
    stem, stage-1 and stage-4 shapes, with and without the residual, in
-   float32 and bfloat16 (forward 1e-6 and 2e-2; dx, dres 1e-4 and 2e-2;
-   the channel sums rtol 1e-4, atol 1e-4 * sqrt(R / 75)), the backward
+   float32, bfloat16 and float16 (forward 1e-6, 2e-2 and 1e-3; dx, dres
+   1e-4, 2e-2 and 2e-2; the channel sums rtol 1e-4, atol 1e-4 *
+   sqrt(R / 75)), the backward
    bit-equal across two runs, and the autograd Function's four gradients;
 3. serving: the full-width transformer (d_model 512, 6 layers, 8 heads,
    d_ff 2048, vocab 32000, max_len 512, float32, random weights from
@@ -265,6 +266,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    custom_op_numpy.py and svrg_regression.py as written with the port's
    imports, each printing its OK line; (c) is phase 4c (c), whose
    registry cases include the vision and contrib ops;
+4h. reduced precision: (a) ResNet-50 v1 at bench.py's setup through
+   `amp.convert_block(net, "float16")` (BatchNorm float32) with the
+   knob on (kernels 6-7 in float16, EPI_PER_STEP launches of each a
+   step), SGD (momentum 0.9, wd 1e-4, multi_precision) under
+   `amp.init_trainer`'s default scaler, steps of the imperative loop
+   with `amp.scale_loss` until AMP_APPLIED were applied (the summed
+   batch-128 loss's gradients overflow float16 from 2^16 down to about
+   2^6, and each overflow halves the scale), each held to the
+   reference's policy (an overflowed step leaves every weight and
+   optimizer state bit-equal and halves the scale, a clean one moves the
+   weights), the scale trail printed; a scale_window 2 scaler from half
+   the settled scale that grows it;
+   the first applied step against the knob-off chain's (the float32
+   masters' gap printed, relative 2-norm over the net; the step's
+   movement no farther from a float32 step's than AMP_GAP_FACTOR times
+   the unfused chain's); the backoff guardrail with
+   grad.nonfinite at a fixed step (skipped, weights bit-equal, one trip,
+   a unit scaler at 1.0); one bfloat16 step; (b) ResNet-50 v1 at
+   ImageNet widths (NCHW, Xavier seed 0) through `as_chain` and
+   `quantize_net` (minmax and entropy over 4 seeded batches of 32): no
+   float32 island, the int8 forward's ms against float32 (CUDA events,
+   median of 5) and its peak allocation, the mean relative logit error
+   against float32, and on 2 images the program rebuilt on the CPU from
+   the card's ranges: int8 weights and scales bit-equal, every int8
+   code equal, logits at rtol 1e-5; (c) examples/quantized_inference.py
+   as written with the port's imports (its own asserts);
 5. times (CUDA events; warm-up first, median of 25 or more): decode step,
    prefill, the wide step at Q 5 and 64, tokens/s, TTFT and request
    latency over each trace (through graphs), the decode step eager
@@ -281,7 +308,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    none computes the epilogue kernels, which
    are timed beside the BN -> ReLU (-> add) chain they replace); each
    ResNet-50 leg's step, host time and images/s (the bfloat16 fused leg
-   too), kernels 6-7 in bfloat16 at the stem and stage-1 join, and
+   too), kernels 6-7 in bfloat16 and float16 at the stem and stage-1
+   join (float16 held to the plain versions, with its launches in phase
+   4h (a)), and
    `python3 -m incubator_mxnet_tpu_torch.bench` with the epilogue on
    (images/s eager and scan, bfloat16 and float32); the fleet's wire
    leg
@@ -321,6 +350,8 @@ import torch.nn.functional as F
 
 import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch.analysis import sanitizers
+from incubator_mxnet_tpu_torch.contrib import amp
+from incubator_mxnet_tpu_torch.contrib import quantization as q
 from incubator_mxnet_tpu_torch.fused import GluonTrainStep
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.gluon.utils import load_numpy_params
@@ -331,8 +362,10 @@ from incubator_mxnet_tpu_torch.ops.kernels import decode as dk
 from incubator_mxnet_tpu_torch.ops.kernels import epilogue as ep
 from incubator_mxnet_tpu_torch.ops.kernels import flash as fl
 from incubator_mxnet_tpu_torch.ops.kernels import xent as xt
+from incubator_mxnet_tpu_torch.ops import quantized as qops
 from incubator_mxnet_tpu_torch.ops import vision as tv
 from incubator_mxnet_tpu_torch.parallel import moe
+from incubator_mxnet_tpu_torch.resilience import fault
 from incubator_mxnet_tpu_torch import profiler, telemetry
 from incubator_mxnet_tpu_torch.serving import (
     FleetRouter, PageAllocator, ServingEngine, ServingGateway, run_trace)
@@ -347,6 +380,12 @@ F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12    # tensor cores, dense (float32 as 3 x TF32)
 BF16_OPS_PER_S = 989e12    # tensor cores, dense
 NEAR_TIE = 1e-4
+# Idle host time at each end of a profiler window. Kineto keeps only the
+# device records whose times, mapped onto the host clock, fall inside its
+# window, and a mapped record strays from its own launch call by up to
+# milliseconds (tools/profiler_clock_probe.py); without the margins the
+# first or last kernels of a window can go missing from its records.
+WINDOW_MARGIN_S = 0.05
 WIDE_Q = (5, 32, 64)  # speculation (lookahead 4), prefix tail, chunk 64
 LEVER_LEGS = {
     "prefix": dict(prefix_cache=1, shared_prefix_frac=0.5, prefix_len=32),
@@ -888,8 +927,10 @@ EPI_CASES = {
     "stage-1 join R401408 C256": (128 * 56 * 56, 256),
     "stage-4 join R6272 C2048": (128 * 7 * 7, 2048),
 }
-EPI_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # forward
-EPI_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # dx, dres
+# forward: float16 is one rounding of the float32 result (rtol 1e-3)
+EPI_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2, torch.float16: 1e-3}
+EPI_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+                torch.float16: 2e-2}  # dx, dres
 EPI_SUM_ROWS = 75  # rows of tests/test_memory_traffic.py's gradient check
 
 
@@ -920,10 +961,11 @@ def epi_grad_tol(out, dtype, R):
 
 
 def epilogue_against_plain(device, errs):
-    """Kernels 6 and 7 against their plain versions, float32 and bfloat16,
-    with and without the residual, and the backward run twice for bit
-    equality (its channel sums take a fixed order). Forward 1e-6 (2e-2
-    bfloat16), dx and dres 1e-4 (2e-2): tests/test_memory_traffic.py's.
+    """Kernels 6 and 7 against their plain versions, float32, bfloat16 and
+    float16, with and without the residual, and the backward run twice for
+    bit equality (its channel sums take a fixed order). Forward 1e-6 (2e-2
+    bfloat16, 1e-3 float16), dx and dres 1e-4 (2e-2):
+    tests/test_memory_traffic.py's (the bfloat16 one for float16).
     The channel sums differ from the plain version's only in the order of
     float32 additions, whose error grows as the square root of the rows
     summed: they are held to 1e-4 scaled by sqrt(R / 75), 1e-4 at the
@@ -931,7 +973,7 @@ def epilogue_against_plain(device, errs):
     cases = [(label, R, C, res, 0) for label, (R, C) in EPI_CASES.items()
              for res in (False, True)]
     cases.append(("unaligned R1001 C64", 1001, 64, True, 1))
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).replace("torch.", "")
         for label, R, C, residual, offset in cases:
             x, scale, shift, res, dy = epi_case(device, dtype, R, C,
@@ -2950,7 +2992,8 @@ def registry_on_card(gpu):
     rtol 1e-5, atol 1e-6, the inputs' gradients under the same head
     gradients at rtol 1e-4, atol 1e-5 (LQ signs normalised, and syevd
     held by U^T diag(L) U and L: solver conventions; the CPU test holds
-    U itself against the JAX package's LAPACK call); the samplers by
+    U itself against the JAX package's LAPACK call; the quantized
+    family's integer outputs bit-equal); the samplers by
     their moments on the card (mean within 6 standard errors, standard
     deviation within 10 % of the distribution's)."""
     from incubator_mxnet_tpu_torch.ndarray.register import F as opF
@@ -2979,6 +3022,9 @@ def registry_on_card(gpu):
                 vals[:] = _eig_recomposed(vals)
             if op == "_linalg_gelqf":
                 vals[:] = _lq_signed(vals)
+        # the quantized family's integer outputs (int8 codes, int32
+        # accumulators) are exact on both devices
+        exact = oc.FAMILY[name] == "quantized"
         for what, k, rtol, atol in (("values", 0, 1e-5, 1e-6),
                                     ("gradients", 1, 1e-4, 1e-5),
                                     ("inputs after", 2, 1e-5, 1e-6)):
@@ -2988,6 +3034,12 @@ def registry_on_card(gpu):
                 bad.append(f"{name} {what}: {got} against {want}")
                 continue
             for g, w in zip(got or (), want or ()):
+                if exact and np.issubdtype(np.asarray(w).dtype, np.integer):
+                    if not np.array_equal(g, w) or \
+                            np.asarray(g).dtype != np.asarray(w).dtype:
+                        bad.append(f"{name} {what}: integer output not "
+                                   f"bit-equal to the CPU's")
+                    continue
                 g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
                 if g.shape != w.shape or not np.allclose(
                         g, w, rtol=rtol, atol=atol, equal_nan=True):
@@ -4831,6 +4883,510 @@ def vision_leg(device, gpu):
     return out
 
 
+# -- phase 4h: reduced precision (amp float16, int8 inference) ---------------
+
+AMP_APPLIED = 3    # applied steps the float16 leg runs to ...
+AMP_MAX_STEPS = 24  # ... within this many (a summed batch-128 loss's
+                    # gradients overflow float16 until the scale is ~2^6)
+AMP_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4,
+               multi_precision=True)
+# the fused float16 step's movement may part from a float32 step's by at
+# most this many times the unfused float16 chain's gap (the two float16
+# chains part from each other by more than 2e-2: the scale settles at
+# 2^6, where small gradients underflow float16)
+AMP_GAP_FACTOR = 2.0
+AMP_WINDOW = 2     # the growth run's scale_window, from half the scale
+                   # the default scaler settled at
+BACKOFF_AT = 2    # the guardrail leg's poisoned step
+INT8 = dict(batch=32, calib_batches=4, held=2, seed=1)
+INT8_LOGIT_RTOL = 1e-5
+
+
+def _params_of(trainer):
+    """The trainer's parameters with data, in its order."""
+    return [p for p in trainer._params if p._data is not None]
+
+
+def _state_tensors(trainer):
+    return [t for s in trainer._updater.states.values()
+            for t in (s if isinstance(s, tuple) else (s,))
+            if t is not None]
+
+
+def _masters(trainer):
+    """{index: float32 master} of a multi-precision trainer's parameters
+    (the float32 copy of the weight where no state exists yet)."""
+    out = {}
+    for i, p in enumerate(trainer._params):
+        s = trainer._updater.states.get(i)
+        w = s[1]._data if isinstance(s, tuple) else p.tensor()
+        out[i] = w.detach().float().clone()
+    return out
+
+
+def amp_steps(trainer, scaler, net, data, label, steps, fused, record=None,
+              applied=None):
+    """Up to `steps` loss-scaled steps through the imperative loop (fewer
+    once `applied` steps were applied), each held to the reference's
+    policy: an overflowed step leaves every weight and optimizer state
+    bit-equal and halves the scale; a clean one moves the weights and
+    keeps the scale until the window doubles it. Each step must launch
+    each epilogue kernel EPI_PER_STEP times with the knob on (`fused`),
+    none with it off. With `record`, the float32 masters before and after
+    the first applied step are kept in it. Returns the scale trail
+    [(scale applied, overflowed, loss)]."""
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trail = []
+    want = EPI_PER_STEP if fused else 0
+    for i in range(steps):
+        if applied is not None and \
+                sum(not o for _, o, _ in trail) >= applied:
+            break
+        before = [p.tensor().detach().clone() for p in _params_of(trainer)]
+        states = [t._data.clone() for t in _state_tensors(trainer)]
+        masters = _masters(trainer) if record is not None and \
+            "after" not in record else None
+        scale, window = scaler.loss_scale, scaler._unskipped
+        launched = [k.launches for k in EPI_KERNELS]
+        with tmx.autograd.record():
+            loss = loss_fn(net(data), label)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+        overflow = scaler.has_overflow(
+            [p.grad() for p in _params_of(trainer)])
+        trainer.step(data.shape[0])
+        for k, b in zip(EPI_KERNELS, launched):
+            if k.launches - b != want:
+                raise AssertionError(f"phase 4h (a): {k.__name__} launched "
+                                     f"{k.launches - b} times in step "
+                                     f"{i + 1}, expected {want}")
+        same = all(torch.equal(a, p.tensor())
+                   for a, p in zip(before, _params_of(trainer)))
+        if overflow:
+            same_states = all(torch.equal(a, t._data) for a, t in
+                              zip(states, _state_tensors(trainer)))
+            if not (same and same_states and scaler.loss_scale == max(
+                    scaler.min_scale, scale / scaler.scale_factor)):
+                raise AssertionError(
+                    f"phase 4h (a): overflowed step {i + 1} (scale "
+                    f"{scale:g}) moved the weights or states ({not same}, "
+                    f"{not same_states}) or set the scale to "
+                    f"{scaler.loss_scale:g}")
+        else:
+            grown = window + 1 >= scaler.scale_window
+            if same or scaler.loss_scale != (
+                    scale * scaler.scale_factor if grown else scale):
+                raise AssertionError(
+                    f"phase 4h (a): clean step {i + 1} (scale {scale:g}) "
+                    f"left the weights ({same}) or set the scale to "
+                    f"{scaler.loss_scale:g}")
+            if record is not None and "after" not in record:
+                record["before"], record["after"] = masters, \
+                    _masters(trainer)
+        mean = float(loss.asnumpy().astype(np.float32).mean())
+        if not math.isfinite(mean):
+            raise AssertionError(f"phase 4h (a): loss {mean} at step {i + 1}")
+        trail.append((scale, bool(overflow), mean))
+    return trail
+
+
+def _trail_text(trail):
+    return ", ".join(f"{s:g}{' skipped' if o else ''} (loss {l:.4f})"
+                     for s, o, l in trail)
+
+
+def amp_net(x, device, dtype, fused):
+    os.environ["MXTPU_FUSED_EPILOGUE"] = "1" if fused else "0"
+    net = resnet50(x, device)
+    amp.convert_block(net, dtype)
+    return net
+
+
+def amp_leg(batch, device, gpu):
+    """Phase 4h (a): ResNet-50 v1 at bench.py's setup converted to float16
+    (`amp.convert_block`, BatchNorm float32), SGD (momentum 0.9, wd 1e-4,
+    multi_precision) under the default scaler through the imperative
+    loop with the knob on: the scale trail and each step's policy; the
+    first applied step against the knob-off chain's; a scale_window 2
+    run that grows the scale; the backoff guardrail; one bfloat16 step.
+    Returns the float16 leg's epilogue launches and its trail."""
+    x, y = batch
+    data = tmx.nd.NDArray._from_data(x.half())
+    label = tmx.nd.NDArray._from_data(y)
+    try:
+        net = amp_net(x, device, "float16", True)
+        for k in EPI_KERNELS:
+            k.launches = 0
+        dtypes = {str(p.data().dtype).replace("torch.", "")
+                  for p in net.collect_params().values()}
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                    dict(AMP_SGD))
+        scaler = amp.init_trainer(trainer)
+        on = {}
+        t0 = time.perf_counter()
+        trail = amp_steps(trainer, scaler, net, data, label, AMP_MAX_STEPS,
+                          True, record=on, applied=AMP_APPLIED)
+        seconds = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in EPI_KERNELS}
+        skipped = [i + 1 for i, (_, o, _) in enumerate(trail) if o]
+        print(f"  (a) float16, knob on, default scaler: parameter dtypes "
+              f"{sorted(dtypes)}; scale trail {_trail_text(trail)}; "
+              f"skipped steps {skipped}; epilogue launches {launches} "
+              f"({EPI_PER_STEP} of each a step); {len(trail)} steps in "
+              f"{seconds:.1f} s [{gpu}]")
+        if "after" not in on:
+            raise AssertionError("phase 4h (a): no step was applied")
+        # the scale grows after a window of clean steps
+        start = scaler.loss_scale / 2
+        growth = amp.init_trainer(trainer, amp.DynamicLossScaler(
+            init_scale=start, scale_window=AMP_WINDOW))
+        g_trail = amp_steps(trainer, growth, net, data, label,
+                            AMP_WINDOW + 1, True)
+        if max(s for s, _, _ in g_trail) <= start and \
+                growth.loss_scale <= start:
+            raise AssertionError(f"phase 4h (a): scale_window "
+                                 f"{AMP_WINDOW} grew no scale: {g_trail}")
+        print(f"      scale_window {AMP_WINDOW} from {start:g}: "
+              f"{_trail_text(g_trail)}, then {growth.loss_scale:g}")
+        del trainer, growth, scaler
+        # the knob-off chain to its first applied step
+        net_off = amp_net(x, device, "float16", False)
+        trainer = tmx.gluon.Trainer(net_off.collect_params(), "sgd",
+                                    dict(AMP_SGD))
+        off = {}
+        off_trail = amp_steps(trainer, amp.init_trainer(trainer), net_off,
+                              data, label, len(skipped) + 1, False,
+                              record=off)
+        if [o for _, o, _ in off_trail] != \
+                [o for _, o, _ in trail[:len(off_trail)]]:
+            raise AssertionError(f"phase 4h (a): the knob-off trail "
+                                 f"{off_trail} parts from {trail}")
+        names = [p.name[len(net_off.prefix):] for p in trainer._params]
+        masters_gap = math.sqrt(
+            sum(float(((on["after"][i] - off["after"][i]) ** 2).sum())
+                for i in range(len(names)))
+            / sum(float((off["after"][i] ** 2).sum())
+                  for i in range(len(names))))
+        del net_off, trainer
+        gaps = movement_gaps(names, on, off, f32_movement(x, y, device))
+        print(f"      first applied step (scale "
+              f"{trail[len(skipped)][0]:g}), knob on against knob off (the "
+              f"unfused chain): float32 masters {masters_gap:.3e} apart "
+              f"(relative 2-norm over the net); the step's "
+              f"movement, relative 2-norm over the net: on against off "
+              f"{gaps['on_off']:.3e}, on against a float32 step "
+              f"{gaps['on']:.3e}, off against it {gaps['off']:.3e} "
+              f"(fused within {AMP_GAP_FACTOR:g} x the unfused gap); the "
+              f"largest parameter gaps on / off against float32: "
+              f"{gaps['worst_on'][1]} {gaps['worst_on'][0]:.3e}, "
+              f"{gaps['worst_off'][1]} {gaps['worst_off'][0]:.3e}")
+        if gaps["on"] > AMP_GAP_FACTOR * gaps["off"]:
+            raise AssertionError(f"phase 4h (a): knob on against off: "
+                                 f"masters {masters_gap}, {gaps}")
+        backoff_leg(net, data, label, gpu)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        bf16_amp_step(x, y, device, gpu)
+    finally:
+        os.environ.pop("MXTPU_FUSED_EPILOGUE", None)
+    return dict(launches=launches, trail=trail, seconds=seconds)
+
+
+def f32_movement(x, y, device):
+    """{index: movement} of one float32 imperative step (knob off, TF32
+    off) from the float16 legs' initial weights: the yardstick of their
+    first applied step."""
+    net = amp_net(x, device, "float32", False)
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", dict(AMP_SGD))
+    before = [p.tensor().detach().clone() for p in trainer._params]
+    imperative_step(net, tmx.gluon.loss.SoftmaxCrossEntropyLoss(), trainer,
+                    tmx.nd.NDArray._from_data(x),
+                    tmx.nd.NDArray._from_data(y))
+    return {i: p.tensor().detach() - b
+            for i, (p, b) in enumerate(zip(trainer._params, before))}
+
+
+def movement_gaps(names, on, off, ref):
+    """Relative 2-norm gaps over the net of the first applied step's
+    movements (float32 masters): knob on against off, and each against
+    the float32 step `ref`; conv biases (before a BatchNorm: true
+    gradient 0) left out. Also each chain's largest gap of one
+    parameter against `ref`."""
+    keep = [i for i, n in enumerate(names)
+            if not ("conv" in n and n.endswith("bias"))]
+    mv = {k: {i: d["after"][i] - d["before"][i] for i in keep}
+          for k, d in (("on", on), ("off", off))}
+
+    def gap(a, b):
+        num = sum(float(((a[i] - b[i]) ** 2).sum()) for i in keep)
+        return math.sqrt(num / sum(float((b[i] ** 2).sum()) for i in keep))
+
+    out = {"on_off": gap(mv["on"], mv["off"]), "on": gap(mv["on"], ref),
+           "off": gap(mv["off"], ref)}
+    for k in ("on", "off"):
+        out[f"worst_{k}"] = max(
+            (float((mv[k][i] - ref[i]).norm() / ref[i].norm()), names[i])
+            for i in keep)
+    return out
+
+
+def backoff_leg(net, data, label, gpu):
+    """MXTPU_GUARDRAIL_POLICY=backoff with grad.nonfinite at step
+    BACKOFF_AT of a Trainer with no loss scaler: that step is skipped
+    (the weights bit-equal), the trip counter goes up by one and the
+    unit scaler attached stays at 1.0."""
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    was = telemetry.enabled()
+    telemetry.enable()
+    os.environ["MXTPU_GUARDRAIL_POLICY"] = "backoff"
+    fault.install(fault.FaultInjector(f"grad.nonfinite:fail@{BACKOFF_AT}",
+                                      0))
+    trips = telemetry.counter("mxtpu_guardrail_trips_total")
+    try:
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                    dict(AMP_SGD))
+        n0 = trips.value(policy="backoff", reason="nonfinite-grad")
+        seen = []
+        for i in range(BACKOFF_AT + 1):
+            before = [p.tensor().detach().clone()
+                      for p in _params_of(trainer)]
+            with tmx.autograd.record():
+                loss = loss_fn(net(data), label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            same = all(torch.equal(a, p.tensor())
+                       for a, p in zip(before, _params_of(trainer)))
+            scaler = getattr(trainer, "_amp_scaler", None)
+            seen.append((same, None if scaler is None else
+                         scaler.loss_scale))
+        n1 = trips.value(policy="backoff", reason="nonfinite-grad")
+    finally:
+        fault.install(None)
+        os.environ.pop("MXTPU_GUARDRAIL_POLICY", None)
+        if not was:
+            telemetry.disable()
+    want = [(False, None)] * (BACKOFF_AT - 1) + [(True, 1.0), (False, 1.0)]
+    print(f"      backoff guardrail, grad.nonfinite at step {BACKOFF_AT}: "
+          f"(weights unchanged, scale) per step {seen}; "
+          f"mxtpu_guardrail_trips_total{{policy=\"backoff\"}} {n0:g} -> "
+          f"{n1:g}")
+    if seen != want or n1 != n0 + 1:
+        raise AssertionError(f"phase 4h (a) backoff: {seen}, trips "
+                             f"{n0} -> {n1}")
+
+
+def bf16_amp_step(x, y, device, gpu):
+    """One step of convert_block(net, "bfloat16") (the JAX package's
+    default target) with the knob on and no loss scaler: kernels 6-7 in
+    bfloat16 EPI_PER_STEP times each, BatchNorm parameters float32."""
+    net = amp_net(x, device, "bfloat16", True)
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                dict(AMP_SGD))
+    launched = [k.launches for k in EPI_KERNELS]
+    loss = imperative_step(net, tmx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                           trainer,
+                           tmx.nd.NDArray._from_data(x.bfloat16()),
+                           tmx.nd.NDArray._from_data(y))
+    counts = [k.launches - b for k, b in zip(EPI_KERNELS, launched)]
+    kinds = {n.rsplit("_", 1)[-1]: str(p.data().dtype).replace("torch.", "")
+             for n, p in net.collect_params().items()}
+    mean = float(loss.asnumpy().astype(np.float32).mean())
+    print(f"      bfloat16 step, knob on: loss {mean:.4f}, epilogue "
+          f"launches {counts}, weight {kinds['weight']}, gamma "
+          f"{kinds['gamma']}, running_var {kinds['var']} [{gpu}]")
+    if counts != [EPI_PER_STEP] * 2 or not math.isfinite(mean) or \
+            (kinds["weight"], kinds["gamma"]) != ("bfloat16", "float32"):
+        raise AssertionError(f"phase 4h (a) bfloat16: {counts}, {mean}, "
+                             f"{kinds}")
+
+
+def events_ms(fn, reps=5):
+    """Median of `reps` CUDA-event timings of fn() after one warm-up:
+    the wall time of the device's work, host enqueue gaps included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def int8_batches():
+    rng = np.random.RandomState(INT8["seed"])
+    S = RESNET["image"]
+    return [rng.rand(INT8["batch"], 3, S, S).astype(np.float32)
+            for _ in range(INT8["calib_batches"])]
+
+
+def _host_steps(steps):
+    """The program's tensors on the host, by path."""
+    out = {}
+
+    def walk(v, path):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(x, f"{path}.{k}")
+        elif isinstance(v, list):
+            for i, x in enumerate(v):
+                walk(x, f"{path}[{i}]")
+        elif isinstance(v, torch.Tensor):
+            out[path] = v.cpu()
+        elif isinstance(v, float):
+            out[path] = v
+    walk(steps, "")
+    return out
+
+
+def int8_leg(device, gpu):
+    """Phase 4h (b): ResNet-50 v1 at ImageNet widths (1000 classes, 224^2,
+    NCHW, Xavier seed 0, float32) through `as_chain` and `quantize_net`
+    (minmax, then entropy) over INT8["calib_batches"] seeded batches of
+    32: no float32 island; the int8 forward against the float32 one at
+    batch 32 (CUDA events, median of 5; peak allocation); the programs'
+    mean relative logit error against the float32 net; and on 2 images
+    the program rebuilt on the CPU from the card's ranges: int8 weights,
+    biases and scales bit-equal, every int8 code along the chain equal,
+    the logits at rtol 1e-5."""
+    t0 = time.perf_counter()
+    calls0 = qops.INT_MM_CALLS
+    net = vision.resnet50_v1(classes=RESNET["classes"])
+    net.initialize(tmx.init.Xavier(generator=torch.Generator()
+                                   .manual_seed(RESNET["seed"])),
+                   device=device)
+    batches = int8_batches()
+    probe = tmx.nd.NDArray._from_data(
+        torch.from_numpy(batches[0][:2]).to(device))
+    with tmx.autograd.predict_mode():
+        net(probe)
+        chain = q.as_chain(net, probe=probe)
+        calib = [[tmx.nd.NDArray._from_data(
+            torch.from_numpy(b).to(device))] for b in batches]
+        progs, calib_s = {}, {}
+        for mode in ("minmax", "entropy"):
+            t = time.perf_counter()
+            progs[mode] = q.quantize_net(chain, calib,
+                                         num_calib_batches=len(calib),
+                                         calib_mode=mode)
+            torch.cuda.synchronize()
+            calib_s[mode] = time.perf_counter() - t
+            if progs[mode].num_fp32_islands != 0:
+                raise AssertionError(f"phase 4h (b): {mode}: "
+                                     f"{progs[mode].num_fp32_islands} "
+                                     f"float32 islands")
+        xb = calib[0][0]._data
+        with torch.no_grad():
+            ref = chain(xb)
+            f32_ms = events_ms(lambda: chain(xb))
+        rel = {}
+        for mode, prog in progs.items():
+            got = prog.apply(xb)
+            rel[mode] = float((got - ref).abs().mean() / ref.abs().mean())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        int8_ms = events_ms(lambda: progs["minmax"].apply(xb))
+        peak = torch.cuda.max_memory_allocated() - base
+        calls = qops.INT_MM_CALLS - calls0
+        units = sum(s["kind"] == "resunit" for s in progs["minmax"]._steps)
+        print(f"  (b) int8 ResNet-50 v1, {RESNET['classes']} classes, "
+              f"{RESNET['image']}^2, batch "
+              f"{INT8['batch']}: {units} int8 residual units, 0 float32 "
+              f"islands in both modes; calibration over "
+              f"{INT8['calib_batches']} batches minmax "
+              f"{calib_s['minmax']:.1f} s, entropy "
+              f"{calib_s['entropy']:.1f} s; forward int8 {int8_ms:.2f} ms "
+              f"against float32 {f32_ms:.2f} ms (CUDA events, median of 5, "
+              f"TF32 off; peak allocation of the int8 forward "
+              f"{peak / 2**20:.1f} MiB over its inputs); mean relative "
+              f"logit error against float32: minmax {rel['minmax']:.4f}, "
+              f"entropy {rel['entropy']:.4f}; _int_mm calls {calls} "
+              f"[{gpu}]")
+        if calls == 0:
+            raise AssertionError("phase 4h (b): no int8 product went "
+                                 "through torch._int_mm")
+        int8_against_cpu(net, progs["minmax"], xb[:INT8["held"]], gpu)
+    out = dict(int8_ms=int8_ms, f32_ms=f32_ms, peak=peak, rel=rel,
+               seconds=time.perf_counter() - t0)
+    del net, chain, progs, calib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_against_cpu(net, prog, x, gpu):
+    """The card's minmax program against the one rebuilt on the CPU from
+    its calibrated ranges (a CPU copy of the net's weights): the int8
+    weights, biases and scales bit-equal, every int8 code the chain makes
+    equal, the logits at INT8_LOGIT_RTOL."""
+    t0 = time.perf_counter()
+    cpu_net = vision.resnet50_v1(classes=RESNET["classes"])
+    cpu_net.initialize(tmx.init.Zero(), device="cpu")
+    load_numpy_params(cpu_net, {n: p.data().asnumpy() for n, p in
+                                net.collect_params().items()},
+                      prefix=net.prefix)
+    cpu_prog = q.quantize_net_from_ranges(q.as_chain(cpu_net), prog.ranges)
+    card, host = _host_steps(prog._steps), _host_steps(cpu_prog._steps)
+    if card.keys() != host.keys() or not all(
+            (torch.equal(card[k], host[k]) if isinstance(card[k],
+                                                         torch.Tensor)
+             else card[k] == host[k]) for k in card):
+        bad = [k for k in card if k not in host or not (
+            torch.equal(card[k], host[k]) if isinstance(card[k],
+                                                        torch.Tensor)
+            else card[k] == host[k])]
+        raise AssertionError(f"phase 4h (b): the CPU program's weights or "
+                             f"scales part from the card's: {bad[:5]}")
+    codes_card, codes_cpu = [], []
+    got = prog.apply(x, codes=codes_card).cpu()
+    want = cpu_prog.apply(x.cpu(), codes=codes_cpu)
+    parted = [i for i, (a, b) in enumerate(zip(codes_card, codes_cpu))
+              if not torch.equal(a.cpu(), b)]
+    n_codes = sum(c.numel() for c in codes_cpu)
+    print(f"      held to the CPU on {x.shape[0]} images: {len(card)} "
+          f"program tensors and scales bit-equal; {len(codes_cpu)} int8 "
+          f"activations ({n_codes} codes), {len(parted)} parted; logits "
+          f"max abs diff {float((got - want).abs().max()):.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if len(codes_card) != len(codes_cpu) or parted:
+        raise AssertionError(f"phase 4h (b): int8 codes part from the CPU "
+                             f"at activations {parted[:5]}")
+    if not torch.allclose(got, want, rtol=INT8_LOGIT_RTOL, atol=0):
+        raise AssertionError("phase 4h (b): logits part from the CPU's")
+
+
+def quantized_example(gpu):
+    """Phase 4h (c): examples/quantized_inference.py as written (the
+    port's imports), its own asserts: int8 accuracy within 1 % of
+    float32 on LeNet, resnet18_v1 with 0 islands and rel < 0.1."""
+    t0 = time.perf_counter()
+    log = run_example("quantized_inference")
+    lines = log.strip().splitlines()
+    if "quantized inference OK" not in log:
+        raise AssertionError(f"phase 4h (c): the example did not finish: "
+                             f"{lines[-3:]}")
+    print(f"  (c) quantized_inference: {' | '.join(lines[-3:])} "
+          f"({time.perf_counter() - t0:.1f} s) [{gpu}]")
+
+
+def reduced_precision_leg(batch, device, gpu):
+    """Phase 4h: (a) amp float16 (and one bfloat16 step), (b) int8
+    ResNet-50, (c) examples/quantized_inference.py."""
+    t0 = time.perf_counter()
+    out = {"amp": amp_leg(batch, device, gpu)}
+    out["int8"] = int8_leg(device, gpu)
+    quantized_example(gpu)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  reduced-precision leg: {out['seconds']:.1f} s [{gpu}]")
+    return out
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 def device_ms(fn, reps=25, warmup=3, flush=None, sleep_cycles=1_000_000):
@@ -5048,8 +5604,10 @@ def library_kernels(fn, top_n=6):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(WINDOW_MARGIN_S)
     kernels = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -5290,14 +5848,15 @@ def epilogue_bound_ms(R, C, elem, kernel, residual):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def epilogue_rows(errs, launches, flush, device, gpu):
+def epilogue_rows(errs, launches, flush, device, gpu, f16_launches):
     """Times of kernels 6 and 7 at the stem and stage-1 join shapes,
     float32, each beside its plain version and its bound (no single
     library call computes either function), then the chain each replaces
     in the knob-off leg: `ops.epilogue.bn_act` with the knob off (the
     training-mode BatchNorm, the add and the ReLU) and with it on (the
     batch moments, the folded scale and shift and the kernel), forward
-    and forward + backward. The JSON rows are the stage-1 join's."""
+    and forward + backward; then each in bfloat16 and float16. The JSON
+    rows are the stage-1 join's."""
     rows = []
     for label, (B, H, W, C, residual) in EPI_TIMED.items():
         R = B * H * W
@@ -5331,17 +5890,31 @@ def epilogue_rows(errs, launches, flush, device, gpu):
                     "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None})
         chain_times(label, (B, H, W, C), x, res, dy, flush, device, gpu)
-        epilogue_bf16_times(label, R, C, residual, flush, device, gpu)
+        epilogue_half_times(label, torch.bfloat16, R, C, residual, flush,
+                            device, gpu)
+        epilogue_half_times(label, torch.float16, R, C, residual, flush,
+                            device, gpu, f16_launches)
     return rows
 
 
-def epilogue_bf16_times(label, R, C, residual, flush, device, gpu):
-    """Kernels 6 and 7 in bfloat16 (the bfloat16 nets' activations) at one
-    of EPI_TIMED's shapes, beside their plain versions and bounds (half
-    of the float32 bytes for the activations)."""
-    x, scale, shift, res, dy = epi_case(device, torch.bfloat16, R, C,
-                                        residual)
+def epilogue_half_times(label, dtype, R, C, residual, flush, device, gpu,
+                        launches=None):
+    """Kernels 6 and 7 in bfloat16 or float16 (the activations of the
+    nets `amp.convert_block` casts) at one of EPI_TIMED's shapes, each
+    held to its plain version (at EPI_TOL / the channel sums' tolerance)
+    and timed beside it and its bound (half of the float32 bytes for the
+    activations); `launches`, the kernels' launches on the path that ran
+    them in this dtype (phase 4h (a) for float16), is printed beside."""
+    x, scale, shift, res, dy = epi_case(device, dtype, R, C, residual)
     y = ep.bn_act_epilogue_fwd(x, scale, shift, res)
+    name = str(dtype).replace("torch.", "")
+    check(f"bn_act_epilogue_fwd {name} {label}", y,
+          ep.bn_act_epilogue_fwd_ref(x, scale, shift, res), EPI_TOL[dtype])
+    got = ep.bn_act_epilogue_bwd(x, scale, y, dy, residual)
+    want = ep.bn_act_epilogue_bwd_ref(x, scale, y, dy, residual)
+    for out, a, b in zip(("dx", "dscale", "dshift", "dres"), got, want):
+        check(f"bn_act_epilogue_bwd {name} {label} {out}", a, b,
+              *epi_grad_tol(out, dtype, R))
     calls = {
         "bn_act_epilogue_fwd": (
             lambda: ep.bn_act_epilogue_fwd(x, scale, shift, res),
@@ -5354,10 +5927,13 @@ def epilogue_bf16_times(label, R, C, residual, flush, device, gpu):
         ms = device_ms(kernel, flush=flush)
         plain_ms = device_ms(plain, flush=flush)
         b_ms, b_by = epilogue_bound_ms(R, C, 2, kernel_name, residual)
-        print(f"  {kernel_name} bfloat16 {label} R{R} C{C}"
+        print(f"  {kernel_name} {name} {label} R{R} C{C}"
               f"{' residual' if residual else ''}: kernel {ms * 1e3:.1f} "
               f"us, plain {plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
-              f"us ({b_by}) [{gpu}]")
+              f"us ({b_by})"
+              + ("" if launches is None else
+                 f"; launches on phase 4h (a)'s float16 path "
+                 f"{launches[kernel_name]}") + f" [{gpu}]")
 
 
 def chain_times(label, shape, x, res, dy, flush, device, gpu):
@@ -5599,11 +6175,13 @@ def busy_share(fn, label, gpu, steps=20, warm=True, top_n=6, kinds=False,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             result = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(WINDOW_MARGIN_S)
     kernels, ranges, events = {}, {}, {}
     for evt in prof.events():
         if evt.name in telemetry.SPAN_NAMES:
@@ -5800,6 +6378,13 @@ def main():
     torch.cuda.empty_cache()
 
     t_phase = phase_seconds(t_phase)
+    print("phase 4h: reduced precision, amp float16 and int8 (kernels 6-7 "
+          "in float16 and bfloat16)")
+    reduced = reduced_precision_leg(resnet["batch"], device, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_phase = phase_seconds(t_phase)
     print("phase 5: times")
     for leg, out in served.items():
         print(f"  tokens/s over the trace, levers {leg}: "
@@ -5864,7 +6449,7 @@ def main():
     torch.cuda.empty_cache()
     bench_runs(gpu)
     rows += epilogue_rows(errs, resnet["fused"]["launches"], flush, device,
-                          gpu)
+                          gpu, reduced["amp"]["launches"])
     torch.cuda.synchronize()
 
     phase_seconds(t_phase)

@@ -42,8 +42,13 @@ the Updater either way, so `save_states` / `load_states` see one set.
 The divergence guardrail (`MXTPU_GUARDRAIL_POLICY`) checks the
 gradients with one fused non-finite sweep (one host read) before they
 reach the optimizer: "skip" drops the update, "rollback" raises
-`GuardrailRollback`; "backoff" needs contrib.amp's loss scaler (Queue A
-6) and raises, naming it. With telemetry on a step is the
+`GuardrailRollback`, "backoff" drops it and halves contrib.amp's loss
+scale (attaching a unit scaler pinned at 1.0 when none is attached, so
+that later steps keep the overflow check). A scaler attached by
+`amp.init_trainer` skips a step whose gradients overflowed and unscales
+the others by the scale `amp.scale_loss` applied, at both local update
+sites (`step`, `update`); it is refused with server-side updates. With
+telemetry on a step is the
 `trainer.step` span, observes `mxtpu_trainer_step_seconds`, samples the
 memory watermarks (`telemetry.step_boundary()`) and closes the step
 statistics (`stepstats.step_end()`).
@@ -245,11 +250,6 @@ class Trainer:
             raise ValueError(
                 f"MXTPU_GUARDRAIL_POLICY={policy!r}; expected one of "
                 f"{_GUARDRAIL_POLICIES} (or empty to disable)")
-        if policy == "backoff":
-            raise NotImplementedError(
-                "MXTPU_GUARDRAIL_POLICY=backoff halves contrib.amp's "
-                "dynamic loss scale, and contrib.amp is not ported yet "
-                "(ROADMAP Queue A 6); use skip or rollback")
         inj = _fault.injector()
         if inj.active and inj.action("grad.nonfinite") is not None:
             live = self._live()
@@ -273,7 +273,38 @@ class Trainer:
                 "non-finite gradients detected; the step was not applied "
                 "— restore the last good checkpoint (Trainer.auto_resume) "
                 "and replay")
+        if policy == "backoff":
+            scaler = getattr(self, "_amp_scaler", None)
+            if scaler is None:
+                # no AMP in play: a unit scaler pinned at 1.0 (a huge
+                # window forbids growth) gives later steps the overflow
+                # check without rescaling unscaled losses
+                from ..contrib import amp as _amp
+
+                scaler = _amp.DynamicLossScaler(
+                    init_scale=1.0, scale_window=10 ** 9, min_scale=1.0)
+                self._amp_scaler = scaler
+            scaler.update_scale(True)
         return True
+
+    def _amp_pre_update(self, rescale):
+        """(skip_step, effective_rescale) for loss-scaled gradients (ref:
+        contrib/amp's loss-scaled step). Runs whenever a scaler is
+        attached: even at loss_scale 1.0 the overflow check keeps
+        non-finite gradients out of the weights."""
+        scaler = getattr(self, "_amp_scaler", None)
+        if scaler is None:
+            return False, rescale
+        # scale_loss records the scale it applied (a caller may override
+        # it); else the live scale
+        applied = getattr(self, "_amp_applied_scale", None)
+        if applied is None:
+            applied = scaler.loss_scale
+        if scaler.has_overflow([p.grad() for p in self._live()]):
+            scaler.update_scale(True)
+            return True, rescale
+        scaler.update_scale(False)
+        return False, rescale / applied
 
     # -- stepping -----------------------------------------------------------
 
@@ -312,11 +343,22 @@ class Trainer:
             self._sparse_service.push_grads()
         if self._guardrail_check("local_update"):
             return
+        skip, eff = self._amp_pre_update(rescale)
+        if skip:
+            return
+        self._optimizer.rescale_grad = eff
         with _telemetry.stepstats.phase("optimizer_update"):
             self._update(ignore_stale_grad)
 
     def _step_on_kvstore(self, rescale):
         """Push the gradients and pull the weights the store updated."""
+        if getattr(self, "_amp_scaler", None) is not None:
+            # per-worker overflow skips and scales would feed the shared
+            # server optimizer inconsistently: refuse
+            raise NotImplementedError(
+                "amp loss scaling is not supported with server-side "
+                "updates (update_on_kvstore); train in allreduce mode "
+                "or without a loss scaler")
         if rescale != self._kv_shipped_rescale:
             self._ship_optimizer_attrs(rescale_grad=rescale)
             self._kv_shipped_rescale = rescale
@@ -347,9 +389,14 @@ class Trainer:
         if self._update_on_kvstore:
             raise ValueError("update() is not supported when the optimizer "
                              "runs on the kvstore; call step()")
-        self._optimizer.rescale_grad = self._scale / batch_size
+        rescale = self._scale / batch_size
+        self._optimizer.rescale_grad = rescale
         if self._guardrail_check("update"):
             return
+        skip, eff = self._amp_pre_update(rescale)
+        if skip:
+            return
+        self._optimizer.rescale_grad = eff
         with _telemetry.stepstats.phase("optimizer_update"):
             self._update(ignore_stale_grad)
 

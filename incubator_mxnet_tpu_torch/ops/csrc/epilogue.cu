@@ -6,7 +6,8 @@
 //                             _epilogue_res_fwd_kernel):
 //                             y = relu(x * scale + shift [+ r]) over a
 //                             channels-last (R, C) activation, float32
-//                             math, y in x's type;
+//                             math, y in x's type (float32, bfloat16 or
+//                             float16);
 //   epilogue_bwd_kernel +  <- _epilogue_bwd_call (_epilogue_bwd_kernel):
 //   epilogue_reduce_kernel    mask = y > 0, dx = dy * mask * scale,
 //                             dres = dy * mask (residual variant),
@@ -21,11 +22,12 @@
 // theirs.
 //
 // Design. Each thread owns one fixed group of channels (W consecutive
-// channels, W = 4 float32 or 8 bfloat16 for one 16-byte load where C and
-// every pointer allow, else W = 1), so it loads its scale and shift once
-// and walks rows with a grid stride: a block of 256 threads covers
-// `cols` = min(C / W, 256) channel groups by 256 / cols rows per pass,
-// and a second grid dimension covers the channel groups beyond 256.
+// channels, W = 4 float32 or 8 bfloat16 / float16 for one 16-byte load
+// where C and every pointer allow, else W = 1), so it loads its scale
+// and shift once and walks rows with a grid stride: a block of 256
+// threads covers `cols` = min(C / W, 256) channel groups by 256 / cols
+// rows per pass, and a second grid dimension covers the channel groups
+// beyond 256.
 // Neighbouring threads read neighbouring addresses (rows are contiguous,
 // C elements apart), and each thread keeps kUnroll rows of loads in
 // flight.
@@ -46,6 +48,7 @@
 // the forward equals its plain PyTorch version bit for bit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,6 +69,10 @@ struct Vec<float> {
 };
 template <>
 struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+};
+template <>
+struct Vec<__half> {
   static constexpr int n = 8;
 };
 
@@ -104,6 +111,23 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&o)[W]) {
 }
 
 template <int W>
+__device__ __forceinline__ void load(const __half* p, float (&o)[W]) {
+  if constexpr (W == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) o[i] = __half2float(p[i]);
+  }
+}
+
+template <int W>
 __device__ __forceinline__ void store(float* p, const float (&x)[W]) {
   if constexpr (W == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -125,6 +149,21 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&x)[W]) {
   } else {
 #pragma unroll
     for (int i = 0; i < W; ++i) p[i] = __float2bfloat16(x[i]);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store(__half* p, const float (&x)[W]) {
+  if constexpr (W == 8) {
+    uint4 v;
+    __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2half2_rn(x[2 * i], x[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = __float2half_rn(x[i]);
   }
 }
 
@@ -408,13 +447,14 @@ cudaError_t bwd_dispatch(const void* x, const void* scale, const void* y,
 }
 
 bool valid(int dtype, int64_t rows, int64_t channels) {
-  return (dtype == 0 || dtype == 1) && rows >= 0 && channels >= 1 &&
+  return dtype >= 0 && dtype <= 2 && rows >= 0 && channels >= 1 &&
          channels <= (int64_t(1) << 30);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the type of x, r and y). x, r and y
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the type of x, r and
+// y). x, r and y
 // are contiguous (rows, channels); scale and shift are (channels,)
 // float32; r is null for the plain variant. Every pointer is device
 // memory; nothing is allocated and nothing synchronises. Returns the
@@ -429,8 +469,10 @@ extern "C" int mxtpu_bn_act_epilogue_fwd(int dtype, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return fwd_dispatch<float>(x, scale, shift, res, y, rows, channels, s);
-  return fwd_dispatch<__nv_bfloat16>(x, scale, shift, res, y, rows,
-                                     channels, s);
+  if (dtype == 1)
+    return fwd_dispatch<__nv_bfloat16>(x, scale, shift, res, y, rows,
+                                       channels, s);
+  return fwd_dispatch<__half>(x, scale, shift, res, y, rows, channels, s);
 }
 
 // Floats of workspace that mxtpu_bn_act_epilogue_bwd needs for these
@@ -440,7 +482,9 @@ extern "C" int64_t mxtpu_bn_act_epilogue_bwd_workspace(int dtype,
                                                        int64_t rows,
                                                        int64_t channels) {
   if (!valid(dtype, rows, channels)) return -1;
-  const int w = dtype == 0 ? Vec<float>::n : Vec<__nv_bfloat16>::n;
+  const int w = dtype == 0   ? Vec<float>::n
+                : dtype == 1 ? Vec<__nv_bfloat16>::n
+                             : Vec<__half>::n;
   int blocks = bwd_blocks(rows, channels, 1);
   if (channels % w == 0) {
     const int vec = bwd_blocks(rows, channels, w);
@@ -468,8 +512,12 @@ extern "C" int mxtpu_bn_act_epilogue_bwd(int dtype, const void* x,
   if (dtype == 0)
     return bwd_dispatch<float>(x, scale, y, dy, dx, dres, workspace,
                                dscale_dshift, rows, channels, s);
-  return bwd_dispatch<__nv_bfloat16>(x, scale, y, dy, dx, dres, workspace,
-                                     dscale_dshift, rows, channels, s);
+  if (dtype == 1)
+    return bwd_dispatch<__nv_bfloat16>(x, scale, y, dy, dx, dres,
+                                       workspace, dscale_dshift, rows,
+                                       channels, s);
+  return bwd_dispatch<__half>(x, scale, y, dy, dx, dres, workspace,
+                              dscale_dshift, rows, channels, s);
 }
 
 extern "C" const char* mxtpu_cuda_error_string(int err) {

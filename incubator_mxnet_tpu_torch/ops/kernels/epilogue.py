@@ -19,7 +19,8 @@ counterpart of the JAX `bn_act_epilogue` with its custom VJPs
 scale, y) and not the pre-activation (the backward rebuilds the mask
 from y), and returns gradients for x, scale, shift and the residual.
 
-x, the residual and dy are float32 or bfloat16, all of one dtype; scale
+x, the residual and dy are float32, bfloat16 or float16, all of one
+dtype; scale
 and shift are (C,) and read as float32. dscale and dshift are float32.
 
 Dispatch rule: a CUDA tensor goes to the kernel (or the wrapper raises),
@@ -45,7 +46,7 @@ __all__ = ["bn_act_epilogue", "bn_act_epilogue_fwd",
            "bn_act_epilogue_fwd_ref", "bn_act_epilogue_bwd",
            "bn_act_epilogue_bwd_ref"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,8 +108,8 @@ def _check(name, x, scale, *channel_vectors):
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be (R, C), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"{name}: dtype {x.dtype} is not float32 or "
-                         f"bfloat16")
+        raise ValueError(f"{name}: dtype {x.dtype} is not float32, "
+                         f"bfloat16 or float16")
     C = x.shape[1]
     if C < 1:
         raise ValueError(f"{name}: no channels")
@@ -122,9 +123,9 @@ def _check(name, x, scale, *channel_vectors):
 
 
 def bn_act_epilogue_fwd(x, scale, shift, residual=None):
-    """Epilogue forward: x (R, C) float32 or bfloat16, scale and shift
-    (C,), residual (R, C) of x's dtype or None. Returns y (R, C) in x's
-    dtype.
+    """Epilogue forward: x (R, C) float32, bfloat16 or float16, scale
+    and shift (C,), residual (R, C) of x's dtype or None. Returns y (R, C)
+    in x's dtype.
 
     CUDA tensors run the Hopper kernel of `ops/csrc/epilogue.cu` (each
     thread one fixed group of channels, 16-byte loads where C and the
@@ -151,8 +152,8 @@ bn_act_epilogue_fwd.launches = 0
 
 
 def bn_act_epilogue_bwd(x, scale, y, dy, with_residual=False):
-    """Epilogue backward: x, y and dy (R, C) of one dtype (float32 or
-    bfloat16), scale (C,). Returns (dx, dscale, dshift) and, with
+    """Epilogue backward: x, y and dy (R, C) of one dtype (float32,
+    bfloat16 or float16), scale (C,). Returns (dx, dscale, dshift) and, with
     `with_residual`, dres: dx and dres (R, C) in x's dtype, dscale and
     dshift (C,) float32.
 

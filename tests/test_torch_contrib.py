@@ -415,19 +415,18 @@ def test_dlpack_round_trips():
 
 
 def test_nd_namespaces_cover_jax():
-    """Every public function of JAX's nd.contrib, nd.image and nd.linalg
-    but the quantized family's (ROADMAP Queue A 6b) is in the port's."""
-    from incubator_mxnet_tpu.ops.registry import OP_REGISTRY as JAX_REG
-
-    quantized = {n[len("_contrib_"):] for n, o in JAX_REG.items()
-                 if n.startswith("_contrib_")
-                 and o.fn.__module__.endswith("quantized")}
+    """Every public function of JAX's nd.contrib (the quantized family's
+    9 among them), nd.image and nd.linalg is in the port's."""
     for sub in ("contrib", "image", "linalg"):
         want = {n for n in dir(getattr(jmx.nd, sub)) if not n.startswith("_")
                 and callable(getattr(getattr(jmx.nd, sub), n))}
         have = set(dir(getattr(tmx.nd, sub)))
-        missing = want - {"NDArray", "OP_REGISTRY"} - quantized - have
+        missing = want - {"NDArray", "OP_REGISTRY"} - have
         assert not missing, (sub, sorted(missing))
+    assert {"quantize", "quantize_v2", "dequantize", "requantize",
+            "quantized_conv", "quantized_fully_connected",
+            "quantized_pooling", "quantized_flatten",
+            "quantized_concat"} <= set(dir(tmx.nd.contrib))
     rng = np.random.RandomState(6)
     a = rng.randn(3, 4).astype(np.float32)
     for fn, args in ((lambda nd, x: nd.contrib.index_copy(

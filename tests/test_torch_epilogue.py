@@ -5,7 +5,8 @@ The port's wrappers run their plain versions on CPU tensors; the JAX
 `bn_act_epilogue` runs its Pallas kernels in interpret mode, with a
 ragged row grid where the JAX tests use one (75 rows, block_rows 7).
 Tolerances are those of `tests/test_memory_traffic.py`: forward atol
-1e-6, gradients atol 1e-4, bfloat16 I/O atol 2e-2.
+1e-6, gradients atol 1e-4, bfloat16 I/O atol 2e-2; float16 I/O rtol
+1e-3 forward (one float16 rounding) and 2e-2 for the gradients.
 """
 import numpy as np
 
@@ -97,6 +98,45 @@ def test_bfloat16_io():
     live = (y.float() > 0).float()
     np.testing.assert_allclose(dshift.numpy(), live.sum(0).numpy(), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["plain", "residual"])
+def test_float16_matches_jax(residual):
+    """float16 activations (what amp.convert_block(net, "float16") makes):
+    the plain versions against JAX's kernels in interpret mode, y in
+    float16 at rtol 1e-3 (one float16 rounding of the float32 result),
+    the gradients of sum(y ** 2) at the bfloat16 tolerance 2e-2, dx and
+    dres in float16, dscale and dshift in float32."""
+    x, scale, shift, res = _case((75, 8), 6, residual)
+    f16 = [None if a is None else jnp.asarray(a).astype(jnp.float16)
+           for a in (x, res)]
+
+    def f(x, s, b, *r):
+        y = jax_epi(x, s, b, residual=r[0] if r else None, block_rows=7,
+                    interpret=True)
+        return jnp.sum(y.astype(jnp.float32) ** 2), y
+
+    jargs = [f16[0], jnp.asarray(scale), jnp.asarray(shift)] + \
+        ([f16[1]] if residual else [])
+    want, jy = jax.grad(f, argnums=tuple(range(len(jargs))),
+                        has_aux=True)(*jargs)
+    assert jy.dtype == jnp.float16
+    targs = [_t(x, torch.float16, True), _t(scale, grad=True),
+             _t(shift, grad=True)]
+    if residual:
+        targs.append(_t(res, torch.float16, True))
+    y = ep.bn_act_epilogue(*targs[:3], targs[3] if residual else None)
+    assert y.dtype == torch.float16
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(jy, np.float32), rtol=1e-3,
+                               atol=0)
+    (y.float() ** 2).sum().backward()
+    for name, t, w in zip(("dx", "dscale", "dshift", "dres"), targs, want):
+        assert t.grad.dtype == t.dtype, name
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=2e-2,
+                                   atol=2e-2, err_msg=name)
 
 
 def test_dead_elements_keep_nan_out_of_the_sums():

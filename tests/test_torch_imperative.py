@@ -466,8 +466,11 @@ def test_guardrail_policies(policy, monkeypatch):
         with pytest.raises(tmx.gluon.trainer.GuardrailRollback):
             trainer.step(2)
     else:
-        with pytest.raises(NotImplementedError, match="contrib.amp"):
-            trainer.step(2)
+        # the step is skipped and a unit loss scaler pinned at 1.0 is
+        # attached (contrib.amp's), as in the JAX package
+        trainer.step(2)
+        np.testing.assert_array_equal(net.weight.data().asnumpy(), before)
+        assert trainer._amp_scaler.loss_scale == 1.0
 
 
 def test_trainer_step_span_and_histogram():

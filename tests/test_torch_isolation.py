@@ -116,6 +116,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
             "from incubator_mxnet_tpu_torch.gluon.data.vision import "
             "datasets, transforms; "
             "from incubator_mxnet_tpu_torch.gluon import Constant; "
+            "from incubator_mxnet_tpu_torch.contrib import amp, "
+            "quantization; "
+            "from incubator_mxnet_tpu_torch.ops import quantized; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -279,3 +282,34 @@ def test_vision_entry_points_default_to_cuda():
     t = gluon.data.vision.transforms.ToTensor()(np.zeros((2, 2, 3),
                                                          np.uint8))
     assert t.context == tmx.cpu()
+
+
+def test_quantized_net_and_scaler_default_to_cuda():
+    """A quantized net, the int8 wire functions and the loss scaler's
+    overflow check on arrays with no context mean the card, which raises
+    without CUDA; with device="cpu" / cpu() they run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    import numpy as np
+
+    import incubator_mxnet_tpu_torch as tmx
+    from incubator_mxnet_tpu_torch.contrib import amp
+    from incubator_mxnet_tpu_torch.contrib import quantization as q
+
+    net = tmx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(tmx.gluon.nn.Dense(3, in_units=4))
+    x = np.ones((2, 4), np.float32)
+    for call in (lambda: net.initialize(),
+                 lambda: q.quantize_net(net, [[x]]),
+                 lambda: q.quantize(x),
+                 lambda: amp.DynamicLossScaler().has_overflow([x])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    net.initialize(device="cpu")
+    with tmx.cpu():
+        qnet = q.quantize_net(net, [[x]])
+        assert qnet.device == torch.device("cpu")
+        assert qnet(x).shape == (2, 3)
+        assert q.quantize(x)[0].context == tmx.cpu()
+        assert not amp.DynamicLossScaler().has_overflow([x])

@@ -164,31 +164,31 @@ def _parity(key, name=None, family="core"):
 
 
 def test_registry_covers_the_jax_ops():
-    """Every name of JAX's ops/tensor.py, ops/nn.py (RNN and the CTC loss
-    among them), ops/random.py, ops/optimizer.py (the 20 update ops),
-    ops/vision.py and ops/contrib_ops.py is registered in the port, with
-    JAX's inputs, attributes and non-differentiated inputs (and, for the
-    vision and contrib ops, its aux and optional inputs and output
-    counts). Only ops/quantized.py's 9 ops are missing."""
+    """Every name of JAX's registry (ops/tensor.py, ops/nn.py with RNN and
+    the CTC loss, ops/random.py, ops/optimizer.py's 20 update ops,
+    ops/vision.py, ops/contrib_ops.py and ops/quantized.py's 9 int8 ops)
+    is registered in the port, with JAX's inputs, attributes and
+    non-differentiated inputs (and, for the vision, contrib and quantized
+    ops, its aux and optional inputs and output counts). No JAX op is
+    missing: `list_ops()` is one set of 288 in both packages."""
     from incubator_mxnet_tpu.ops.registry import OP_REGISTRY as JAX_REG
+    from incubator_mxnet_tpu.ops.registry import list_ops as jax_ops
+    from incubator_mxnet_tpu_torch.ops.registry import list_ops
 
     pre = "incubator_mxnet_tpu.ops."
-    mods = tuple(pre + m for m in ("tensor", "nn", "random", "optimizer",
-                                   "vision", "contrib_ops"))
-    want = {n for n, o in JAX_REG.items() if o.fn.__module__ in mods}
-    assert set(OP_REGISTRY) == want
-    assert len(OP_REGISTRY) == 401
-    assert {o.fn.__module__ for n, o in JAX_REG.items()
-            if n not in OP_REGISTRY} == {pre + "quantized"}
+    assert set(OP_REGISTRY) == set(JAX_REG)
+    assert len(OP_REGISTRY) == 410
+    assert set(list_ops()) == set(jax_ops()) and len(list_ops()) == 288
     for name in OP_REGISTRY:
         j, t = JAX_REG[name], OP_REGISTRY[name]
         assert (t.name, tuple(t.inputs), t.variadic) == \
             (j.name, tuple(j.inputs), j.variadic), name
         assert set(t.attrs) == set(j.attrs), name
         if j.fn.__module__ in (pre + "optimizer", pre + "vision",
-                               pre + "contrib_ops"):
+                               pre + "contrib_ops", pre + "quantized"):
             assert set(t.no_grad_inputs) == set(j.no_grad_inputs), name
-        if j.fn.__module__ in (pre + "vision", pre + "contrib_ops"):
+        if j.fn.__module__ in (pre + "vision", pre + "contrib_ops",
+                               pre + "quantized"):
             assert (tuple(t.aux), tuple(t.optional), t.needs_training) == \
                 (tuple(j.aux), tuple(j.optional), j.needs_training), name
             for attrs in ({}, {"output_score": True}):

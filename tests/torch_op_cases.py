@@ -42,6 +42,16 @@ def I(vals):
     return np.asarray(vals, np.float32)
 
 
+def Q8(rng, *shape):
+    """int8 codes of the quantized ops, -127..127."""
+    return rng.randint(-127, 128, shape).astype(np.int8)
+
+
+def Q32(rng, *shape, hi=10000):
+    """int32 biases or accumulators of the quantized ops."""
+    return rng.randint(-hi, hi, shape).astype(np.int32)
+
+
 def SPD(rng, n):
     a = A(rng, n, n)
     return (a @ a.T + n * np.eye(n)).astype(np.float32)
@@ -509,7 +519,33 @@ CASES["_contrib_getnnz"] = _unary(_rd(3, 4))
 CASES["IdentityAttachKLSparseReg"] = lambda r: (
     [A(r, 4, 3)], {"sparseness_target": 0.2, "penalty": 0.01})
 
-# the modes of the vision and contrib ops beside their one case each
+# the quantized family (ops/quantized.py): int8 codes, int32 biases and
+# accumulators, float32 ranges of shape (1,) as the reference passes them
+CASES["_contrib_quantized_conv"] = lambda r: (
+    [Q8(r, 2, 3, 7, 7), Q8(r, 4, 3, 3, 3), Q32(r, 4)],
+    {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "num_filter": 4,
+     "no_bias": False})
+CASES["_contrib_quantized_fully_connected"] = lambda r: (
+    [Q8(r, 3, 2, 5), Q8(r, 4, 10), Q32(r, 4)],
+    {"num_hidden": 4, "no_bias": False})
+CASES["_contrib_quantized_pooling"] = lambda r: (
+    [Q8(r, 2, 3, 7, 7)], {"kernel": (3, 3), "stride": (2, 2),
+                          "pad": (1, 1), "pool_type": "max"})
+CASES["_contrib_quantize"] = lambda r: ([A(r, 3, 4), I([-1.5]), I([2.0])],
+                                        {})
+CASES["_contrib_quantize_v2"] = _unary(_a(3, 4))
+CASES["_contrib_dequantize"] = lambda r: ([Q8(r, 3, 4), I([-1.5]),
+                                           I([2.0])], {})
+CASES["_contrib_requantize"] = lambda r: (
+    [Q32(r, 3, 4, hi=2 ** 30), I([-3.0]), I([4.0])], {})
+CASES["_contrib_quantized_flatten"] = lambda r: (
+    [Q8(r, 2, 3, 2, 2), I([-1.0]), I([1.0])], {})
+CASES["_contrib_quantized_concat"] = lambda r: (
+    [Q8(r, 2, 3), Q8(r, 2, 2), I([-1.0]), I([-2.0]), I([1.5]), I([0.5])],
+    {"num_args": 2, "dim": 1})
+
+# the modes of the vision, contrib and quantized ops beside their one
+# case each
 FAMILY_EXTRA = [
     ("_contrib_box_iou", lambda r: ([BOX(r, 4), BOX(r, 3)],
                                     {"format": "center"})),
@@ -572,6 +608,40 @@ FAMILY_EXTRA = [
     ("_contrib_SyncBatchNorm", lambda r: (
         [A(r, 4, 3, 2), P(r, 3), A(r, 3), A(r, 3), P(r, 3)],
         {"use_global_stats": True})),
+    # grouped with dilation, depthwise with a channel multiplier, 1-D
+    ("_contrib_quantized_conv", lambda r: (
+        [Q8(r, 2, 4, 7, 7), Q8(r, 6, 2, 3, 3)],
+        {"kernel": (3, 3), "dilate": (2, 2), "num_filter": 6,
+         "num_group": 2})),
+    ("_contrib_quantized_conv", lambda r: (
+        [Q8(r, 2, 4, 6, 6), Q8(r, 8, 1, 3, 3), Q32(r, 8)],
+        {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "num_filter": 8,
+         "num_group": 4, "no_bias": False})),
+    ("_contrib_quantized_conv", lambda r: (
+        [Q8(r, 2, 3, 9), Q8(r, 5, 3, 3)],
+        {"kernel": (3,), "stride": (2,), "num_filter": 5})),
+    ("_contrib_quantized_fully_connected", lambda r: (
+        [Q8(r, 2, 3, 5), Q8(r, 4, 5)], {"num_hidden": 4, "flatten": False})),
+    # avg windows of 6 (even, not a power of two: .5 ties), 'full'
+    # convention, global
+    ("_contrib_quantized_pooling", lambda r: (
+        [Q8(r, 2, 3, 6, 9)], {"kernel": (2, 3), "stride": (2, 3),
+                              "pool_type": "avg"})),
+    ("_contrib_quantized_pooling", lambda r: (
+        [Q8(r, 2, 3, 8, 8)], {"kernel": (3, 3), "stride": (2, 2),
+                              "pool_type": "avg",
+                              "pooling_convention": "full"})),
+    ("_contrib_quantized_pooling", lambda r: (
+        [Q8(r, 2, 3, 7, 7)], {"kernel": (3, 3), "stride": (2, 2),
+                              "pool_type": "max",
+                              "pooling_convention": "full"})),
+    ("_contrib_quantized_pooling", lambda r: (
+        [Q8(r, 2, 3, 5, 5)], {"global_pool": True, "pool_type": "avg"})),
+    ("_contrib_quantize_v2", lambda r: (
+        [A(r, 3, 4)], {"min_calib_range": -0.5, "max_calib_range": 1.0})),
+    ("_contrib_requantize", lambda r: (
+        [Q32(r, 3, 4, hi=2 ** 30), I([-3.0]), I([4.0])],
+        {"min_calib_range": -2.0, "max_calib_range": 2.0})),
 ]
 
 # an alias whose case differs from its op's (a second path of the op)
@@ -655,9 +725,11 @@ def _random_name(name):
 
 
 ALL_NAMES = sorted(OP_REGISTRY)
-# the registry's families by the port's module: `vision` and `contrib`
-# (ops/vision.py, ops/contrib_ops.py) have test files of their own
-FAMILY = {n: {"vision": "vision", "contrib_ops": "contrib"}.get(
+# the registry's families by the port's module: `vision`, `contrib` and
+# `quantized` (ops/vision.py, ops/contrib_ops.py, ops/quantized.py) have
+# test files of their own
+FAMILY = {n: {"vision": "vision", "contrib_ops": "contrib",
+              "quantized": "quantized"}.get(
     OP_REGISTRY[n].fn.__module__.rsplit(".", 1)[1], "core")
     for n in ALL_NAMES}
 DETERMINISTIC = [n for n in ALL_NAMES if not _random_name(n)]
